@@ -1,6 +1,7 @@
 // LF step over the fused [bwt8|occ4] index rows, shared by fm_search.cu
-// and sa_resolve.cu: fm_lf, one thread per LF, and fm_lf2_pair, two
-// lanes per pair of LFs (the sweep kernel).
+// (fm_lf, one thread per LF; fm_lf2_pair, two lanes per pair of LFs, the
+// sweep kernel) and sa_resolve.cu (the row and its count, FmRow and
+// fm_count_below).
 //
 // Replaces: bowtie2_tpu/ops/fm.py occ_batch (+ _occ_rows, _crumbs, _fchr_at),
 // which unpacks a row into 128 2-bit crumbs and compares/sums them on the

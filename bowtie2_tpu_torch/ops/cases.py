@@ -1,11 +1,12 @@
 """Seeded synthetic inputs for the exactness sweep of the rectangle DP
-(`sw_rect`) and the read sweep (`fm_sweep`): shapes, modes and codes that
-the main path's first call does not reach. numpy only.
+(`sw_rect`), the read sweep (`fm_sweep`), the direction walk (`backtrace`)
+and the SA-offset walk (`sa_resolve`): shapes, modes and codes that the
+main path's first call does not reach. numpy only.
 
 chip_smoke.py holds each kernel to its plain PyTorch version on every case
 on the card; tests/test_torch_sw.py and tests/test_torch_fm.py hold the
-plain versions to the JAX package's `sw_banded` and `exact_sweep_rr` on the
-same cases on the CPU.
+plain versions to the JAX package's `sw_banded`, `exact_sweep_rr`,
+`backtrace` and `sa_resolve` on the same cases on the CPU.
 
 DP cases cover window widths of both DP kernels (one warp a problem up to
 256 and 512 columns, one block beyond) and both column counts a thread
@@ -13,9 +14,19 @@ DP cases cover window widths of both DP kernels (one warp a problem up to
 barriers 0, 4 and 10, word-aligned windows (`col_lo`) and plain ones, N
 codes in reads and windows, columns outside the reference, short reads
 padded with N, and tandem repeats whose best cells tie.
+
+Walk cases start from every DP case's best cells and from row 0, lane 0,
+lane W - 1, a row past the read's end and a duplicated candidate; two
+cases of random direction words add walks that run out of steps and
+walks whose column goes below 0; a bulk case repeats one case's walks to
+9,000 at scale 8, past the walk count at which the kernel runs one
+thread a walk. Resolve cases hold rows at every walk
+length, marked rows, rows 0, n and z_off, the last block's rows, and one
+bulk case that at scale 8 holds more rows than an H100 runs threads at
+once, so the kernel's blocks (one thread a row) run in several waves.
 """
 
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -143,3 +154,164 @@ def sweep_cases(genome: np.ndarray, seed: int = 0, scale: int = 1
             rr[b, :n] = row
         out.append((f"B{B}_L{L}", rr))
     return out
+
+
+# ---------------------------------------------------------------------------
+# direction walk (backtrace)
+# ---------------------------------------------------------------------------
+
+class BTCase(NamedTuple):
+    name: str
+    dirs: np.ndarray       # (Lmax, B, Wp) int32 packed direction words
+    sel: np.ndarray        # (Bc,) int32 problem of each walk
+    rows: np.ndarray       # (Bc,) int32 start row
+    lanes: np.ndarray      # (Bc,) int32 start column
+    reads: np.ndarray      # (Bc, Lmax) int32
+    quals: np.ndarray      # (Bc, Lmax) int32
+    wins: np.ndarray       # (Bc, W) int32
+    band: int
+    local: bool
+    gbar: int
+
+    def params(self) -> dict:
+        """Keyword arguments of SWParams (either package's)."""
+        return dict(match_bonus=2 if self.local else 0, local=self.local,
+                    gap_barrier=self.gbar)
+
+
+BULK_WALKS = 1125      # bulk walk case: walks a unit of scale
+BULK_SOURCE = "W224_L128_e2e"   # the DP case it repeats (main-path shape)
+
+
+def bt_case(c: DPCase, row: np.ndarray, lane: np.ndarray,
+            dirs: np.ndarray, walks: int = 0) -> BTCase:
+    """Walks over one DP case's direction words (`row`, `lane`, `dirs`
+    from sw_banded on the case): each problem from its best cell, from
+    row 0, from lane 0 and lane W - 1 of its best row, and from a row past
+    its read's end (the last row when the read fills Lmax); the first walk
+    again at the end (a duplicated candidate). `walks` > 0 repeats them to
+    that many walks."""
+    B, Lmax = c.reads.shape
+    W = c.wins.shape[1]
+    pb = np.arange(B)
+    past = np.minimum(c.lens, Lmax - 1)
+    sel = np.concatenate([pb] * 5 + [[0]])
+    rows = np.concatenate([row, np.zeros(B, np.int64), row, row, past,
+                           row[:1]])
+    lanes = np.concatenate([lane, lane, np.zeros(B, np.int64),
+                            np.full(B, W - 1), lane, lane[:1]])
+    name = f"bt_{c.name}"
+    if walks:
+        pick = np.resize(np.arange(sel.size), walks)
+        sel, rows, lanes = sel[pick], rows[pick], lanes[pick]
+        name = f"bt_bulk{walks}_{c.name}"
+    return BTCase(name, np.ascontiguousarray(dirs, np.int32),
+                  sel.astype(np.int32), rows.astype(np.int32),
+                  lanes.astype(np.int32), c.reads[sel], c.quals[sel],
+                  c.wins[sel], c.band, c.local, c.gbar)
+
+
+def bt_random_cases(seed: int = 0, scale: int = 1) -> List[BTCase]:
+    """Random direction words, mostly diagonal moves, in both modes.
+    In half the problems column 0 holds "F from F-extension" (a deletion
+    that goes on): a walk that reaches it in mode 0 or 2 deletes at column
+    0 for ever, its column going below 0, until the steps run out."""
+    rng = np.random.default_rng(seed + 100)
+    out = []
+    for local, Lmax, W in ((False, 60, 150), (True, 45, 300)):
+        B = 6 * scale
+        src = rng.choice(4, size=(Lmax, B, W), p=[0.75, 0.1, 0.1, 0.05])
+        cells = src | (rng.integers(0, 4, (Lmax, B, W)) << 2)
+        cells[:, ::2, 0] = 2 | 8
+        Wp = (W + 7) // 8
+        pad = np.zeros((Lmax, B, 8 * Wp), np.int64)
+        pad[:, :, :W] = cells
+        words = (pad.reshape(Lmax, B, Wp, 8)
+                 << (4 * np.arange(8))).sum(axis=3)
+        dirs = words.astype(np.uint32).view(np.int32)
+        Bc = 4 * B
+        sel = np.tile(np.arange(B), 4)
+        rows = rng.integers(-1, Lmax + 2, Bc)
+        rows[:B] = Lmax - 1
+        lanes = rng.integers(-2, W + 2, Bc)
+        lanes[:B] = rng.integers(0, 12, B)
+        reads = rng.integers(0, 5, (Bc, Lmax)).astype(np.int32)
+        quals = rng.integers(0, 42, (Bc, Lmax)).astype(np.int32)
+        wins = rng.integers(0, 6, (Bc, W)).astype(np.int32)
+        out.append(BTCase(f"bt_random_{'local' if local else 'e2e'}_L{Lmax}"
+                          f"_W{W}", dirs, sel.astype(np.int32),
+                          rows.astype(np.int32), lanes.astype(np.int32),
+                          reads, quals, wins, SW_BAND, local, 4))
+    return out
+
+
+def bt_cases(dp: Callable[[DPCase], tuple], seed: int = 0,
+             scale: int = 1) -> List[BTCase]:
+    """Every walk case: `dp(case)` gives (row, lane, dirs) numpy arrays of
+    sw_banded on a DP case (either version: they are equal)."""
+    dps = dp_cases(seed=seed, scale=scale)
+    bulk = next(c for c in dps if c.name.startswith(BULK_SOURCE))
+    return ([bt_case(c, *dp(c)) for c in dps]
+            + [bt_case(bulk, *dp(bulk), walks=BULK_WALKS * scale)]
+            + bt_random_cases(seed=seed, scale=scale))
+
+
+# ---------------------------------------------------------------------------
+# SA-offset walk (sa_resolve)
+# ---------------------------------------------------------------------------
+
+RESOLVE_PERIODS = (1, 16, 32)
+RESOLVE_KINDS = ("lengths", "ends", "bulk")
+
+
+def walk_lengths(half, rows: np.ndarray, period: int) -> np.ndarray:
+    """LF steps from each row to a marked row (at most `period`), from a
+    host index half (index/build.py HalfIndex: bwt_words, occ_cp, fchr,
+    z_off, mark_words)."""
+    words = np.asarray(half.bwt_words).view(np.uint32).reshape(-1, 8)
+    marks = np.asarray(half.mark_words).view(np.uint32)
+    occ = np.asarray(half.occ_cp, np.int64)
+    fchr = np.asarray(half.fchr, np.int64)
+    sh = 2 * np.arange(16, dtype=np.uint32)
+    lane = np.arange(128)
+    row = np.asarray(rows, np.int64).copy()
+    steps = np.zeros(row.size, np.int64)
+    live = np.ones(row.size, bool)
+    for _ in range(period):
+        marked = ((marks[row >> 5] >> (row & 31).astype(np.uint32)) & 1) == 1
+        live &= ~marked
+        if not live.any():
+            break
+        r = row[live]
+        block, pos = r >> 7, r & 127
+        crumbs = ((words[block][:, :, None] >> sh) & 3).reshape(-1, 128)
+        c = crumbs[np.arange(r.size), pos].astype(np.int64)
+        below = ((crumbs == c[:, None]) & (lane < pos[:, None])).sum(axis=1)
+        row[live] = (fchr[c] + occ[block, c] + below
+                     - ((c == 0) & (r > half.z_off)))
+        steps[live] += 1
+    return steps
+
+
+def resolve_cases(half, period: int, seed: int = 0, scale: int = 1
+                  ) -> List[tuple]:
+    """(kind, rows) pairs over one index half whose marks sit every
+    `period` text positions (off_rate log2(period)):
+    - lengths: `2 * scale` rows at every walk length 0 .. period - 1 that
+      a random pool holds (marked rows are length 0);
+    - ends: rows 0, n, z_off and its neighbours, and the last block's
+      rows;
+    - bulk: 8192 * scale^2 random rows (524,288 at scale 8, beyond the
+      rows an H100 holds one a lane)."""
+    rng = np.random.default_rng(seed + 7 * period)
+    nrows = half.n + 1
+    pool = rng.integers(0, nrows, 256 * period * scale)
+    lens = walk_lengths(half, pool, period)
+    picks = [pool[lens == k][:2 * scale] for k in range(period)]
+    lengths = rng.permutation(np.concatenate(picks))
+    last = np.arange(128 * ((nrows - 1) // 128), nrows)
+    ends = np.concatenate([[0, half.n, half.z_off, max(half.z_off - 1, 0),
+                            min(half.z_off + 1, half.n)], last])
+    bulk = rng.integers(0, nrows, 8192 * scale * scale)
+    return [(k, np.asarray(r, np.int32)) for k, r in
+            zip(RESOLVE_KINDS, (lengths, ends, bulk))]

@@ -23,7 +23,9 @@ Phases, each of which exits non-zero when it fails:
    every kernel launch (and around the window gathers, which are torch
    ops) give each kernel's total device time over the run, printed with
    the sum's share of the main path's wall time (the `device time:`
-   line), a lower bound on the card's busy share.
+   line), a lower bound on the card's busy share; the `call shapes:` line
+   splits the walk's and the SA walk's totals by the sizes that pick
+   their kernels' launch shape.
 4. The output: the SAM groups of the first batch must be byte-identical
    to the same aligner's run with device="cpu" (the plain versions).
 5. The --local path: the first batch again with --sensitive-local, with
@@ -31,17 +33,29 @@ Phases, each of which exits non-zero when it fails:
 6. The kernels: each kernel is run again on the inputs the end-to-end
    path gave it first and held to its plain version on the same card
    tensors (exact equality: every contract is integer), and so are the
-   inputs the --local path gave it; the end-to-end ones are timed with
-   CUDA events, and the least time the card could take is computed from
+   inputs the --local path gave it and, for the walk and the SA walk, the
+   first end-to-end call large enough to take another launch shape (the
+   `bulk` entry); the end-to-end ones are timed with
+   CUDA events, back to back (`ms`) and each launch alone after the card
+   has idled IDLE_S seconds (`idle_ms`), as it idles between the
+   host-paced calls of the main path, and the least time the card could
+   take is computed from
    them: the larger of the bytes the function must move over 3.35 TB/s
    and the integer operations it needs over 67 T/s (see OPS_* below).
-   The DP (sw_rect) and the read sweep (fm_sweep) are also held to their
+   The DP (sw_rect), the read sweep (fm_sweep), the direction walk
+   (backtrace) and the SA-offset walk (sa_resolve) are also held to their
    plain versions on every synthetic case of bowtie2_tpu_torch/ops/
-   cases.py (the CPU tests hold those plain versions to the JAX package
-   on the same cases), and timed on one block's worth of problems, which
-   measures the dependency chain of one problem alone (`chain_ms`). The
-   DP's log line also gives the cells its data needs and, derived from
-   them, its issue floor.
+   cases.py at scale 1 and 8 (the CPU tests hold those plain versions to
+   the JAX package on the same cases), and timed on one block's worth of
+   problems, which measures the dependency chain of one problem alone
+   (`chain_ms`). The DP's log line also gives the cells its data needs
+   and, derived from them, its issue floor; the walk's, the share of its
+   steps past the walk's end (`tail_share`); the SA walk's log line, as
+   figures derived from a replay of the plain walk and not measured, the
+   share of lane-steps its 32-row warps idle (`lane_idle_share`) and the
+   L2 sectors its steps ask for, over the kernel's time. The SE gapless
+   readout (ops/sw.py diag_readout, torch ops) is timed as the window
+   gather is.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -90,23 +104,44 @@ PEAK_OPS_S = 67e12
 # - one backtrace step: the cell's direction bits (shift, AND), the move
 #   (compare, select), row and column (two adds), the op byte (shift, OR)
 #   and the score term (add): 9.
+# A model, for a derived figure only: the SA walk asks for SECTORS_STEP
+# 32-byte sectors a LF step (the mark word's, and the two the 48-byte FM
+# row spans at its 16-byte alignment) and SECTORS_ROW a row (the marked
+# row's mark word, its rank words and the offset).
 OPS_LF = 31
 OPS_RESOLVE_STEP = 35
 OPS_RESOLVE_ROW = 9
 OPS_DP_CELL = 12
 OPS_BT_STEP = 9
+SECTORS_STEP = 3
+SECTORS_ROW = 3
 
 # a spin of the stream before each timed span, so its start event fires
 # only once the host has queued the work inside it: the span then holds
 # device time and not launch latency (about 0.1 ms and 0.5 ms at 2 GHz)
 SPIN_KERNEL = 200_000
 SPIN_TORCH_OPS = 1_000_000
+# and a spin for each launch of a back-to-back timing, longer than any
+# wrapper's host time (a short kernel is otherwise timed at the host's
+# pace: the walk's wrapper takes about 0.1 ms on the host)
+SPIN_REP = 1_000_000
+
+# the host's sleep before each launch that `idle_ms` times
+IDLE_S = 0.05
+
+# positions in the C call's arguments of the sizes that pick a kernel's
+# launch shape: backtrace (walks, Lmax, W, S), sa_resolve (rows)
+SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,)}
+
+# backtrace.cu runs one thread a walk past LANE_WAVES (4) waves of its
+# warp kernel, two blocks of NW (8) walks an SM: past this many walks an SM
+BT_WARP_WALKS_PER_SM = 4 * 2 * 8
 
 # the kernels of each entry in `ptxas -v`'s report of its source
 PTXAS_FUNCS = {"fm_sweep": "sweep_kernel", "fm_seed": "seed_kernel",
                "fm_substring": "substring_kernel",
                "sa_resolve": "resolve_kernel", "sw_rect": "sw_",
-               "backtrace": "bt_kernel"}
+               "backtrace": "bt_"}
 
 KERNELS = {  # name -> (source, TPU-side function it replaces)
     "fm_sweep": ("bowtie2_tpu_torch/csrc/fm_search.cu",
@@ -143,10 +178,14 @@ def load_repcorpus():
 
 class Recorder:
     """Wraps each kernel's wrapper to keep the arguments of its first
-    call, so phase 5 replays the kernels at the main path's shapes."""
+    call, so phase 6 replays the kernels at the main path's shapes; and,
+    under name + "@bulk", of its first call on the card of more than
+    bulk[name] problems (walks, SA rows), which takes another launch
+    shape."""
 
-    def __init__(self, fm, sw, fused):
+    def __init__(self, fm, sw, fused, bulk):
         self.args = {}
+        self.bulk = bulk
         i32 = torch.int32
         self._patch(fm, "exact_sweep_rr", "fm_sweep",
                     lambda half, rr: (half, rr.to(i32).contiguous()))
@@ -159,23 +198,32 @@ class Recorder:
                         ftab_chars))
         self._patch(fm, "sa_resolve", "sa_resolve",
                     lambda half, rows, period=32: (
-                        half, rows.to(i32).contiguous(), period))
+                        half, rows.to(i32).contiguous(), period),
+                    lambda half, rows, period=32: rows)
         self._patch(sw, "_sw_banded_cuda", "sw_rect", lambda *a: a)
-        self._patch(sw, "_backtrace_cuda", "backtrace", lambda *a: a)
+        self._patch(sw, "_backtrace_cuda", "backtrace", lambda *a: a,
+                    lambda dirs, sel, *a: sel)
         self._patch(fused, "gather_windows_aligned", "gather_windows_aligned",
                     lambda *a: a)
+        self._patch(fused, "diag_readout", "diag_readout", lambda *a: a)
 
     def take(self):
         """The arguments recorded so far; recording starts afresh."""
         args, self.args = self.args, {}
         return args
 
-    def _patch(self, mod, attr, name, norm):
+    def _patch(self, mod, attr, name, norm, sized=None):
+        """sized(*args) gives the tensor whose length is the call's size."""
         orig = getattr(mod, attr)
 
         def wrapped(*a, **k):
             if name not in self.args:
                 self.args[name] = norm(*a, **k)
+            big = name + "@bulk"
+            if sized is not None and big not in self.args:
+                t = sized(*a, **k)
+                if t.is_cuda and t.shape[0] > self.bulk[name]:
+                    self.args[big] = norm(*a, **k)
             return orig(*a, **k)
         setattr(mod, attr, wrapped)
         setattr(self, "orig_" + name, orig)
@@ -213,7 +261,8 @@ class LaunchTimer:
             e0, e1 = self._start(SPIN_KERNEL)
             orig(name, symbol, argtypes, *args)
             e1.record()
-            self.spans.append((symbol, e0, e1))
+            self.spans.append((symbol, e0, e1, tuple(
+                args[k] for k in SHAPE_ARGS.get(symbol, ()))))
         build_mod.call = call
         self._undo.append((build_mod, "call", orig))
 
@@ -224,7 +273,7 @@ class LaunchTimer:
             e0, e1 = self._start(SPIN_TORCH_OPS)
             out = orig(*a, **k)
             e1.record()
-            self.spans.append((name, e0, e1))
+            self.spans.append((name, e0, e1, ()))
             return out
         setattr(mod, attr, timed)
         self._undo.append((mod, attr, orig))
@@ -237,11 +286,16 @@ class LaunchTimer:
         e0.record()
         return e0, e1
 
-    def totals(self):
-        """{name: [total ms, spans]}; call after a synchronise."""
+    def totals(self, by_shape=False):
+        """{name: [total ms, spans]}, or with by_shape {name: {shape:
+        [total ms, spans]}} for the kernels of SHAPE_ARGS; call after a
+        synchronise."""
         out = {}
-        for name, e0, e1 in self.spans:
-            t = out.setdefault(name, [0.0, 0])
+        for name, e0, e1, shape in self.spans:
+            if by_shape and name not in SHAPE_ARGS:
+                continue
+            d = out.setdefault(name, {}) if by_shape else out
+            t = d.setdefault(shape if by_shape else name, [0.0, 0])
             t[0] += e0.elapsed_time(e1)
             t[1] += 1
         return out
@@ -251,7 +305,7 @@ class LaunchTimer:
             setattr(mod, attr, orig)
 
 
-def time_cuda(fn, reps: int, spin: int = SPIN_KERNEL) -> float:
+def time_cuda(fn, reps: int, spin: int = SPIN_REP) -> float:
     """Mean milliseconds of fn() over reps launches, after one warm-up.
     The stream first spins for reps x `spin` cycles, so the host has
     queued every launch before the start event fires and the span holds
@@ -269,6 +323,28 @@ def time_cuda(fn, reps: int, spin: int = SPIN_KERNEL) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def time_after_idle(fn, reps: int) -> float:
+    """Mean milliseconds of fn() launched alone after the card has idled
+    IDLE_S seconds, as it idles between the host-paced calls of the main
+    path; the stream spins first as in time_cuda, so each span holds
+    device time only."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        time.sleep(IDLE_S)
+        if hasattr(torch.cuda, "_sleep"):
+            torch.cuda._sleep(SPIN_KERNEL)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        total += t0.elapsed_time(t1)
+    return total / reps
 
 
 def max_err(kern, plain, args):
@@ -291,38 +367,69 @@ def max_err(kern, plain, args):
     return got, err
 
 
-def exactness_sweep(port, kern_sw, plain_sw, kern_sweep, plain_sweep,
-                    half, genome, device):
+def exactness_sweep(port, kerns, plains, data, genome, device):
     """{kernel: [(case, max abs err)]} over ops/cases.py: the cases the CPU
     tests hold the plain versions to the JAX package on (seed 0, scale 1)
-    and the same generator at eight times the problems (seed 1). The sweep
-    runs on `half` (the genome's index) and on a genome whose n + 1 = 2048
-    rows fill whole blocks, where the first LF of bot reads the row past
-    the last block."""
+    and the same generator at eight times the problems (seed 1). The read
+    sweep runs on `data` (the genome's index) and on a genome whose
+    n + 1 = 2048 rows fill whole blocks, where the first LF of bot reads
+    the row past the last block; the SA walk on both genomes indexed with
+    marks every 1, 16 and 32 text positions."""
     def put(x):
         return None if x is None else torch.from_numpy(x).to(device)
 
-    out = {"sw_rect": [], "fm_sweep": []}
+    sw = port.sw
+    out = {"sw_rect": [], "fm_sweep": [], "backtrace": [], "sa_resolve": []}
     for seed, scale in ((0, 1), (1, 8)):
         for c in port.cases.dp_cases(seed=seed, scale=scale):
-            args = port.sw.sw_args(put(c.reads), put(c.quals), put(c.lens),
-                                   put(c.wins), port.sw.SWParams(**c.params()),
-                                   c.band, put(c.rect_cols), put(c.col_lo))
-            out["sw_rect"].append((f"{c.name}@x{scale}",
-                                   max_err(kern_sw, plain_sw, args)[1]))
+            args = sw.sw_args(put(c.reads), put(c.quals), put(c.lens),
+                              put(c.wins), sw.SWParams(**c.params()),
+                              c.band, put(c.rect_cols), put(c.col_lo))
+            out["sw_rect"].append((f"{c.name}@x{scale}", max_err(
+                kerns["sw_rect"], plains["sw_rect"], args)[1]))
+
+        def dp(c):
+            res = plains["sw_rect"](*sw.sw_args(
+                put(c.reads), put(c.quals), put(c.lens), put(c.wins),
+                sw.SWParams(**c.params()), c.band, put(c.rect_cols),
+                put(c.col_lo)))
+            return (res.row.cpu().numpy(), res.lane.cpu().numpy(),
+                    res.dirs.cpu().numpy())
+        for c in port.cases.bt_cases(dp, seed=seed, scale=scale):
+            p = sw.SWParams(**c.params())
+            args = (put(c.dirs), put(c.sel), put(c.rows), put(c.lanes),
+                    put(c.reads), sw.mm_penalty_from_qual(put(c.quals), p),
+                    put(c.wins), p,
+                    sw.bt_steps(c.dirs.shape[0], c.wins.shape[1], c.local))
+            out["backtrace"].append((f"{c.name}@x{scale}", max_err(
+                kerns["backtrace"], plains["backtrace"], args)[1]))
     g_fill = np.random.default_rng(2047).integers(0, 4, 2047).astype(
         np.uint8)
-    fill = port.FMIndex.from_host(port.build_index_from_refs(
-        [("g", g_fill)], ftab_chars=4), device=device).fw
-    if fill.nrows % 128:
-        fail(f"fill genome: {fill.nrows} rows is not a multiple of 128")
-    for gname, h, g in (("repcorpus", half, genome), ("fill", fill, g_fill)):
-        for seed, scale in ((0, 1), (1, 8)):
-            for cname, rr in port.cases.sweep_cases(g, seed=seed,
-                                                    scale=scale):
-                out["fm_sweep"].append((
-                    f"{gname}_{cname}@x{scale}",
-                    max_err(kern_sweep, plain_sweep, (h, put(rr)))[1]))
+    for gname, g in (("repcorpus", genome), ("fill", g_fill)):
+        for period in port.cases.RESOLVE_PERIODS:
+            off_rate = period.bit_length() - 1
+            d = data if gname == "repcorpus" and off_rate == data.off_rate \
+                else port.build_index_from_refs(
+                    [("g", g.astype(np.uint8))], off_rate=off_rate,
+                    **({"ftab_chars": 4} if gname == "fill" else {}))
+            h = port.FMIndex.from_host(d, device=device).fw
+            if gname == "fill" and h.nrows % 128:
+                fail(f"fill genome: {h.nrows} rows is not a multiple of 128")
+            for seed, scale in ((0, 1), (1, 8)):
+                # the BWT is the same at every period: sweep it once
+                sweeps = port.cases.sweep_cases(g, seed=seed, scale=scale) \
+                    if period == port.cases.RESOLVE_PERIODS[0] else []
+                for cname, rr in sweeps:
+                    out["fm_sweep"].append((
+                        f"{gname}_{cname}@x{scale}", max_err(
+                            kerns["fm_sweep"], plains["fm_sweep"],
+                            (h, put(rr)))[1]))
+                for kind, rows in port.cases.resolve_cases(
+                        d.fw, period, seed=seed, scale=scale):
+                    out["sa_resolve"].append((
+                        f"{gname}_p{period}_{kind}@x{scale}", max_err(
+                            kerns["sa_resolve"], plains["sa_resolve"],
+                            (h, put(rows), period))[1]))
     return out
 
 
@@ -390,26 +497,68 @@ def fm_work(fm, name, args):
 
 
 def resolve_work(fm, args):
-    """sa_resolve: bytes of the tables and rows; steps = the LF walk
-    length of each row (offset minus the marked row's sample)."""
+    """sa_resolve: (bytes, operations, facts) on these inputs. The plain
+    walk is replayed to count each row's LF steps (offset minus the marked
+    row's sample) and what the walks touch. The bytes are what the
+    function must read and write: the mark row (20 bytes) of each distinct
+    block where a walk tests a mark, the FM row (48 bytes) of each distinct
+    block where a walk takes a LF step, one offset for each distinct row a
+    walk ends on, fchr, the rows and the output. The facts are derived
+    from the replay, not measured:
+    - lane_idle_share: over the input's 32-row warps (one row a lane),
+      1 - (sum of steps) / (sum over warps of 32 x the warp's most steps);
+    - sectors: the 32-byte sectors the walk asks for, lane by lane
+      (SECTORS_STEP a LF step, SECTORS_ROW a row);
+    - sectors_warp: the same sectors counted once a warp at each step
+      (what coalescing leaves of `sectors`): the distinct mark-word sectors
+      of the warp's walking lanes, and the distinct FM-row sectors of those
+      that take a LF step, plus two a row for the rank words and offset."""
     half, rows, period = args
-    steps = 0
+    B = rows.numel()
+    steps = torch.zeros(B, dtype=torch.int64, device=rows.device)
+    warp = torch.arange(B, device=rows.device) // 32
     row = rows.clone()
     done = torch.zeros_like(row, dtype=torch.bool)
-    for _ in range(period):
+    sectors_warp = 0
+    mark_blocks, lf_blocks = [], []
+    for it in range(period + 1):
         block = row // 128
         pos = (row % 128)[:, None]
+        live = ~done
+        mark_blocks.append(torch.unique(block[live]))
         mb, _ = fm._mark_bits(half, block)
-        done = done | (mb.gather(1, pos.long())[:, 0] == 1)
-        steps += int((~done).sum())
+        if it < period:
+            done = done | (mb.gather(1, pos.long())[:, 0] == 1)
+        step = ~done
+        b64 = block.long()
+        keys = torch.cat([
+            ((b64 * 20 + (pos[:, 0].long() >> 5) * 4) >> 5)[live],
+            (1 << 40) + ((b64 * 48) >> 5)[step],
+            (1 << 40) + ((b64 * 48 + 47) >> 5)[step]])
+        wl = torch.cat([warp[live], warp[step], warp[step]])
+        sectors_warp += int(torch.unique(wl * (1 << 42) + keys).numel())
+        if it == period:
+            break
+        lf_blocks.append(torch.unique(block[step]))
+        steps += step.long()
         frows = fm._rows(half, block)
         c = fm._crumbs(frows[:, :8]).gather(1, pos.long())[:, 0]
         nrow = half.fchr.index_select(0, c.long()) + \
             fm._occ_rows(half, row, c, frows)
         row = torch.where(done, row, nrow.to(torch.int32))
-    byt = nbytes(half.fm_blocks, half.fchr, half.mark_rows, half.offs,
-                 rows) + rows.numel() * 4
-    return byt, steps * OPS_RESOLVE_STEP + rows.numel() * OPS_RESOLVE_ROW
+    total = int(steps.sum())
+    pad = torch.zeros((-B) % 32, dtype=torch.int64, device=rows.device)
+    wmax = torch.cat([steps, pad]).view(-1, 32).max(dim=1).values
+    facts = dict(
+        steps=total,
+        lane_idle_share=1 - total / max(1, 32 * int(wmax.sum())),
+        sectors=SECTORS_STEP * total + SECTORS_ROW * B,
+        sectors_warp=sectors_warp + 2 * B)
+    byt = (20 * torch.unique(torch.cat(mark_blocks)).numel()
+           + 48 * torch.unique(torch.cat(lf_blocks)).numel()
+           + 4 * torch.unique(row).numel() + nbytes(half.fchr, rows)
+           + B * 4)
+    return byt, total * OPS_RESOLVE_STEP + B * OPS_RESOLVE_ROW, facts
 
 
 def main() -> None:
@@ -474,7 +623,15 @@ def main() -> None:
         f"built in {time.time() - t0:.1f} s")
 
     # ---------------- phase 3: the main path on the card ----------------
-    rec = Recorder(fm, sw, fused)
+    props = torch.cuda.get_device_properties(0)
+    threads = props.multi_processor_count * getattr(
+        props, "max_threads_per_multi_processor", 2048)
+    # the calls past these sizes are replayed in phase 6 too: the walks
+    # that take the one-thread-a-walk kernel, the SA rows past the threads
+    # the card holds at once
+    rec = Recorder(fm, sw, fused, bulk={
+        "backtrace": BT_WARP_WALKS_PER_SM * props.multi_processor_count,
+        "sa_resolve": threads})
     pol = make_policy("sensitive")
     aligner = UnpairedAligner(data, pol)
     spent = host_timers([(aligner, "submit"), (aligner, "collect_raw"),
@@ -539,6 +696,7 @@ def main() -> None:
     timer = LaunchTimer(_build)
     timer.wrap(fused, "gather_windows_aligned", "gather_windows_aligned")
     timer.wrap(align_mod, "gather_windows", "gather_windows")
+    timer.wrap(fused, "diag_readout", "diag_readout")
     _build.reset_counts()
     t0 = time.time()
     try:
@@ -550,6 +708,8 @@ def main() -> None:
     tlaunches = dict(_build.LAUNCHES)
     timer.restore()
     dev_ms = timer.totals()
+    shapes = {k: {str(sh): [round(v[0], 4), v[1]] for sh, v in sorted(d.items())}
+              for k, d in timer.totals(by_shape=True).items()}
     busy_s = sum(v[0] for v in dev_ms.values()) / 1e3
     spans = {k: [round(v[0], 4), v[1]] for k, v in sorted(dev_ms.items())}
     spin = ("on" if timer.spin is not None
@@ -559,6 +719,9 @@ def main() -> None:
         f"{wall:.2f} s wall time; stream spin before each span {spin}; this "
         f"pass {twall:.2f} s, launches "
         f"{'as the main path' if tlaunches == launches else tlaunches}")
+    log(f"call shapes: {json.dumps(shapes)} (total ms, calls; backtrace by "
+        f"(walks, Lmax, W, S), sa_resolve by rows); the card holds "
+        f"{threads} threads at once")
 
     # ---------------- phase 4: card vs CPU on the first batch -------------
     t0 = time.time()
@@ -611,8 +774,9 @@ def main() -> None:
     port = types.SimpleNamespace(cases=cases, sw=sw, FMIndex=FMIndex,
                                  build_index_from_refs=build_index_from_refs)
     sweep_errs = exactness_sweep(
-        port, rec.orig_sw_rect, plains["sw_rect"], rec.orig_fm_sweep,
-        plains["fm_sweep"], aligner.idx.fw, genome, torch.device("cuda"))
+        port, {k: getattr(rec, "orig_" + k) for k in
+               ("sw_rect", "fm_sweep", "backtrace", "sa_resolve")},
+        plains, data, genome, torch.device("cuda"))
     for name, errs in sweep_errs.items():
         bad = [(c, e) for c, e in errs if e]
         log(f"exactness sweep {name}: {len(errs)} cases, "
@@ -622,15 +786,21 @@ def main() -> None:
             + f" ({time.time() - t0:.1f} s)")
 
     # the chain floor: one block's worth of problems alone on the card
-    # (4 DP problems, 64 sweep states)
+    # (4 DP problems, 64 sweep states, 8 walks, 128 SA rows)
     def first(args, n):
         return tuple(x[:n].contiguous() if isinstance(x, torch.Tensor)
                      else x for x in args)
+    bt_args = e2e_args["backtrace"]
+    rs_args = e2e_args["sa_resolve"]
     chain_ms = {
         "sw_rect": time_cuda(lambda: rec.orig_sw_rect(
             *first(e2e_args["sw_rect"], 4)), a.reps),
         "fm_sweep": time_cuda(lambda: rec.orig_fm_sweep(
-            e2e_args["fm_sweep"][0], e2e_args["fm_sweep"][1][:64]), a.reps)}
+            e2e_args["fm_sweep"][0], e2e_args["fm_sweep"][1][:64]), a.reps),
+        "backtrace": time_cuda(lambda: rec.orig_backtrace(
+            bt_args[0], *first(bt_args[1:], 8)), a.reps),
+        "sa_resolve": time_cuda(lambda: rec.orig_sa_resolve(
+            rs_args[0], rs_args[1][:128].contiguous(), rs_args[2]), a.reps)}
     smi_clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60)
@@ -648,15 +818,37 @@ def main() -> None:
         got, err = max_err(kern, plains[name], args)
         lerr = max_err(kern, plains[name], local_args[name])[1] \
             if name in local_args else 0
-        equal = err == 0 and lerr == 0
+        # the main path's first call past Recorder's bulk size, whose
+        # launch shape differs from the first call's
+        bulk_args = e2e_args.get(name + "@bulk")
+        bulk = None
+        if bulk_args is not None:
+            berr = max_err(kern, plains[name], bulk_args)[1]
+            bulk = dict(shape=[list(t.shape) for t in bulk_args
+                               if isinstance(t, torch.Tensor)][:2],
+                        max_abs_err=berr,
+                        ms=round(time_cuda(lambda: kern(*bulk_args),
+                                           a.reps), 4))
+        equal = err == 0 and lerr == 0 and (bulk is None or berr == 0)
         ok &= equal
         ms = time_cuda(lambda: kern(*args), a.reps)
+        idle_ms = time_after_idle(lambda: kern(*args), 5)
         plain_ms = time_cuda(lambda: plains[name](*args), 2, spin=0)
+        extra = {}      # measured: into the JSON line
+        derived = {}    # derived from a model or a replay: log line only
         if name in ("fm_sweep", "fm_substring", "fm_seed"):
             byt, lf = fm_work(fm, name, args)
             ops = lf * OPS_LF
         elif name == "sa_resolve":
-            byt, ops = resolve_work(fm, args)
+            byt, ops, facts = resolve_work(fm, args)
+            # the modelled sectors' bytes over the measured kernel time
+            derived = dict(
+                lane_idle_share=round(facts["lane_idle_share"], 4),
+                l2_sectors=facts["sectors"],
+                l2_sectors_warp=facts["sectors_warp"],
+                l2_tb_s=round(facts["sectors"] * 32 / ms / 1e9, 3),
+                l2_warp_tb_s=round(facts["sectors_warp"] * 32 / ms / 1e9, 3),
+                walk_steps=facts["steps"])
         elif name == "sw_rect":
             reads_, mmpen, lens, refwins, _p, rect_cols, col_lo = args
             res = got
@@ -672,10 +864,22 @@ def main() -> None:
             issue_ms = ops / (n_sm * 128 * clock_hz) * 1e3
         else:   # backtrace
             dirs, sel, rows, lanes, reads_, mmpen, refwins, _p, S = args
-            walked = int((got.ops != 3).sum()) + sel.numel()
-            byt = walked * 4 + nbytes(sel, rows, lanes, reads_, mmpen,
-                                      refwins, got.ops) + 7 * sel.numel() * 4
+            op = got.ops & 3
+            none = int((op == 3).sum())
+            walked = got.ops.numel() - none
+            # what the walks touch: a direction word a step and one for
+            # the test that ends each walk; a read code and a penalty a
+            # row moved through (M or I), a window code a column moved
+            # through (M or D); sel, rows and lanes; the ops and the seven
+            # fields written
+            moved_rows = int((op < 2).sum())
+            moved_cols = int(((op & 1) == 0).sum())
+            byt = (walked + sel.numel()) * 4 + moved_rows * 8 + \
+                moved_cols * 4 + nbytes(sel, rows, lanes, got.ops) + \
+                7 * sel.numel() * 4
             ops = walked * OPS_BT_STEP
+            extra = dict(tail_share=round(none / got.ops.numel(), 4),
+                         steps=S)
         t_bytes = byt / PEAK_BYTES_S * 1e3
         t_ops = ops / PEAK_OPS_S * 1e3
         sweep_err = max((e for _, e in sweep_errs.get(name, [])), default=0)
@@ -688,7 +892,8 @@ def main() -> None:
             launches=launches.get(name, 0),
             max_abs_err=max(err, lerr, sweep_err),
             equal=equal, launches_local=llaunches.get(name, 0),
-            ms=round(ms, 4), plain_ms=round(plain_ms, 3),
+            ms=round(ms, 4), idle_ms=round(idle_ms, 4),
+            plain_ms=round(plain_ms, 3),
             bound_ms=round(max(t_bytes, t_ops), 5),
             bytes_ms=round(t_bytes, 5), ops_ms=round(t_ops, 5),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -700,14 +905,26 @@ def main() -> None:
         if name in chain_ms:
             entry["chain_ms"] = round(chain_ms[name], 4)
             entry["sweep_cases"] = len(sweep_errs[name])
+        if bulk is not None:
+            entry["bulk"] = bulk
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       bulk["max_abs_err"])
+        entry.update(extra)
         kernels_out.append(entry)
         log(f"kernel {name}: equal={equal} max_abs_err={err} "
             f"(local {lerr}, sweep {sweep_err}) "
-            f"ms={ms:.4f} plain_ms={plain_ms:.3f} "
+            f"ms={ms:.4f} idle_ms={idle_ms:.4f} plain_ms={plain_ms:.3f} "
             f"bound_ms={max(t_bytes, t_ops):.5f} (bytes {t_bytes:.5f}, "
             f"operations {t_ops:.5f}) total_ms={total[0]:.4f} over "
             f"{total[1]} launches"
             + (f" chain_ms={chain_ms[name]:.4f}" if name in chain_ms else "")
+            + "".join(f" {k}={v}" for k, v in extra.items())
+            + (f" bulk call {bulk['shape']}: max_abs_err="
+               f"{bulk['max_abs_err']} ms={bulk['ms']}" if bulk else
+               f" (no call past {rec.bulk[name]} on the main path)"
+               if name in rec.bulk else "")
+            + (" derived, not measured:" + "".join(
+                f" {k}={v}" for k, v in derived.items()) if derived else "")
             + (f" cells={cells} issue floor (derived: cells x "
                f"{OPS_DP_CELL} / ({n_sm} SMs x 128 lanes x "
                f"{clock_hz / 1e6:.0f} MHz)) {issue_ms:.5f} ms"
@@ -731,6 +948,24 @@ def main() -> None:
         f"(bytes) total_ms={g_total[0]:.4f} over {g_total[1]} calls; "
         f"host-path gather_windows total_ms={h_total[0]:.4f} over "
         f"{h_total[1]} calls")
+
+    # K10, the SE gapless readout of the fused path (torch ops, no kernel)
+    if "diag_readout" not in e2e_args:
+        fail("the fused path never read a diagonal out")
+    dargs = e2e_args["diag_readout"]
+    readout = rec.orig_diag_readout
+    d_out = readout(*dargs)
+    d_ms = time_cuda(lambda: readout(*dargs), a.reps, spin=SPIN_TORCH_OPS)
+    d_reads, d_quals, _wins, d_rows, d_lanes, d_lens, _p = dargs
+    Bd, Ld = d_reads.shape
+    # reads, quals and the diagonal's window codes, each read once; rows,
+    # lanes, lengths; the outputs written
+    d_bytes = nbytes(d_reads, d_quals, d_rows, d_lanes, d_lens) + \
+        Bd * Ld * 4 + nbytes(*d_out)
+    d_total = dev_ms.get("diag_readout", [0.0, 0])
+    log(f"torch ops diag_readout (K10): shape {[Bd, Ld]} ms={d_ms:.4f} "
+        f"bound_ms={d_bytes / PEAK_BYTES_S * 1e3:.5f} (bytes) "
+        f"total_ms={d_total[0]:.4f} over {d_total[1]} calls")
     print(json.dumps({"kernels": kernels_out}), flush=True)
     if not ok:
         fail("a kernel disagrees with its plain version")

@@ -190,6 +190,42 @@ def test_sa_resolve(idx, period):
         pfm.sa_resolve(ph, _t(rows), period=period))
 
 
+@pytest.fixture(scope="module")
+def resolve_index():
+    """(genome, period) -> (host half, JAX half, port half) of an index
+    whose marks sit every `period` text positions, built once."""
+    built = {}
+
+    def get(genome, period):
+        if (genome, period) not in built:
+            g = corpus(8)[0] if genome == "corpus" else \
+                np.random.default_rng(2047).integers(0, 4, 2047).astype(
+                    np.uint8)
+            data = build_index_from_refs([("g", g)], ftab_chars=4,
+                                         off_rate=period.bit_length() - 1)
+            built[genome, period] = (data.fw, JFMIndex.from_host(data).fw,
+                                     PFMIndex.from_host(data,
+                                                        device="cpu").fw)
+        return built[genome, period]
+    return get
+
+
+@pytest.mark.parametrize("kind", cases.RESOLVE_KINDS)
+@pytest.mark.parametrize("period", cases.RESOLVE_PERIODS)
+@pytest.mark.parametrize("genome", ["corpus", "fill"])
+def test_sa_resolve_synthetic_cases(resolve_index, genome, period, kind):
+    """The exactness sweep's rows (ops/cases.py), which chip_smoke.py holds
+    the sa_resolve kernel to on the card, on indexes marked every 1, 16
+    and 32 text positions."""
+    host, jh, ph = resolve_index(genome, period)
+    rows = dict(cases.resolve_cases(host, period))[kind]
+    if kind == "lengths":
+        assert set(cases.walk_lengths(host, rows, period).tolist()) == \
+            set(range(period))
+    _eq(jfm.sa_resolve(jh, jnp.asarray(rows), period=period),
+        pfm.sa_resolve(ph, _t(rows), period=period))
+
+
 def test_sa_resolve_inverts_the_suffix_array(idx):
     """Every joined offset, resolved from its row, comes back."""
     data, _jh, ph, _reads = idx

@@ -163,6 +163,49 @@ def test_sw_banded_synthetic_cases(case):
         _eq(getattr(j, f), getattr(q, f), f)
 
 
+def _plain_dp(case):
+    """(row, lane, dirs) numpy arrays of the port's plain DP on a case."""
+    q = psw.sw_banded(
+        _t(case.reads), _t(case.quals), _t(case.lens), _t(case.wins),
+        psw.SWParams(**case.params()), case.band,
+        None if case.rect_cols is None else _t(case.rect_cols),
+        None if case.col_lo is None else _t(case.col_lo))
+    return q.row.numpy(), q.lane.numpy(), q.dirs.numpy()
+
+
+_BT_BULK = next(c for c in _DP_CASES if c.name.startswith(cases.BULK_SOURCE))
+_BT_SOURCES = ([(f"bt_{c.name}", (c, 0)) for c in _DP_CASES]
+               + [(f"bt_bulk_{_BT_BULK.name}", (_BT_BULK, cases.BULK_WALKS))]
+               + [(c.name, c) for c in cases.bt_random_cases()])
+
+
+@pytest.mark.parametrize("source", [s for _, s in _BT_SOURCES],
+                         ids=[n for n, _ in _BT_SOURCES])
+def test_backtrace_synthetic_cases(source):
+    """The exactness sweep's walks (ops/cases.py), which chip_smoke.py
+    holds the backtrace kernel to on the card: the op bytes of every step
+    and the seven fields."""
+    if isinstance(source, cases.BTCase):
+        c = source
+    else:
+        dp_case, walks = source
+        c = cases.bt_case(dp_case, *_plain_dp(dp_case), walks=walks)
+    bj = jsw.backtrace(jnp.asarray(c.dirs), jnp.asarray(c.sel),
+                       jnp.asarray(c.rows), jnp.asarray(c.lanes),
+                       jnp.asarray(c.reads), jnp.asarray(c.quals),
+                       jnp.asarray(c.wins), jsw.SWParams(**c.params()),
+                       c.band)
+    bq = psw.backtrace(_t(c.dirs), _t(c.sel), _t(c.rows), _t(c.lanes),
+                       _t(c.reads), _t(c.quals), _t(c.wins),
+                       psw.SWParams(**c.params()), c.band)
+    for f in jsw.BTResult._fields:
+        _eq(getattr(bj, f), getattr(bq, f), f)
+    if isinstance(source, cases.BTCase):
+        # some walk runs out of steps, and some column goes below 0
+        assert ((bq.ops[-1].numpy() & 3) != psw.OP_NONE).any()
+        assert (bq.ref_start_win.numpy() < 0).any()
+
+
 @pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
 def test_backtrace_and_diag_readout(local):
     rng = np.random.default_rng(21 + local)
