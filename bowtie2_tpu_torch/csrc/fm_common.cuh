@@ -1,13 +1,16 @@
 // LF step over the fused [bwt8|occ4] index rows, shared by fm_search.cu
-// (fm_lf, one thread per LF; fm_lf2_pair, two lanes per pair of LFs, the
-// sweep kernel) and sa_resolve.cu (the row and its count, FmRow and
-// fm_count_below).
+// (fm_lf2_pair, two lanes per pair of LFs: the sweep and the half-read
+// search; fm_lf_range, both ends of a range in one thread: the seed search)
+// and sa_resolve.cu (the row's words and their count, FmRow and
+// fm_count_below). The seed and half-read searches count with
+// fm_count_lean, which builds each word's mask with one funnel shift.
 //
 // Replaces: bowtie2_tpu/ops/fm.py occ_batch (+ _occ_rows, _crumbs, _fchr_at),
 // which unpacks a row into 128 2-bit crumbs and compares/sums them on the
 // TPU's vector unit. Here the count of crumbs equal to c below i mod 128 is
 // XOR against c replicated in every crumb, a zero-crumb test and __popc,
-// over the 8 words of one 48-byte row (three 16-byte loads).
+// over the 8 bwt words of one 48-byte row (two 16-byte loads) and its
+// checkpoint cp[c] (one 4-byte load).
 //
 // Semantics match the JAX op exactly, including its out-of-range block:
 // jnp.take fills rows past the last block with 0xFFFFFFFF, which a query at
@@ -18,26 +21,7 @@
 
 struct FmRow {
     uint32_t w[8];
-    uint32_t cp[4];
 };
-
-__device__ __forceinline__ FmRow fm_load_row(const uint32_t* __restrict__ fm,
-                                             int nblocks, int block) {
-    FmRow r;
-    if (block >= nblocks) {
-        #pragma unroll
-        for (int k = 0; k < 8; ++k) r.w[k] = 0xFFFFFFFFu;
-        #pragma unroll
-        for (int k = 0; k < 4; ++k) r.cp[k] = 0xFFFFFFFFu;
-        return r;
-    }
-    const uint4* p = reinterpret_cast<const uint4*>(fm + (size_t)block * 12);
-    uint4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
-    r.w[0] = a.x; r.w[1] = a.y; r.w[2] = a.z; r.w[3] = a.w;
-    r.w[4] = b.x; r.w[5] = b.y; r.w[6] = b.z; r.w[7] = b.w;
-    r.cp[0] = c.x; r.cp[1] = c.y; r.cp[2] = c.z; r.cp[3] = c.w;
-    return r;
-}
 
 // number of crumbs equal to c (0..3) among the first pos (0..128) of the row
 __device__ __forceinline__ int fm_count_below(const FmRow& r, int c, int pos) {
@@ -55,18 +39,21 @@ __device__ __forceinline__ int fm_count_below(const FmRow& r, int c, int pos) {
     return cnt;
 }
 
-// LF(i, c) = fchr[c] + Occ(c, i) with the sentinel-row correction
-__device__ __forceinline__ int fm_lf_row(const FmRow& r, const int* fchr,
-                                         int z_off, int i, int c) {
-    const int corr = (c == 0 && i > z_off) ? 1 : 0;
-    return __ldg(fchr + c) + (int)r.cp[c] + fm_count_below(r, c, i & 127) - corr;
-}
-
-__device__ __forceinline__ int fm_lf(const uint32_t* __restrict__ fm,
-                                     int nblocks, const int* fchr, int z_off,
-                                     int i, int c) {
-    FmRow r = fm_load_row(fm, nblocks, i >> 7);
-    return fm_lf_row(r, fchr, z_off, i, c);
+// fm_count_below with fewer instructions a word: the mask of crumbs below
+// pos in word k, with the low bit of each crumb only, is 0x55555555 shifted
+// right by 32 (k + 1) - 2 pos, clamped to 0..32, which also folds the
+// 0x55555555 of the equality test into it.
+__device__ __forceinline__ int fm_count_lean(const FmRow& r, int c, int pos) {
+    const uint32_t pat = (uint32_t)c * 0x55555555u;
+    int cnt = 0;
+    #pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const uint32_t x = r.w[k] ^ pat;
+        const uint32_t m = __funnelshift_rc(
+            0x55555555u, 0u, (unsigned)max(32 * (k + 1) - 2 * pos, 0));
+        cnt += __popc(~(x | (x >> 1)) & m);
+    }
+    return cnt;
 }
 
 // Cooperative LF step of both ends of a range, two consecutive lanes of a
@@ -74,8 +61,10 @@ __device__ __forceinline__ int fm_lf(const uint32_t* __restrict__ fm,
 // lane j = 1 row `bot`, each with the row's eight bwt words in two 16-byte
 // loads and cp[c] in one, and adds fchr[c] (passed in registers) and the
 // sentinel correction. One shuffle swaps the two counts, so both lanes
-// return both results. Rows past the last block read as 0xFFFFFFFF, as in
-// fm_load_row.
+// return both results. Rows past the last block read as 0xFFFFFFFF. LEAN
+// counts with fm_count_lean (the half-read search), else with
+// fm_count_below (the sweep).
+template <bool LEAN = false>
 __device__ __forceinline__ void fm_lf2_pair(const uint32_t* __restrict__ fm,
                                             int nblocks, int fchr_c,
                                             int z_off, int top, int bot,
@@ -96,9 +85,50 @@ __device__ __forceinline__ void fm_lf2_pair(const uint32_t* __restrict__ fm,
         for (int k = 0; k < 8; ++k) r.w[k] = 0xFFFFFFFFu;
         base = -1;
     }
-    const int cnt = fm_count_below(r, c, i & 127) + base + fchr_c
+    const int cnt = (LEAN ? fm_count_lean(r, c, i & 127)
+                          : fm_count_below(r, c, i & 127)) + base + fchr_c
                     - ((c == 0 && i > z_off) ? 1 : 0);
     const int other = __shfl_xor_sync(0xFFFFFFFFu, cnt, 1);
     ntop = j == 0 ? cnt : other;
     nbot = j == 0 ? other : cnt;
+}
+
+// LF step of both ends of a range in one thread (the seed search): the top
+// row's bwt words and cp[c], and, only when bot lies in another block, the
+// bot row's, both issued before either count; words 4-7 of a row only for
+// a position past 64 (up to it their crumbs count nothing). A row past the
+// last block is reached only at i = n + 1 = 128 nblocks, position 0, where
+// the words count nothing: only its checkpoint reads as 0xFFFFFFFF.
+__device__ __forceinline__ void fm_lf_range(const uint32_t* __restrict__ fm,
+                                            int nblocks, int fchr_c,
+                                            int z_off, int c, int& top,
+                                            int& bot) {
+    const int bt = top >> 7, bb = bot >> 7, pt = top & 127, pb = bot & 127;
+    const bool same = bt == bb;
+    const uint4* rt =
+        reinterpret_cast<const uint4*>(fm + (size_t)min(bt, nblocks - 1) * 12);
+    const uint4* rb =
+        reinterpret_cast<const uint4*>(fm + (size_t)min(bb, nblocks - 1) * 12);
+    uint4 a0 = __ldg(rt), a1 = make_uint4(0, 0, 0, 0);
+    if (max(pt, same ? pb : 0) > 64) a1 = __ldg(rt + 1);
+    int cpt = (int)__ldg(reinterpret_cast<const uint32_t*>(rt) + 8 + c);
+    uint4 b0 = a0, b1 = a1;
+    int cpb = cpt;
+    if (!same) {
+        b0 = __ldg(rb);
+        if (pb > 64) b1 = __ldg(rb + 1);
+        cpb = (int)__ldg(reinterpret_cast<const uint32_t*>(rb) + 8 + c);
+    }
+    if (bt >= nblocks) cpt = -1;
+    if (bb >= nblocks) cpb = -1;
+    FmRow r, s;
+    r.w[0] = a0.x; r.w[1] = a0.y; r.w[2] = a0.z; r.w[3] = a0.w;
+    r.w[4] = a1.x; r.w[5] = a1.y; r.w[6] = a1.z; r.w[7] = a1.w;
+    s.w[0] = b0.x; s.w[1] = b0.y; s.w[2] = b0.z; s.w[3] = b0.w;
+    s.w[4] = b1.x; s.w[5] = b1.y; s.w[6] = b1.z; s.w[7] = b1.w;
+    const int nt = fchr_c + cpt + fm_count_lean(r, c, pt)
+                   - ((c == 0 && top > z_off) ? 1 : 0);
+    bot = fchr_c + cpb + fm_count_lean(s, c, pb)
+          - ((c == 0 && bot > z_off) ? 1 : 0);
+    top = nt;
 }

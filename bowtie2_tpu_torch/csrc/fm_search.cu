@@ -26,8 +26,28 @@
 // (fewer words to count a lane, one and two more shuffles on the chain)
 // ran slower on the main path's first call (PERF.md).
 //
-// The seed and half-read searches (seed_kernel, substring_kernel) keep one
-// thread per state over fm_lf; their redesign is later work.
+// The half-read and seed searches are bound less by the chain than by the
+// card's throughput: one block alone takes a third (seeds) to two thirds
+// (halves) of the full call. So both stage their patterns with
+// 16-byte loads of the block's contiguous codes (no division or byte load
+// a code) and count crumbs with fm_count_lean (one funnel shift a word's
+// mask).
+//
+// The half-read search (substring_kernel) takes the sweep's design: two
+// lanes a state over fm_lf2_pair, fchr in registers, and a step that no
+// live state of the warp takes (code 5, or every state of the warp dead)
+// costs no row load. A state dies on an N or an empty range instead of
+// restarting.
+//
+// The seed search (seed_kernel) keeps one thread a seed, since its seeds
+// are short (22 codes, 12 LF steps after the ftab start on the main path)
+// and many. Each seed is held in registers as 2-bit codes in a 64-bit word
+// with an N mask, so the ftab key and the N test of the tail cost no load
+// and the ftab lookup is the first access on the chain. A LF step of both
+// ends loads one row when top and bot share a block, most live steps once
+// the ftab has narrowed the range, and both rows' loads together otherwise
+// (fm_lf_range). A dead seed stops. At most 64 registers keep the main
+// path's 1,024 blocks in one wave.
 #include "fm_common.cuh"
 
 namespace {
@@ -102,77 +122,194 @@ sweep_kernel(const uint32_t* __restrict__ fm, int nblocks,
     }
 }
 
-__global__ void substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
-                                 const int* __restrict__ fchr, int z_off,
-                                 int nrows, const int* __restrict__ rr, int B,
-                                 int L, int* top_out, int* bot_out) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int* s = rr + (size_t)b * L;
-    int top = 0, bot = nrows;
-    for (int p = 0; p < L; ++p) {
-        const int c = __ldg(s + p);
-        if (c >= 5) continue;
-        if (c >= 4 || top >= bot) {                  // dead
-            top = 1;
-            bot = 0;
-        } else {
-            const int nt = fm_lf(fm, nblocks, fchr, z_off, top, c);
-            bot = fm_lf(fm, nblocks, fchr, z_off, bot, c);
-            top = nt;
-        }
-    }
-    top_out[b] = top;
-    bot_out[b] = bot > top ? bot : top;
+// A code clamped to 0..HI as the plain versions read it: below 0 is an A;
+// HI is an N for the seed search, a skipped step for the half-read search.
+template <int HI>
+__device__ __forceinline__ uint32_t code_byte(int c) {
+    return (uint32_t)(c < 0 ? 0 : (c > HI ? HI : c));
 }
 
-__global__ void seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
-                            const int* __restrict__ fchr, int z_off, int nrows,
-                            const int* __restrict__ ftab,
-                            const int* __restrict__ seeds,
-                            const unsigned char* __restrict__ valid, int B,
-                            int L, int K, int* top_out, int* bot_out) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const int* s = seeds + (size_t)b * L;
-    const bool ok0 = valid[b] != 0;
-    int top, bot, q;
-    if (K > 0 && K <= L) {
-        // last K chars resolved by one ftab lookup (first char weighs 4^(K-1))
-        int key = 0;
-        bool has_n = false;
-        for (int k = L - K; k < L; ++k) {
-            const int c = __ldg(s + k);
-            has_n |= c >= 4;
-            key = key * 4 + (c < 0 ? 0 : (c > 3 ? 3 : c));
+// The codes of columns [p0, p0 + n) of the block's states (row s of `src`
+// is state b0 + s), as bytes at pb[s * n + q], for states below B. When
+// the columns are whole rows, the block's codes are one contiguous run:
+// 16-byte loads of consecutive codes by consecutive threads, UNROLL of
+// them in flight a thread, four codes packed into one 4-byte store.
+// Otherwise (a chunk of longer rows, or a run not 16-byte aligned) one code
+// a load.
+template <int THREADS, int HI>
+__device__ __forceinline__ void stage_rows(uint32_t* pat,
+                                           const int* __restrict__ src,
+                                           int B, int L, int b0, int states,
+                                           int p0, int n) {
+    constexpr int UNROLL = 4;
+    unsigned char* pb = reinterpret_cast<unsigned char*>(pat);
+    const int total = min(states, B - b0) * n;
+    const int* s0 = src + (size_t)b0 * L + p0;
+    if (n == L && (reinterpret_cast<uintptr_t>(s0) & 15) == 0) {
+        const int4* v = reinterpret_cast<const int4*>(s0);
+        const int n4 = total >> 2;
+        for (int base = threadIdx.x; base < n4; base += UNROLL * THREADS) {
+            int4 x[UNROLL];
+            #pragma unroll
+            for (int k = 0; k < UNROLL; ++k)
+                if (base + k * THREADS < n4) x[k] = __ldg(v + base + k * THREADS);
+            #pragma unroll
+            for (int k = 0; k < UNROLL; ++k)
+                if (base + k * THREADS < n4)
+                    pat[base + k * THREADS] =
+                        code_byte<HI>(x[k].x) | code_byte<HI>(x[k].y) << 8
+                        | code_byte<HI>(x[k].z) << 16
+                        | code_byte<HI>(x[k].w) << 24;
         }
-        const bool ok = ok0 && !has_n;
-        top = ok ? __ldg(ftab + 2 * key + 1) : 1;
-        bot = ok ? __ldg(ftab + 2 * key + 2) : 0;
-        q = L - K - 1;
-    } else {
-        top = 0;
-        bot = ok0 ? nrows : 0;
-        q = L - 1;
+        const int r = 4 * n4 + threadIdx.x;        // the last total mod 4
+        if (r < total) pb[r] = (unsigned char)code_byte<HI>(__ldg(s0 + r));
+        return;
     }
-    for (; q >= 0; --q) {                            // right to left
-        const int c = __ldg(s + q);
-        if (c >= 4 || top >= bot) {
-            top = 1;
-            bot = 0;
-        } else {
-            const int nt = fm_lf(fm, nblocks, fchr, z_off, top, c);
-            bot = fm_lf(fm, nblocks, fchr, z_off, bot, c);
-            top = nt;
-        }
+    for (int idx = threadIdx.x; idx < total; idx += THREADS) {
+        const int st = idx / n;
+        pb[idx] = (unsigned char)code_byte<HI>(
+            __ldg(s0 + (size_t)st * L + idx - st * n));
     }
-    top_out[b] = top;
-    bot_out[b] = bot > top ? bot : top;
 }
 
-constexpr int kThreads = 128;
+// the four staged codes at byte offset off (any alignment)
+__device__ __forceinline__ uint32_t codes4(const uint32_t* pat, int off) {
+    const uint32_t* w = pat + (off >> 2);
+    return __funnelshift_r(w[0], w[1], 8 * (off & 3));
+}
 
-inline int grid(int n) { return (n + kThreads - 1) / kThreads; }
+__global__ void __launch_bounds__(SWEEP_THREADS)
+substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
+                 const int* __restrict__ fchr, int z_off, int nrows,
+                 const int* __restrict__ rr, int B, int L, int* top_out,
+                 int* bot_out) {
+    // + 2 words: codes4 reads a word past a pattern's last code
+    __shared__ uint32_t pat[SWEEP_STATES * SWEEP_CHUNK / 4 + 2];
+    const int t = threadIdx.x;
+    const int g = t >> 1, j = t & 1;
+    const int b0 = blockIdx.x * SWEEP_STATES, b = b0 + g;
+    const int f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
+              f3 = __ldg(fchr + 3);
+    // a state past the batch starts dead and never steps
+    int top = b < B ? 0 : 1, bot = b < B ? nrows : 0;
+    for (int p0 = 0; p0 < L; p0 += SWEEP_CHUNK) {
+        const int n = min(SWEEP_CHUNK, L - p0);
+        __syncthreads();                     // the previous chunk is used
+        stage_rows<SWEEP_THREADS, 5>(pat, rr, B, L, b0, SWEEP_STATES, p0, n);
+        __syncthreads();
+        for (int q = 0; q < n; q += 4) {
+            const uint32_t cw = codes4(pat, g * n + q);
+            #pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                if (q + u >= n) break;       // the same for the whole block
+                const int c = (cw >> (8 * u)) & 0xFF;
+                const bool step = c < 4 && top < bot;
+                // all lanes of the warp take part in the shuffles, or none
+                if (__any_sync(0xFFFFFFFFu, step)) {
+                    const int cc = c < 4 ? c : 0;
+                    const int fc = cc == 0 ? f0 : (cc == 1 ? f1
+                                                 : (cc == 2 ? f2 : f3));
+                    // a state that does not step loads row 0 (a dead
+                    // range's bot may be -1)
+                    int nt, nb;
+                    fm_lf2_pair<true>(fm, nblocks, fc, z_off,
+                                      step ? top : 0, step ? bot : 0, cc, j,
+                                      nt, nb);
+                    if (step) {
+                        top = nt;
+                        bot = nb;
+                    }
+                }
+                if (c < 5 && !step) {        // an N, or an empty range: dead
+                    top = 1;
+                    bot = 0;
+                }
+            }
+        }
+    }
+    if (j == 0 && b < B) {
+        top_out[b] = top;
+        bot_out[b] = bot > top ? bot : top;
+    }
+}
+
+constexpr int SEED_THREADS = 128;           // one thread a seed
+constexpr int SEED_CHUNK = 32;              // codes a 64-bit word holds
+// blocks an SM must hold: at most 64 registers a thread, so that the main
+// path's 1,024 blocks of seeds run in one wave on 132 SMs
+constexpr int SEED_MIN_BLOCKS = 8;
+
+__global__ void __launch_bounds__(SEED_THREADS, SEED_MIN_BLOCKS)
+seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
+            const int* __restrict__ fchr, int z_off, int nrows,
+            const int* __restrict__ ftab, const int* __restrict__ seeds,
+            const unsigned char* __restrict__ valid, int B, int L, int K,
+            int* top_out, int* bot_out) {
+    // + 2 words: codes4 reads a word past a seed's last code
+    __shared__ uint32_t pat[SEED_THREADS * SEED_CHUNK / 4 + 2];
+    const int t = threadIdx.x;
+    const int b0 = blockIdx.x * SEED_THREADS, b = b0 + t;
+    const int f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
+              f3 = __ldg(fchr + 3);
+    const bool ok0 = b < B && valid[b] != 0;
+    int top = 0, bot = ok0 ? nrows : 0;
+    bool live = b < B;
+    // chunks of up to 32 columns from the right end: the LF steps run right
+    // to left, and the ftab tail (K <= 32, checked at the launch) lies in
+    // the first chunk
+    for (int end = L; end > 0; end -= SEED_CHUNK) {
+        const int p0 = max(end - SEED_CHUNK, 0), n = end - p0;
+        // every thread stages; stop once no seed of the block steps on
+        if (!__syncthreads_or(live)) break;
+        stage_rows<SEED_THREADS, 4>(pat, seeds, B, L, b0, SEED_THREADS, p0,
+                                    n);
+        __syncthreads();
+        // this seed's codes: column p0 + i at bits 2i of w, its N at bit i
+        // of nm (bytes past n are the next seed's, masked off)
+        uint64_t w = 0;
+        uint32_t nm = 0;
+        #pragma unroll
+        for (int k = 0; k < SEED_CHUNK / 4; ++k) {
+            if (4 * k >= n) break;
+            const uint32_t x = codes4(pat, t * n + 4 * k);
+            uint32_t lo = x & 0x03030303u;
+            lo = (lo | (lo >> 6)) & 0x000F000Fu;
+            lo = (lo | (lo >> 12)) & 0xFFu;
+            uint32_t hn = (x >> 2) & 0x01010101u;
+            hn |= hn >> 7;
+            hn = (hn | (hn >> 14)) & 0xFu;
+            w |= (uint64_t)lo << (8 * k);
+            nm |= hn << (4 * k);
+        }
+        if (n < SEED_CHUNK) nm &= (1u << n) - 1u;
+        int q = n - 1;
+        if (end == L && K > 0 && K <= L) {
+            // the last K codes are one ftab lookup; the first weighs 4^(K-1)
+            uint32_t key = 0;
+            for (int i = n - K; i < n; ++i)
+                key = key * 4 + (uint32_t)((w >> (2 * i)) & 3u);
+            const bool ok = ok0 && (nm >> (n - K)) == 0;
+            top = ok ? __ldg(ftab + 2 * (size_t)key + 1) : 1;
+            bot = ok ? __ldg(ftab + 2 * (size_t)key + 2) : 0;
+            q = n - K - 1;
+        }
+        for (; live && q >= 0; --q) {                // right to left
+            if (((nm >> q) & 1u) || top >= bot) {    // dead: stop
+                top = 1;
+                bot = 0;
+                live = false;
+            } else {
+                const int c = (int)(w >> (2 * q)) & 3;
+                const int fc = c == 0 ? f0 : (c == 1 ? f1 : (c == 2 ? f2 : f3));
+                fm_lf_range(fm, nblocks, fc, z_off, c, top, bot);
+            }
+        }
+    }
+    if (b < B) {
+        top_out[b] = top;
+        bot_out[b] = bot > top ? bot : top;
+    }
+}
 
 }  // namespace
 
@@ -191,7 +328,8 @@ extern "C" int fm_substring(const void* fm, int nblocks, const void* fchr,
                             int z_off, int nrows, const void* rr, int B, int L,
                             void* top, void* bot, void* stream) {
     if (B > 0)
-        substring_kernel<<<grid(B), kThreads, 0, (cudaStream_t)stream>>>(
+        substring_kernel<<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
+                           SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)fm, nblocks, (const int*)fchr, z_off, nrows,
             (const int*)rr, B, L, (int*)top, (int*)bot);
     return (int)cudaGetLastError();
@@ -201,8 +339,12 @@ extern "C" int fm_seed(const void* fm, int nblocks, const void* fchr,
                        int z_off, int nrows, const void* ftab,
                        const void* seeds, const void* valid, int B, int L,
                        int K, void* top, void* bot, void* stream) {
+    // a ftab key of more than 32 codes would not lie in the first chunk
+    // (and no ftab has one: keys are 4^K entries with K <= 15)
+    if (K > SEED_CHUNK && K <= L) return (int)cudaErrorInvalidValue;
     if (B > 0)
-        seed_kernel<<<grid(B), kThreads, 0, (cudaStream_t)stream>>>(
+        seed_kernel<<<(B + SEED_THREADS - 1) / SEED_THREADS, SEED_THREADS, 0,
+                      (cudaStream_t)stream>>>(
             (const uint32_t*)fm, nblocks, (const int*)fchr, z_off, nrows,
             (const int*)ftab, (const int*)seeds, (const unsigned char*)valid,
             B, L, K, (int*)top, (int*)bot);

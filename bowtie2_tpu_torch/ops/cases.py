@@ -1,12 +1,15 @@
 """Seeded synthetic inputs for the exactness sweep of the rectangle DP
-(`sw_rect`), the read sweep (`fm_sweep`), the direction walk (`backtrace`)
-and the SA-offset walk (`sa_resolve`): shapes, modes and codes that the
-main path's first call does not reach. numpy only.
+(`sw_rect`), the read sweep (`fm_sweep`), the half-read search
+(`fm_substring`, on the read sweep's patterns), the seed search
+(`fm_seed`), the direction walk (`backtrace`) and the SA-offset walk
+(`sa_resolve`): shapes, modes and codes that the main path's first call
+does not reach. numpy only.
 
 chip_smoke.py holds each kernel to its plain PyTorch version on every case
 on the card; tests/test_torch_sw.py and tests/test_torch_fm.py hold the
 plain versions to the JAX package's `sw_banded`, `exact_sweep_rr`,
-`backtrace` and `sa_resolve` on the same cases on the CPU.
+`substring_search_rr`, `seed_search_exact`, `backtrace` and `sa_resolve`
+on the same cases on the CPU.
 
 DP cases cover window widths of both DP kernels (one warp a problem up to
 256 and 512 columns, one block beyond) and both column counts a thread
@@ -14,6 +17,12 @@ DP cases cover window widths of both DP kernels (one warp a problem up to
 barriers 0, 4 and 10, word-aligned windows (`col_lo`) and plain ones, N
 codes in reads and windows, columns outside the reference, short reads
 padded with N, and tandem repeats whose best cells tie.
+
+Seed cases cover seed lengths 1, 10, 11, 22 and 40 (past the 32 codes
+the seed kernel holds at once), ftab starts of fewer codes than the seed,
+of all of it and none (K 0, and K past the seed), invalid seeds, Ns in
+the ftab tail and in the stepped part, substitutions that empty the range
+at every step, random seeds, and codes -1 (read as A) and 6 (an N).
 
 Walk cases start from every DP case's best cells and from row 0, lane 0,
 lane W - 1, a row past the read's end and a duplicated candidate; two
@@ -130,8 +139,10 @@ def sweep_cases(genome: np.ndarray, seed: int = 0, scale: int = 1
     pattern's character len-1-p; 5 marks a step that does nothing). Rows
     are reversed genome substrings (long exact matches), some with
     substitutions, Ns or interior 5s, and random rows (restarts); each
-    row's active length is drawn from 1..L."""
+    row's active length is drawn from 1..L. The last row of each case of
+    more than one state holds a -1 and a 6."""
     rng = np.random.default_rng(seed)
+    odd = np.random.default_rng(seed + 300)
     g = np.asarray(genome, np.int32)
     out = []
     for B, L in SWEEP_SHAPES:
@@ -152,7 +163,60 @@ def sweep_cases(genome: np.ndarray, seed: int = 0, scale: int = 1
             elif kind == 3:
                 row[rng.integers(0, n, 1 + n // 50)] = 5
             rr[b, :n] = row
+        if B > 1:
+            # codes the plain versions clamp: -1 steps as A, 6 is skipped
+            act = np.flatnonzero(rr[-1] < 5)
+            rr[-1, odd.choice(act, min(2, act.size), replace=False)] = \
+                (-1, 6)[:min(2, act.size)]
         out.append((f"B{B}_L{L}", rr))
+    return out
+
+
+# (seed length, ftab start): "ftab" starts from min(ftab_chars, L) codes
+# (all of a seed no longer than the index's ftab key, fewer otherwise),
+# "none" from the whole range (K 0), "over" from K = L + 1, which takes no
+# ftab either
+SEED_SHAPES = ((22, "ftab"), (22, "none"), (11, "ftab"), (10, "ftab"),
+               (10, "over"), (1, "ftab"), (1, "none"), (40, "ftab"))
+SEED_BATCH = 45        # seeds a case, a unit of scale
+
+
+def seed_cases(genome: np.ndarray, ftab_chars: int, seed: int = 0,
+               scale: int = 1) -> List[tuple]:
+    """(name, seeds, valid, seed_len, K) tuples for seed_search_exact over
+    an index of `genome` whose ftab keys have `ftab_chars` codes. Rows by
+    b % 8: a genome substring (a hit); one with a substitution, at column
+    (b // 8) mod L, so that over the rows the range empties at every step;
+    an N in the ftab tail; an N in the stepped part; random codes; an
+    invalid seed; a -1 (steps as A); and a 6 (dies as an N)."""
+    rng = np.random.default_rng(seed + 200)
+    g = np.asarray(genome, np.int32)
+    out = []
+    for L, role in SEED_SHAPES:
+        K = {"ftab": min(ftab_chars, L), "none": 0, "over": L + 1}[role]
+        B = SEED_BATCH * scale
+        seeds = np.empty((B, L), np.int32)
+        valid = np.ones(B, bool)
+        tail = min(K, L)               # codes the ftab start resolves
+        for b in range(B):
+            s = int(rng.integers(0, g.size - L + 1))
+            row = np.minimum(g[s:s + L], 4).copy()
+            kind = b % 8
+            if kind == 1:
+                q = (b // 8) % L
+                row[q] = (row[q] + int(rng.integers(1, 4))) % 4
+            elif kind == 2:
+                row[L - 1 - int(rng.integers(0, max(tail, 1)))] = 4
+            elif kind == 3:
+                row[int(rng.integers(0, max(L - tail, 1)))] = 4
+            elif kind == 4:
+                row = rng.integers(0, 4, L).astype(np.int32)
+            elif kind == 5:
+                valid[b] = False
+            elif kind in (6, 7):
+                row[int(rng.integers(0, L))] = -1 if kind == 6 else 6
+            seeds[b] = row
+        out.append((f"L{L}_{role}", seeds, valid, L, K))
     return out
 
 

@@ -38,12 +38,15 @@ class SweepResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _rows(half: FMHalf, block: torch.Tensor) -> torch.Tensor:
-    """fm_blocks rows of `block`; rows past the last block read as
-    0xFFFFFFFF (jnp.take's fill for an out-of-range uint32 gather, which
-    the JAX op reaches at i = n + 1 when n + 1 is a multiple of 128)."""
+    """fm_blocks rows of `block` as jnp.take gives them: a negative block
+    counts from the end, and rows outside the table read as 0xFFFFFFFF
+    (the JAX op reaches i = n + 1 when n + 1 is a multiple of 128, and the
+    searches that die take a LF step of a dead range, whose bot may be -1,
+    and mask it off)."""
     nb = half.fm_blocks.shape[0]
-    rows = half.fm_blocks.index_select(0, torch.clamp(block, max=nb - 1).long())
-    return torch.where((block >= nb)[:, None], -1, rows)
+    block = torch.where(block < 0, block + nb, block)
+    rows = half.fm_blocks.index_select(0, torch.clamp(block, 0, nb - 1).long())
+    return torch.where(((block < 0) | (block >= nb))[:, None], -1, rows)
 
 
 def _crumbs(words: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,8 @@ Phases, each of which exits non-zero when it fails:
    the sum's share of the main path's wall time (the `device time:`
    line), a lower bound on the card's busy share; the `call shapes:` line
    splits the walk's and the SA walk's totals by the sizes that pick
-   their kernels' launch shape.
+   their kernels' launch shape, and the seed and half-read searches'
+   totals by their calls' sizes.
 4. The output: the SAM groups of the first batch must be byte-identical
    to the same aligner's run with device="cpu" (the plain versions).
 5. The --local path: the first batch again with --sensitive-local, with
@@ -34,26 +35,31 @@ Phases, each of which exits non-zero when it fails:
    path gave it first and held to its plain version on the same card
    tensors (exact equality: every contract is integer), and so are the
    inputs the --local path gave it and, for the walk and the SA walk, the
-   first end-to-end call large enough to take another launch shape (the
-   `bulk` entry); the end-to-end ones are timed with
+   first end-to-end call large enough to take another launch shape, and
+   for the seed and half-read searches the first end-to-end call of
+   another size than their first (the host path's; the `bulk` entry);
+   the end-to-end ones are timed with
    CUDA events, back to back (`ms`) and each launch alone after the card
    has idled IDLE_S seconds (`idle_ms`), as it idles between the
    host-paced calls of the main path, and the least time the card could
    take is computed from
    them: the larger of the bytes the function must move over 3.35 TB/s
    and the integer operations it needs over 67 T/s (see OPS_* below).
-   The DP (sw_rect), the read sweep (fm_sweep), the direction walk
-   (backtrace) and the SA-offset walk (sa_resolve) are also held to their
-   plain versions on every synthetic case of bowtie2_tpu_torch/ops/
-   cases.py at scale 1 and 8 (the CPU tests hold those plain versions to
-   the JAX package on the same cases), and timed on one block's worth of
-   problems, which measures the dependency chain of one problem alone
-   (`chain_ms`). The DP's log line also gives the cells its data needs
-   and, derived from them, its issue floor; the walk's, the share of its
-   steps past the walk's end (`tail_share`); the SA walk's log line, as
-   figures derived from a replay of the plain walk and not measured, the
-   share of lane-steps its 32-row warps idle (`lane_idle_share`) and the
-   L2 sectors its steps ask for, over the kernel's time. The SE gapless
+   Every kernel is also held to its plain version on every synthetic case
+   of bowtie2_tpu_torch/ops/cases.py at scale 1 and 8 (the CPU tests hold
+   those plain versions to the JAX package on the same cases), and timed
+   on one block's worth of problems, which measures the dependency chain
+   of one problem alone (`chain_ms`). The DP's log line also gives the
+   cells its data needs and, derived from them, its issue floor; the
+   walk's, the share of its steps past the walk's end (`tail_share`); the
+   SA walk's log line, as figures derived from a replay of the plain walk
+   and not measured, the share of lane-steps its 32-row warps idle
+   (`lane_idle_share`) and the L2 sectors its steps ask for, over the
+   kernel's time; the seed and half-read searches' log lines, derived
+   from a replay of the plain search, the share of state-steps that take
+   a LF step (`live_step_share`), the share of those whose range lies in
+   one 128-row block (`same_block_share`) and the L2 sectors the search
+   asks for, over the kernel's time. The SE gapless
    readout (ops/sw.py diag_readout, torch ops) is timed as the window
    gather is.
 
@@ -130,8 +136,11 @@ SPIN_REP = 1_000_000
 IDLE_S = 0.05
 
 # positions in the C call's arguments of the sizes that pick a kernel's
-# launch shape: backtrace (walks, Lmax, W, S), sa_resolve (rows)
-SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,)}
+# launch shape: backtrace (walks, Lmax, W, S), sa_resolve (rows); and of
+# the calls' sizes: fm_seed (seeds, seed length, K), fm_substring (states,
+# pattern columns)
+SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,),
+              "fm_seed": (8, 9, 10), "fm_substring": (6, 7)}
 
 # backtrace.cu runs one thread a walk past LANE_WAVES (4) waves of its
 # warp kernel, two blocks of NW (8) walks an SM: past this many walks an SM
@@ -181,21 +190,25 @@ class Recorder:
     call, so phase 6 replays the kernels at the main path's shapes; and,
     under name + "@bulk", of its first call on the card of more than
     bulk[name] problems (walks, SA rows), which takes another launch
-    shape."""
+    shape, or, where bulk[name] is None, of another number of problems
+    (seeds, half-read states) than its first call had."""
 
     def __init__(self, fm, sw, fused, bulk):
         self.args = {}
         self.bulk = bulk
+        self._sized = {}
         i32 = torch.int32
         self._patch(fm, "exact_sweep_rr", "fm_sweep",
                     lambda half, rr: (half, rr.to(i32).contiguous()))
         self._patch(fm, "substring_search_rr", "fm_substring",
-                    lambda half, rr: (half, rr.to(i32).contiguous()))
+                    lambda half, rr: (half, rr.to(i32).contiguous()),
+                    lambda half, rr: rr)
         self._patch(fm, "seed_search_exact", "fm_seed",
                     lambda half, seeds, valid, seed_len, ftab_chars=0: (
                         half, seeds.to(i32).contiguous(),
                         valid.to(torch.bool).contiguous(), seed_len,
-                        ftab_chars))
+                        ftab_chars),
+                    lambda half, seeds, *a, **k: seeds)
         self._patch(fm, "sa_resolve", "sa_resolve",
                     lambda half, rows, period=32: (
                         half, rows.to(i32).contiguous(), period),
@@ -212,6 +225,12 @@ class Recorder:
         args, self.args = self.args, {}
         return args
 
+    def first_size(self, name, args=None):
+        """The number of problems of `name`'s first call; `args` are the
+        recorded arguments (the current recording's by default)."""
+        first = (self.args if args is None else args)[name]
+        return self._sized[name](*first).shape[0]
+
     def _patch(self, mod, attr, name, norm, sized=None):
         """sized(*args) gives the tensor whose length is the call's size."""
         orig = getattr(mod, attr)
@@ -222,11 +241,15 @@ class Recorder:
             big = name + "@bulk"
             if sized is not None and big not in self.args:
                 t = sized(*a, **k)
-                if t.is_cuda and t.shape[0] > self.bulk[name]:
+                lim = self.bulk[name]
+                n = t.shape[0]
+                if t.is_cuda and (n > lim if lim is not None else
+                                  n != self.first_size(name)):
                     self.args[big] = norm(*a, **k)
             return orig(*a, **k)
         setattr(mod, attr, wrapped)
         setattr(self, "orig_" + name, orig)
+        self._sized[name] = sized
 
 
 def host_timers(targets):
@@ -371,7 +394,8 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
     """{kernel: [(case, max abs err)]} over ops/cases.py: the cases the CPU
     tests hold the plain versions to the JAX package on (seed 0, scale 1)
     and the same generator at eight times the problems (seed 1). The read
-    sweep runs on `data` (the genome's index) and on a genome whose
+    sweep, the half-read search (on the read sweep's patterns) and the
+    seed search run on `data` (the genome's index) and on a genome whose
     n + 1 = 2048 rows fill whole blocks, where the first LF of bot reads
     the row past the last block; the SA walk on both genomes indexed with
     marks every 1, 16 and 32 text positions."""
@@ -379,7 +403,7 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
         return None if x is None else torch.from_numpy(x).to(device)
 
     sw = port.sw
-    out = {"sw_rect": [], "fm_sweep": [], "backtrace": [], "sa_resolve": []}
+    out = {k: [] for k in kerns}
     for seed, scale in ((0, 1), (1, 8)):
         for c in port.cases.dp_cases(seed=seed, scale=scale):
             args = sw.sw_args(put(c.reads), put(c.quals), put(c.lens),
@@ -420,10 +444,17 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
                 sweeps = port.cases.sweep_cases(g, seed=seed, scale=scale) \
                     if period == port.cases.RESOLVE_PERIODS[0] else []
                 for cname, rr in sweeps:
-                    out["fm_sweep"].append((
+                    for k in ("fm_sweep", "fm_substring"):
+                        out[k].append((f"{gname}_{cname}@x{scale}", max_err(
+                            kerns[k], plains[k], (h, put(rr)))[1]))
+                seeds = port.cases.seed_cases(
+                    g, d.fw.ftab_chars, seed=seed, scale=scale) \
+                    if period == port.cases.RESOLVE_PERIODS[0] else []
+                for cname, sd, valid, slen, K in seeds:
+                    out["fm_seed"].append((
                         f"{gname}_{cname}@x{scale}", max_err(
-                            kerns["fm_sweep"], plains["fm_sweep"],
-                            (h, put(rr)))[1]))
+                            kerns["fm_seed"], plains["fm_seed"],
+                            (h, put(sd), put(valid), slen, K))[1]))
                 for kind, rows in port.cases.resolve_cases(
                         d.fw, period, seed=seed, scale=scale):
                     out["sa_resolve"].append((
@@ -438,62 +469,87 @@ def nbytes(*ts) -> int:
 
 
 def fm_work(fm, name, args):
-    """(bytes, LF steps) that the search needs on these inputs: each
-    input read once, each output written once; LF steps counted by
-    replaying the plain version's state on the card."""
+    """(bytes, LF steps, derived facts) that the search needs on these
+    inputs: each input read once, each output written once. The read sweep
+    is charged the whole FM table and fchr. The seed and half-read
+    searches replay the plain version's state on the card and are charged
+    only what it touches: the 48-byte row of each distinct block where a
+    live step (a LF step of a range that is not empty, code < 4) reads top
+    or bot, 8 bytes for each distinct ftab key a valid seed with no N in
+    its tail looks up, and fchr. LF steps are two a live step. The facts
+    are derived from the replay, not measured:
+    - live_step_share: live steps over the state-steps the search has (a
+      seed's seed_len - K columns; a half-read state's columns of code
+      < 5);
+    - same_block_share: live steps whose top and bot lie in one 128-row
+      block, over live steps;
+    - l2_sectors: the 32-byte sectors the search asks for, under the model
+      that a row's loads (bwt words 0-3 and 4-7, cp[c]) span two sectors
+      at its 16-byte alignment: two a live step, two more when bot lies in
+      another block, and the inputs and outputs read or written once (one
+      sector a ftab lookup)."""
     half = args[0]
-    tables = nbytes(half.fm_blocks, half.fchr)
     if name == "fm_sweep":
         rr = args[1]
-        steps = int((rr < 4).sum()) * 2
-        return tables + nbytes(rr) + 3 * rr.shape[0] * 4, steps
+        return (nbytes(half.fm_blocks, half.fchr) + nbytes(rr)
+                + 3 * rr.shape[0] * 4, int((rr < 4).sum()) * 2, {})
+    i32 = torch.int32
+    keys = lookups = 0
     if name == "fm_substring":
         rr = args[1]
-        B, L = rr.shape
-        top = torch.zeros(B, dtype=torch.int32, device=rr.device)
-        bot = torch.full((B,), half.nrows, dtype=torch.int32,
-                         device=rr.device)
-        steps = 0
-        for p in range(L):
-            c = rr[:, p]
-            live = (c < 4) & (top < bot)
-            steps += 2 * int(live.sum())
-            ntop, nbot = fm._lf2(half, top, bot, torch.clamp(c, 0, 3))
-            dead = (c >= 4) | ~(top < bot)
-            act = c < 5
-            top = torch.where(act, torch.where(dead, 1, ntop), top)
-            bot = torch.where(act, torch.where(dead, 0, nbot), bot)
-        return tables + nbytes(rr) + 2 * B * 4, steps
-    if name == "fm_seed":
+        B = rr.shape[0]
+        top = torch.zeros(B, dtype=i32, device=rr.device)
+        bot = torch.full((B,), half.nrows, dtype=i32, device=rr.device)
+        cols = [rr[:, p] for p in range(rr.shape[1])]
+        slots = int((rr < 5).sum())
+        io = nbytes(rr) + 2 * B * 4
+    else:
         _, seeds, valid, seed_len, K = args
         B = seeds.shape[0]
-        # replay: ftab start (last K chars), then LF steps right to left
         if not 0 < K <= seed_len:
             K = 0
         if K:
+            # the ftab start (last K chars), then LF steps right to left
             tail = seeds[:, seed_len - K:]
-            w = 4 ** torch.arange(K - 1, -1, -1, dtype=torch.int32,
+            w = 4 ** torch.arange(K - 1, -1, -1, dtype=i32,
                                   device=seeds.device)
             key = (torch.clamp(tail, 0, 3) * w).sum(dim=1)
             top0, bot0 = fm.ftab_lookup_batch(half, key)
             ok = valid & ~(tail >= 4).any(dim=1)
+            keys = torch.unique(key[ok]).numel()
+            lookups = int(ok.sum())
             top = torch.where(ok, top0, 1)
             bot = torch.where(ok, bot0, 0)
         else:
-            top = torch.zeros(B, dtype=torch.int32, device=seeds.device)
-            bot = torch.where(valid, half.nrows, 0).to(torch.int32)
-        steps = 0
-        for q in range(seed_len - K - 1, -1, -1):
-            c = seeds[:, q]
-            live = (c < 4) & (top < bot)
-            steps += 2 * int(live.sum())
-            ntop, nbot = fm._lf2(half, top, bot, torch.clamp(c, 0, 3))
-            dead = (c >= 4) | ~(top < bot)
-            top = torch.where(dead, 1, ntop)
-            bot = torch.where(dead, 0, nbot)
-        return (tables + nbytes(half.ftab, seeds, valid) + 2 * B * 4,
-                steps)
-    raise KeyError(name)
+            top = torch.zeros(B, dtype=i32, device=seeds.device)
+            bot = torch.where(valid, half.nrows, 0).to(i32)
+        cols = [seeds[:, q] for q in range(seed_len - K - 1, -1, -1)]
+        slots = B * len(cols)
+        io = nbytes(seeds, valid) + 2 * B * 4
+    nb = half.fm_blocks.shape[0]
+    live_n = same_n = 0
+    blocks = []
+    for c in cols:
+        live = (c < 4) & (top < bot)
+        bt, bb = top[live] // 128, bot[live] // 128
+        live_n += int(live.sum())
+        same_n += int((bt == bb).sum())
+        blocks.append(torch.unique(torch.cat([bt, bb]).clamp(max=nb - 1)))
+        ntop, nbot = fm._lf2(half, top, bot, torch.clamp(c, 0, 3))
+        dead = (c >= 4) | ~(top < bot)
+        ntop = torch.where(dead, 1, ntop)
+        nbot = torch.where(dead, 0, nbot)
+        act = c < 5 if name == "fm_substring" else torch.ones_like(dead)
+        top = torch.where(act, ntop, top)
+        bot = torch.where(act, nbot, bot)
+    rows = torch.unique(torch.cat(blocks)).numel() if blocks else 0
+    facts = dict(live_step_share=round(live_n / max(slots, 1), 4),
+                 same_block_share=round(same_n / max(live_n, 1), 4),
+                 live_steps=live_n, rows_touched=rows, ftab_keys=keys,
+                 l2_sectors=2 * live_n + 2 * (live_n - same_n) + lookups
+                 + -(-io // 32))
+    return (48 * rows + 8 * keys + nbytes(half.fchr) + io, 2 * live_n,
+            facts)
 
 
 def resolve_work(fm, args):
@@ -628,10 +684,10 @@ def main() -> None:
         props, "max_threads_per_multi_processor", 2048)
     # the calls past these sizes are replayed in phase 6 too: the walks
     # that take the one-thread-a-walk kernel, the SA rows past the threads
-    # the card holds at once
+    # the card holds; and the searches' first call of another size at once
     rec = Recorder(fm, sw, fused, bulk={
         "backtrace": BT_WARP_WALKS_PER_SM * props.multi_processor_count,
-        "sa_resolve": threads})
+        "sa_resolve": threads, "fm_seed": None, "fm_substring": None})
     pol = make_policy("sensitive")
     aligner = UnpairedAligner(data, pol)
     spent = host_timers([(aligner, "submit"), (aligner, "collect_raw"),
@@ -720,8 +776,9 @@ def main() -> None:
         f"pass {twall:.2f} s, launches "
         f"{'as the main path' if tlaunches == launches else tlaunches}")
     log(f"call shapes: {json.dumps(shapes)} (total ms, calls; backtrace by "
-        f"(walks, Lmax, W, S), sa_resolve by rows); the card holds "
-        f"{threads} threads at once")
+        f"(walks, Lmax, W, S), sa_resolve by rows, fm_seed by (seeds, "
+        f"seed length, K), fm_substring by (states, columns)); the card "
+        f"holds {threads} threads at once")
 
     # ---------------- phase 4: card vs CPU on the first batch -------------
     t0 = time.time()
@@ -774,8 +831,7 @@ def main() -> None:
     port = types.SimpleNamespace(cases=cases, sw=sw, FMIndex=FMIndex,
                                  build_index_from_refs=build_index_from_refs)
     sweep_errs = exactness_sweep(
-        port, {k: getattr(rec, "orig_" + k) for k in
-               ("sw_rect", "fm_sweep", "backtrace", "sa_resolve")},
+        port, {k: getattr(rec, "orig_" + k) for k in KERNELS},
         plains, data, genome, torch.device("cuda"))
     for name, errs in sweep_errs.items():
         bad = [(c, e) for c, e in errs if e]
@@ -786,7 +842,8 @@ def main() -> None:
             + f" ({time.time() - t0:.1f} s)")
 
     # the chain floor: one block's worth of problems alone on the card
-    # (4 DP problems, 64 sweep states, 8 walks, 128 SA rows)
+    # (4 DP problems, 64 sweep states, 8 walks, 128 SA rows, 128 seeds, 64
+    # half-read states)
     def first(args, n):
         return tuple(x[:n].contiguous() if isinstance(x, torch.Tensor)
                      else x for x in args)
@@ -800,7 +857,11 @@ def main() -> None:
         "backtrace": time_cuda(lambda: rec.orig_backtrace(
             bt_args[0], *first(bt_args[1:], 8)), a.reps),
         "sa_resolve": time_cuda(lambda: rec.orig_sa_resolve(
-            rs_args[0], rs_args[1][:128].contiguous(), rs_args[2]), a.reps)}
+            rs_args[0], rs_args[1][:128].contiguous(), rs_args[2]), a.reps),
+        "fm_seed": time_cuda(lambda: rec.orig_fm_seed(
+            *first(e2e_args["fm_seed"], 128)), a.reps),
+        "fm_substring": time_cuda(lambda: rec.orig_fm_substring(
+            *first(e2e_args["fm_substring"], 64)), a.reps)}
     smi_clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60)
@@ -837,8 +898,12 @@ def main() -> None:
         extra = {}      # measured: into the JSON line
         derived = {}    # derived from a model or a replay: log line only
         if name in ("fm_sweep", "fm_substring", "fm_seed"):
-            byt, lf = fm_work(fm, name, args)
+            byt, lf, derived = fm_work(fm, name, args)
             ops = lf * OPS_LF
+            if derived:
+                # the modelled sectors' bytes over the measured kernel time
+                derived["l2_tb_s"] = round(
+                    derived["l2_sectors"] * 32 / ms / 1e9, 3)
         elif name == "sa_resolve":
             byt, ops, facts = resolve_work(fm, args)
             # the modelled sectors' bytes over the measured kernel time
@@ -922,6 +987,9 @@ def main() -> None:
             + (f" bulk call {bulk['shape']}: max_abs_err="
                f"{bulk['max_abs_err']} ms={bulk['ms']}" if bulk else
                f" (no call past {rec.bulk[name]} on the main path)"
+               if rec.bulk.get(name) else
+               f" (no call of another size than "
+               f"{rec.first_size(name, e2e_args)} on the main path)"
                if name in rec.bulk else "")
             + (" derived, not measured:" + "".join(
                 f" {k}={v}" for k, v in derived.items()) if derived else "")

@@ -142,6 +142,50 @@ def test_substring_search(idx):
     _eq(jb, pb)
 
 
+def _genome_index(request, genome):
+    """(genome, JAX half, port half, ftab key length) of either index the
+    exactness sweep's cases run on."""
+    if genome == "corpus":
+        data, jh, ph, _reads = request.getfixturevalue("idx")
+        return corpus(8)[0], jh, ph, data.fw.ftab_chars  # the idx genome
+    g, jh, ph = request.getfixturevalue("fill_idx")
+    return g, jh, ph, 4
+
+
+@pytest.mark.parametrize("shape", range(len(cases.SWEEP_SHAPES)),
+                         ids=[f"B{b}_L{n}" for b, n in cases.SWEEP_SHAPES])
+@pytest.mark.parametrize("genome", ["corpus", "fill"])
+def test_substring_search_rr_synthetic_cases(request, genome, shape):
+    """The read sweep's patterns through the half-read search, which
+    chip_smoke.py holds the fm_substring kernel to on the card: interior
+    5s, Ns, substitutions, random rows, codes -1 and 6, and patterns
+    across the kernel's 128-column staging chunk."""
+    g, jh, ph, _K = _genome_index(request, genome)
+    _name, rr = cases.sweep_cases(g)[shape]
+    jt, jb = jfm.substring_search_rr(jh, jnp.asarray(rr))
+    pt, pb = pfm.substring_search_rr(ph, _t(rr))
+    _eq(jt, pt)
+    _eq(jb, pb)
+
+
+@pytest.mark.parametrize("shape", range(len(cases.SEED_SHAPES)),
+                         ids=[f"L{n}_{r}" for n, r in cases.SEED_SHAPES])
+@pytest.mark.parametrize("genome", ["corpus", "fill"])
+def test_seed_search_exact_synthetic_cases(request, genome, shape):
+    """The seed cases (ops/cases.py), which chip_smoke.py holds the
+    fm_seed kernel to on the card: every ftab start, invalid seeds, Ns in
+    the ftab tail and the stepped part, ranges that empty at every step,
+    codes -1 and 6, and seeds past the kernel's 32-code chunk."""
+    g, jh, ph, K = _genome_index(request, genome)
+    _name, seeds, valid, seed_len, ftab = cases.seed_cases(g, K)[shape]
+    assert not valid.all() and (seeds == -1).any() and (seeds == 6).any()
+    jt, jb = jfm.seed_search_exact(jh, jnp.asarray(seeds), jnp.asarray(valid),
+                                   seed_len, ftab)
+    pt, pb = pfm.seed_search_exact(ph, _t(seeds), _t(valid), seed_len, ftab)
+    _eq(jt, pt)
+    _eq(jb, pb)
+
+
 @pytest.mark.parametrize("seed_len,ftab", [(22, 10), (22, 0), (11, 10),
                                            (10, 10)],
                          ids=["ftab", "no_ftab", "half_seed", "ftab_only"])
