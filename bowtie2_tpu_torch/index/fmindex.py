@@ -20,8 +20,8 @@ import torch
 
 from bowtie2_tpu_torch.index.build import HalfIndex, IndexData
 
-LARGE_INDEX_ITEM = ("ROADMAP.md queue 1, 'large (uint32/int64 row) index "
-                    "mode'")
+LARGE_INDEX_ITEM = ("ROADMAP.md slice queue item 4, 'the large "
+                    "(uint32/int64 row) index mode'")
 
 
 class FMHalf(NamedTuple):

@@ -22,7 +22,7 @@ import subprocess
 import threading
 import time
 from collections import Counter
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -160,17 +160,28 @@ def lib(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
-def call(name: str, symbol: str, argtypes, *args) -> None:
+def call(name: str, symbol: str, argtypes, *args,
+         kinds: Optional[Sequence[str]] = None) -> Optional[str]:
     """Launch `symbol` of csrc/<name>.cu on the current stream; the stream
-    is appended as the last argument. Raises on a non-zero CUDA error."""
+    is appended as the last argument. Raises on a non-zero CUDA error.
+    Counts the launch under `symbol` and returns that name. An entry that
+    picks one of several kernels names them in `kinds`: it then takes a
+    host int before the stream, where it writes the index of the kernel it
+    launched (-1: none), and the launch is counted under that kind."""
     fn = getattr(lib(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = list(argtypes) + [P]
+        fn.argtypes = list(argtypes) + [P] * (kinds is not None) + [P]
         fn.restype = ctypes.c_int
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    kind = ctypes.c_int(0)
+    extra = [ctypes.addressof(kind)] if kinds is not None else []
+    err = fn(*args, *extra, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err}")
-    LAUNCHES[symbol] += 1
+    counted = symbol if kinds is None else \
+        (kinds[kind.value] if kind.value >= 0 else None)
+    if counted is not None:
+        LAUNCHES[counted] += 1
+    return counted
 
 
 def ptr(t: torch.Tensor) -> int:

@@ -16,7 +16,10 @@ DP cases cover window widths of both DP kernels (one warp a problem up to
 (WPT 1 and 2), read lengths from 1 to 300, end-to-end and local mode, gap
 barriers 0, 4 and 10, word-aligned windows (`col_lo`) and plain ones, N
 codes in reads and windows, columns outside the reference, short reads
-padded with N, and tandem repeats whose best cells tie.
+padded with N, and tandem repeats whose best cells tie. Origin cases
+(`origin_cases`) aim at each rule of origin tracking: tied F runs, F runs
+from column 0, the local clamp, rows past the read's end, the gap barrier
+and the 533-column mate-rescue windows.
 
 Seed cases cover seed lengths 1, 10, 11, 22 and 40 (past the 32 codes
 the seed kernel holds at once), ftab starts of fewer codes than the seed,
@@ -130,6 +133,131 @@ def dp_cases(seed: int = 0, scale: int = 1) -> List[DPCase]:
         out.append(_dp_case(rng, f"tie_W{W}_L{Lmax}_"
                             f"{'local' if local else 'e2e'}",
                             scale * 6, Lmax, W, local, 4, True, tie=True))
+    return out
+
+
+def _embed_indel(rng, read, win, s, pos, kind, n):
+    """Copy `read` into `win` from column s with a deletion from the read
+    (`kind` "del": n window codes inserted after read position pos) or an
+    insertion (`kind` "ins": read positions pos..pos+n left out)."""
+    if kind == "del":
+        seg = np.concatenate([read[:pos], rng.integers(0, 4, n), read[pos:]])
+    else:
+        seg = np.concatenate([read[:pos], read[pos + n:]])
+    seg = seg[:max(win.size - s, 0)]
+    win[s:s + seg.size] = seg
+
+
+def origin_cases(seed: int = 0, scale: int = 1) -> List[DPCase]:
+    """DP cases for origin tracking (sw_banded track_origin=True), each
+    aimed at one of its rules:
+
+    - `o_ftie`: deletions inside homopolymer runs, so that F runs of equal
+      score start at several columns (the later column wins the tie);
+    - `o_fcol0`: reads aligned from window column 0 that start with an
+      insertion and then delete, so F runs start at column 0 from a cell
+      whose origin is still -1;
+    - `o_clamp`: local mode over noisy reads, where the clamp resets the
+      origin many times a row;
+    - `o_pastend`: reads much shorter than Lmax, whose rows past the end
+      keep o and oe;
+    - `o_gbar`: a gap barrier of 10 with indels near both read ends;
+    - `o_W533`: mate-rescue windows of 533 columns (100-bp reads, Lmax
+      128, full-width rectangles), with and without `col_lo`; the block
+      DP kernel runs them."""
+    rng = np.random.default_rng(seed + 300)
+    G = SW_BAND
+    out = []
+
+    def base(B, Lmax, W, lens_lo):
+        lens = rng.integers(lens_lo, Lmax + 1, B).astype(np.int32)
+        lens[0] = Lmax
+        reads = rng.integers(0, 4, (B, Lmax)).astype(np.int32)
+        wins = rng.integers(0, 4, (B, W)).astype(np.int32)
+        quals = rng.integers(0, 42, (B, Lmax)).astype(np.int32)
+        return lens, reads, wins, quals
+
+    def finish(name, reads, quals, lens, wins, local, gbar, rect_cols=None,
+               col_lo=None):
+        reads[np.arange(reads.shape[1])[None, :] >= lens[:, None]] = 4
+        out.append(DPCase(name, reads, quals, lens, wins, G, rect_cols,
+                          col_lo, local, gbar))
+
+    for local in (False, True):
+        mode = "local" if local else "e2e"
+        # F-run ties: the read's deletion sits in a homopolymer run
+        B, Lmax, W = 8 * scale, 64, 64 + 2 * G + 1
+        lens, reads, wins, quals = base(B, Lmax, W, 40)
+        for b in range(B):
+            pos = int(rng.integers(10, int(lens[b]) - 10))
+            c = int(rng.integers(0, 4))
+            reads[b, pos - 3:pos + 3] = c
+            n = int(rng.integers(1, 4))
+            seg = np.concatenate([reads[b, :pos], np.full(n, c),
+                                  reads[b, pos:lens[b]]])
+            s = G + int(rng.integers(-2, 3))
+            seg = seg[:W - s]
+            wins[b, s:s + seg.size] = seg
+        finish(f"o_ftie_{mode}", reads, quals, lens, wins, local, 0)
+        # F runs from column 0: insertion at the read's start, then a
+        # deletion, aligned from column 0 (no gap barrier)
+        lens, reads, wins, quals = base(B, Lmax, W, 30)
+        for b in range(B):
+            r = reads[b, :lens[b]]
+            k = int(rng.integers(1, 4))
+            _embed_indel(rng, r[k:], wins[b], 0, int(rng.integers(2, 8)),
+                         "del", int(rng.integers(1, 5)))
+        finish(f"o_fcol0_{mode}", reads, quals, lens, wins, local, 0)
+        # rows past the read's end
+        B, Lmax = 6 * scale, 128
+        W = Lmax + 2 * G + 1
+        lens, reads, wins, quals = base(B, Lmax, W, 5)
+        lens[1:] = rng.integers(5, 40, B - 1)
+        for b in range(B):
+            _embed_indel(rng, reads[b, :lens[b]], wins[b], G,
+                         int(lens[b]) // 2, "ins" if b % 2 else "del", 2)
+        finish(f"o_pastend_{mode}", reads, quals, lens, wins, local, 4)
+        # gap barrier 10, indels near both ends
+        B, Lmax = 8 * scale, 100
+        W = Lmax + 2 * G + 1
+        lens, reads, wins, quals = base(B, Lmax, W, 60)
+        for b in range(B):
+            L = int(lens[b])
+            pos = int(rng.choice([int(rng.integers(3, 14)),
+                                  int(rng.integers(L - 14, L - 3))]))
+            _embed_indel(rng, reads[b, :L], wins[b], G, pos,
+                         "ins" if b % 2 else "del", int(rng.integers(1, 4)))
+        finish(f"o_gbar_{mode}", reads, quals, lens, wins, local, 10)
+        # mate-rescue shape: 533 columns, full-width rectangles
+        for with_col_lo in (False, True):
+            B, Lmax, W = 4 * scale, 128, 533
+            lens, reads, wins, quals = base(B, Lmax, W, 100)
+            lens[:] = 100
+            col_lo = rect_cols = None
+            lo = np.zeros(B, np.int64)
+            if with_col_lo:
+                col_lo = rng.integers(0, 32, B).astype(np.int32)
+                rect_cols = (W - col_lo).astype(np.int32)
+                lo = col_lo.astype(np.int64)
+            else:
+                rect_cols = np.full(B, W, np.int32)
+            for b in range(B):
+                s = int(lo[b] + rng.integers(0, W - lo[b] - 110))
+                _embed_indel(rng, reads[b, :100], wins[b], s,
+                             int(rng.integers(20, 80)),
+                             "ins" if b % 2 else "del", 3)
+            wins[rng.random((B, W)) < 0.01] = 4
+            finish(f"o_W533{'_col_lo' if with_col_lo else ''}_{mode}",
+                   reads, quals, lens, wins, local, 4, rect_cols, col_lo)
+    # the local clamp: noisy reads, where most rows restart paths
+    B, Lmax, W = 8 * scale, 90, 90 + 2 * G + 1
+    lens, reads, wins, quals = base(B, Lmax, W, 50)
+    for b in range(B):
+        seg = reads[b, :lens[b]].copy()
+        noisy = rng.random(seg.size) < 0.25
+        seg[noisy] = rng.integers(0, 4, int(noisy.sum()))
+        wins[b, G:G + seg.size] = seg[:W - G]
+    finish("o_clamp_local", reads, quals, lens, wins, True, 4)
     return out
 
 

@@ -112,7 +112,7 @@ def _assemble_slots(B, T, lens, live_read, sw_top, sw_bot, sw_ned,
     ranges by ascending width with depth-major round-robin row allocation
     under the per-read budget T. tops2/...: (2B, M2) per orientation row.
     Returns slot_valid, slot_row, slot_or, slot_off, slot_exact,
-    slot_mlen, slot_half — all (B, T)."""
+    slot_mlen, slot_half, slot_rangej, slot_rwidth — all (B, T)."""
     dev = lens.device
     M2 = tops2.shape[1]
     M = 2 * M2
@@ -178,9 +178,16 @@ def _assemble_slots(B, T, lens, live_read, sw_top, sw_bot, sw_ned,
     slot_mlen = torch.where(is_exact, lens[:, None], mlens.gather(1, sj))
     slot_half = torch.where(is_exact, False, halfs.gather(1, sj))
     slot_row = torch.where(slot_valid, slot_row, 0)
+    # source-range bookkeeping of the PE -D effort model (pe_effort.py):
+    # range id in width-sorted order (-2/-1 = exact fw/rc) and the source
+    # range's full SA width
+    ex_full = (sw_bot - sw_top).to(i32).index_select(
+        0, (ex_or * B + rdix).reshape(-1).long()).reshape(B, T)
+    slot_rangej = torch.where(is_exact, -2 + ex_or, sj.to(i32))
+    slot_rwidth = torch.where(is_exact, ex_full, w.gather(1, sj))
     return (slot_valid, slot_row.to(i32), slot_or.to(i32),
             slot_off.to(i32), is_exact & slot_valid, slot_mlen.to(i32),
-            slot_half)
+            slot_half, slot_rangej.to(i32), slot_rwidth.to(i32))
 
 
 def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -193,9 +200,11 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
           live_or, params: SWParams, band: int, seed_len: int,
           ftab_chars: int, half_ftab: int, period: int, T: int,
           NC: int, n1: bool, max_exact_rows: int, no_1mm: bool,
-          no_exact: bool = False, NCDP: Optional[int] = None):
+          no_exact: bool = False, NCDP: Optional[int] = None,
+          track_origin: bool = False):
     """Phases 1-4: searches → slots → SA resolve → DP. Returns a dict of
-    the intermediates fused_se ranks and backtraces from."""
+    the intermediates fused_se ranks and backtraces from and fused_pe
+    exports per slot (track_origin: the DP reports each path's origin)."""
     G = band
     dev = jboth.device
     B2, Lmax = jboth.shape
@@ -271,7 +280,7 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
         sweep_bot = torch.where(live_or, sweep_bot, sweep.top)
         bots2 = torch.where(live_or[:, None], bots2, tops2)
     (slot_valid, slot_row, slot_or, slot_off, slot_exact, slot_mlen,
-     slot_half) = _assemble_slots(
+     slot_half, slot_rangej, slot_rwidth) = _assemble_slots(
         B, T, lens, live_read, sweep.top, sweep_bot, sweep.nedit,
         tops2, bots2, offs2, mlens2, halfs2, max_exact_rows)
 
@@ -305,6 +314,10 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
     half_only = (same & slot_half[:, None, :]).any(dim=2) \
         & ~(same & seed_src[:, None, :]).any(dim=2) \
         & ~(same & slot_exact[:, None, :]).any(dim=2)
+    # source flags aggregated over the duplicate group (the -D effort
+    # model gives each anchor to the earliest phase that finds it)
+    agg_exact = (same & slot_exact[:, None, :]).any(dim=2)
+    agg_half = (same & slot_half[:, None, :]).any(dim=2)
     slot_valid = slot_valid & ~dup
 
     # ---------------- phase 4: compact -> windows -> DP ----------------
@@ -361,7 +374,7 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
         else max((min_gap_cost - 1) // max_pos_pen, 0)
     if ncdp >= NC or bypass_mm == 0:
         res = sw_banded(jreads_c, jquals_c, lens_c, wins, params, G,
-                        rect_cols, col_shift)
+                        rect_cols, col_shift, track_origin=track_origin)
         dplane = _ar(NC, dev)
         n_dpdrop = torch.zeros((), dtype=i32, device=dev)
     else:
@@ -372,13 +385,16 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
         res_dp = sw_banded(_take(jreads_c, dperm), _take(jquals_c, dperm),
                            torch.where(dlive, _take(lens_c, dperm), 1),
                            _take(wins, dperm), params, G,
-                           _take(rect_cols, dperm), _take(col_shift, dperm))
+                           _take(rect_cols, dperm), _take(col_shift, dperm),
+                           track_origin=track_origin)
         dpos = torch.where(dlive, dperm, NC)
         res = SWResult(
             _set_drop(d_score, dpos, res_dp.score),
             _set_drop(lens_c - 1, dpos, res_dp.row),
             _set_drop(col_shift + G + lens_c - 1, dpos, res_dp.lane),
-            res_dp.dirs)
+            res_dp.dirs,
+            _set_drop(col_shift + G, dpos, res_dp.origin)
+            if track_origin else None)
         dplane = _set_drop(torch.full((NC,), -1, dtype=i32, device=dev),
                            dpos, _ar(ncdp, dev))
         n_dpdrop = torch.clamp(needs_dp.sum() - ncdp, min=0).to(i32)
@@ -396,10 +412,13 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
     return dict(
         B=B, Lmax=Lmax, W=W, sweep=sweep, sweep_bot=sweep_bot,
         seed_elts=selt2[:B] + selt2[B:], seed_nz=snz2[:B] + snz2[B:],
-        slot_or=slot_or, earlier=earlier, flat_valid=flat_valid, perm=perm,
-        live_c=live_c, c_or=c_or, c_rid=c_rid, wins=wins, astart=astart,
-        jreads_c=jreads_c, jquals_c=jquals_c, res=res, c_score=c_score,
-        c_valid=c_valid, c_end=c_end, dplane=dplane, n_dpdrop=n_dpdrop)
+        slot_valid=slot_valid, slot_or=slot_or, slot_rangej=slot_rangej,
+        slot_rwidth=slot_rwidth, agg_exact=agg_exact, agg_half=agg_half,
+        anchor=anchor, rid=rid, earlier=earlier, flat_valid=flat_valid,
+        perm=perm, live_c=live_c, c_or=c_or, c_rid=c_rid, wins=wins,
+        astart=astart, jreads_c=jreads_c, jquals_c=jquals_c, res=res,
+        mm_ug=mm_ug, c_score=c_score, c_valid=c_valid, c_end=c_end,
+        dplane=dplane, n_dpdrop=n_dpdrop)
 
 
 def fused_se(half: FMHalf, ref_words, refn_words, seg: SegTables,
@@ -534,3 +553,239 @@ def fused_se(half: FMHalf, ref_words, refn_words, seg: SegTables,
         _take(c_score, ch_ci), n_dropped, ee_block)])
     blob = torch.cat([ops_full.reshape(-1), meta.view(torch.uint8)])
     return FusedResult(blob)
+
+
+# ---------------------------------------------------------------------------
+# paired-end: every slot's metadata + the device half of the pairing
+# ---------------------------------------------------------------------------
+
+# per-slot metadata fields exported for host pairing / effort replay
+PE_SLOT_FIELDS = 15
+# per-compact-candidate fields for DPPool reconstruction: astart, rid, row,
+# lane, score, dplane (candidate -> DP lane of the NCDP-compacted dirs, -1 =
+# bypassed)
+PE_CI_FIELDS = 6
+# device-pairing exports (layout = pipeline/align.py PairedAligner):
+# read (B2): first_cpos first_or first_lo first_hi first_s has_l
+#            sec_cpos sec_s has_l2 nL
+# pair (Bp): has b1_cpos b1_or b1_lo b1_hi b1_s b2_cpos b2_or b2_lo b2_hi
+#            b2_s best_ss sec_ss n_kept hostneed
+PE_READ_FIELDS = 10
+PE_PAIR_FIELDS = 15
+
+# pairing rank sentinel (the host mirror uses 1 << 30)
+PAIR_BIGR = 1 << 30
+
+
+class FusedPEResult(NamedTuple):
+    blob: torch.Tensor      # int32 (PE_READ_FIELDS*B2 + PE_PAIR_FIELDS*Bp +
+                            # 2*B2 + PE_CI_FIELDS*NC + 1,): the one transfer
+                            # the fast path needs
+    slots: torch.Tensor     # int32 (PE_SLOT_FIELDS, B2, T) per-slot metadata,
+                            # read only on the host-replay path
+    dirs: torch.Tensor      # device tensors kept for the emission backtrace
+    jreads_c: torch.Tensor
+    jquals_c: torch.Tensor
+    wins: torch.Tensor
+
+
+def _pe_pairing(pairing, B, Bp, T_, aok, score, slot_or, rid, lo_p, hi_p,
+                occ, exact, half, mmug, cpos, ee_read, seed_nz, inst_read,
+                filtered):
+    """Device half of PairedAligner._collect_fused's pairing, as torch ops
+    (bowtie2_tpu/ops/fused.py _pe_pairing): the same tie-break orders and
+    first-index argmax/argmin as the host numpy. Pairs that need the
+    host's replay paths raise `hostneed`. Returns (read_fields
+    (PE_READ_FIELDS, B), pair_fields (PE_PAIR_FIELDS, Bp)), int32."""
+    from bowtie2_tpu_torch.pipeline.pe import PE_DISCORD, pe_classify_torch
+    (pe_pol, minins, maxins, olap_ok, contain_ok, dove_ok, limit) = pairing
+    dev = score.device
+    AOK = aok.to(torch.bool)
+    S = score
+    OR = slot_or
+    tj = _ar(T_, dev)
+
+    # dedupe by (orient, end): a slot loses to a same-key slot of higher
+    # score, or of equal score and earlier index
+    same = (OR[:, :, None] == OR[:, None, :]) & \
+           (hi_p[:, :, None] == hi_p[:, None, :]) & \
+           AOK[:, :, None] & AOK[:, None, :]
+    s_gt = S[:, None, :] > S[:, :, None]
+    s_eq = S[:, None, :] == S[:, :, None]
+    t_lt = tj[None, None, :] < tj[None, :, None]
+    rep = AOK & ~(same & (s_gt | (s_eq & t_lt))).any(dim=2)
+
+    # rankpos[j] = rank under the key (~rep asc, -S asc, tj asc), counted
+    # pairwise (tj makes every key distinct)
+    nrep = (~rep).to(i32)
+    less = (nrep[:, None, :] < nrep[:, :, None]) | \
+           ((nrep[:, None, :] == nrep[:, :, None]) & (s_gt | (s_eq & t_lt)))
+    rankpos = less.sum(dim=2).to(i32)
+
+    # concordant cross-products (pairs, T, T)
+    conc = (rid[:Bp, :, None] == rid[Bp:, None, :]) & \
+        rep[:Bp][:, :, None] & rep[Bp:][:, None, :]
+    typ = pe_classify_torch(
+        pe_pol,
+        lo_p[:Bp][:, :, None], hi_p[:Bp][:, :, None],
+        (OR[:Bp] == 0)[:, :, None],
+        lo_p[Bp:][:, None, :], hi_p[Bp:][:, None, :],
+        (OR[Bp:] == 0)[:, None, :],
+        minins, maxins, olap_ok, contain_ok, dove_ok)
+    conc = conc & (typ != PE_DISCORD)
+    SUCC = torch.cat([conc.any(dim=2), conc.any(dim=1)], dim=0)
+
+    # zero-seed-round suppression (bt2_search.cpp:3948/:3968 `break`)
+    n1e, n2e = ee_read[:Bp], ee_read[Bp:]
+    swap = (n1e > 0) & (n2e > 0) & (n1e > n2e)
+    inst_first = torch.where(swap, inst_read[Bp:], inst_read[:Bp])
+    snz_first = torch.where(swap, seed_nz[Bp:], seed_nz[:Bp])
+    both_ok = ~filtered[:Bp] & ~filtered[Bp:]
+    supp_pair = both_ok & ((inst_first == 0) | (snz_first == 0))
+    suppress = torch.cat([supp_pair, supp_pair])
+    half_ok = half & torch.where(suppress[:, None], mmug <= 1, True)
+
+    # -D fail-streak fast path; non-fast reads -> host replay
+    nex = (occ & exact).sum(dim=1)
+    nhf = (occ & half_ok & ~exact).sum(dim=1)
+    nsd = (occ & ~exact & ~half).sum(dim=1)
+    if limit is None:
+        fast = torch.ones(B, dtype=torch.bool, device=dev)
+    else:
+        fast = (nex <= limit) & (nhf <= limit) & \
+            torch.where(suppress, True, nsd <= limit)
+    # suppressed rows with surviving half candidates need the host's
+    # oneMmSearch legality refinement
+    need_mm1 = suppress & (occ & half_ok & ~exact).any(dim=1)
+    hostneed_read = (~fast) | need_mm1
+    ATT = occ & torch.where(suppress[:, None], exact | half_ok, True)
+    SUC = ATT & SUCC
+
+    # best concordant combo per pair: (SS desc, mate-1 rank asc, mate-2
+    # rank asc) packed into one int32 key (rankpos < T)
+    keep = conc & (SUC[:Bp][:, :, None] | SUC[Bp:][:, None, :])
+    SS = S[:Bp][:, :, None] + S[Bp:][:, None, :]
+    shift = max(T_ - 1, 1).bit_length()
+    KMIN = -(1 << 31) + 1
+    key = torch.where(
+        keep,
+        (SS << (2 * shift)) - (rankpos[:Bp][:, :, None] << shift)
+        - rankpos[Bp:][:, None, :],
+        KMIN)
+    flatk = key.reshape(Bp, T_ * T_)
+    bestflat = torch.argmax(flatk, dim=1)
+    has = keep.reshape(Bp, -1).any(dim=1)
+    b_s1 = (bestflat // T_)[:, None]
+    b_s2 = (bestflat % T_)[:, None]
+    SSf = SS.reshape(Bp, -1)
+    best_ss = SSf.gather(1, bestflat[:, None])[:, 0]
+    n_kept = keep.reshape(Bp, -1).sum(dim=1).to(i32)
+    flatk2 = flatk.scatter(1, bestflat[:, None], KMIN)
+    sec_ss = SSf.gather(1, torch.argmax(flatk2, dim=1)[:, None])[:, 0]
+
+    # eff-ranked heads (rescue anchors / discordant / mixed)
+    att_rank = torch.where(rep & ATT, rankpos, PAIR_BIGR)
+    first_rank = att_rank.min(dim=1).values
+    first_slot = torch.argmin(att_rank, dim=1)
+    has_l = first_rank < PAIR_BIGR
+    att_rank2 = att_rank.scatter(1, first_slot[:, None], PAIR_BIGR)
+    sec_slot = torch.argmin(att_rank2, dim=1)
+    has_l2 = att_rank2.gather(1, sec_slot[:, None])[:, 0] < PAIR_BIGR
+    nL = (rep & ATT).sum(dim=1).to(i32)
+
+    def tk(arr, slot):
+        return arr.gather(1, slot.reshape(-1, 1))[:, 0].to(i32)
+
+    fs, ss = first_slot, sec_slot
+    read_fields = torch.stack([
+        tk(cpos, fs), tk(OR, fs), tk(lo_p, fs), tk(hi_p, fs), tk(S, fs),
+        has_l.to(i32), tk(cpos, ss), tk(S, ss), has_l2.to(i32), nL])
+    pair_fields = torch.stack([
+        has.to(i32),
+        tk(cpos[:Bp], b_s1), tk(OR[:Bp], b_s1), tk(lo_p[:Bp], b_s1),
+        tk(hi_p[:Bp], b_s1), tk(S[:Bp], b_s1),
+        tk(cpos[Bp:], b_s2), tk(OR[Bp:], b_s2), tk(lo_p[Bp:], b_s2),
+        tk(hi_p[Bp:], b_s2), tk(S[Bp:], b_s2),
+        best_ss.to(i32), sec_ss.to(i32), n_kept,
+        (hostneed_read[:Bp] | hostneed_read[Bp:]).to(i32)])
+    return read_fields, pair_fields
+
+
+def fused_pe(half: FMHalf, ref_words, refn_words, seg: SegTables,
+             jboth, jquals, lens, offs_all, valid_all, minsc, live_read,
+             live_or=None, inst_read=None, filtered=None,
+             *, params: SWParams, band: int, seed_len: int, ftab_chars: int,
+             half_ftab: int, period: int, T: int, NC: int, n1: bool,
+             max_exact_rows: int = 4, no_1mm: bool = False,
+             no_exact: bool = False, NCDP: Optional[int] = None,
+             pairing=None) -> FusedPEResult:
+    """Paired-end search half of the pipeline (bowtie2_tpu/ops/fused.py
+    fused_pe): phases 1-4 of fused_se over a 2*Bp-read batch (mate-1 rows
+    first, then mate-2) with the origin-tracking DP, exporting every slot's
+    metadata (score, orientation, exact reference extents, source flags,
+    SA-range bookkeeping) and, given `pairing`, the device pairing's
+    per-read and per-pair fields. The dirs and compacted read/window
+    tensors stay on the device for the emission backtrace."""
+    cx = _core(half, ref_words, refn_words, seg, jboth, jquals, lens,
+               offs_all, valid_all, minsc, live_read, live_or, params,
+               band, seed_len, ftab_chars, half_ftab, period, T, NC, n1,
+               max_exact_rows, no_1mm, no_exact, NCDP=NCDP,
+               track_origin=True)
+    B, T_ = cx["B"], cx["slot_valid"].shape[1]
+    dev = jboth.device
+    res = cx["res"]
+    flat_ci = torch.where(cx["live_c"], cx["perm"], B * T_)
+
+    def scat(vals, fill=0):
+        return _set_drop(torch.full((B * T_,), fill, dtype=i32, device=dev),
+                         flat_ci, vals.to(i32)).reshape(B, T_)
+
+    aok = scat(cx["c_valid"])
+    score = scat(torch.where(cx["c_valid"], cx["c_score"], NEG), fill=NEG)
+    lo = scat(cx["astart"] + res.origin)
+    hi = scat(cx["c_end"])
+    rdend = scat(res.row + 1)
+    cpos = scat(_ar(NC, dev), fill=-1)
+
+    sweep = cx["sweep"]
+    ee2 = torch.where((sweep.nedit == 0) & (cx["sweep_bot"] > sweep.top),
+                      cx["sweep_bot"] - sweep.top, 0).to(i32)
+    ee_read = ee2[:B] + ee2[B:]                  # fw + rc rows per read
+
+    n_dropped = (torch.clamp(cx["flat_valid"].sum() - NC, min=0)
+                 + cx["n_dpdrop"]).to(i32).reshape(1)
+
+    # per-slot ungapped anchor-diagonal mismatches (the zero-seed-round
+    # suppression keeps only <= 1-mismatch half candidates) and e2e
+    # diagonal start (the host gate re-derives the 1mm hit from it)
+    mmug = scat(cx["mm_ug"])
+    slot_fields = [
+        cx["slot_valid"], aok.to(torch.bool), score, cx["slot_or"],
+        cx["rid"], lo, hi, rdend, cx["agg_exact"], cx["agg_half"],
+        cx["slot_rangej"], cx["slot_rwidth"], cpos, mmug, cx["anchor"]]
+    ci_fields = [cx["astart"], cx["c_rid"], res.row, res.lane,
+                 cx["c_score"], cx["dplane"]]
+    slots = torch.stack([f.to(i32) for f in slot_fields])
+
+    Bp = B // 2
+    if pairing is not None:
+        read_fields, pair_fields = _pe_pairing(
+            pairing, B, Bp, T_, aok, score, cx["slot_or"], cx["rid"],
+            lo, hi, cx["slot_valid"], cx["agg_exact"], cx["agg_half"],
+            mmug, cpos, ee_read, cx["seed_nz"].to(i32), inst_read, filtered)
+    else:
+        read_fields = torch.zeros((PE_READ_FIELDS, B), dtype=i32, device=dev)
+        # hostneed=1 on every pair: no device decision to trust
+        pair_fields = torch.zeros((PE_PAIR_FIELDS, Bp), dtype=i32,
+                                  device=dev)
+        pair_fields[PE_PAIR_FIELDS - 1] = 1
+
+    blob = torch.cat(
+        [read_fields.reshape(-1), pair_fields.reshape(-1), ee_read,
+         # per-read round-0 seeds with a nonzero SA range: the reference's
+         # rounds loop breaks when the first mate's seed search comes up
+         # empty (bt2_search.cpp:3968-3971)
+         cx["seed_nz"].to(i32)]
+        + [f.to(i32).reshape(-1) for f in ci_fields] + [n_dropped])
+    return FusedPEResult(blob, slots, res.dirs, cx["jreads_c"],
+                         cx["jquals_c"], cx["wins"])

@@ -29,10 +29,6 @@ H_DIAG, H_E, H_F, H_START = 0, 1, 2, 3
 # per-step packed op byte: op (2 bits) | refchar (3 bits) | ismatch (1 bit)
 OP_M, OP_I, OP_D, OP_NONE = 0, 1, 2, 3
 
-TRACK_ORIGIN_ITEM = ("ROADMAP.md queue 1, 'track_origin, fused_pe and "
-                     "PairedAligner'")
-
-
 class SWParams(NamedTuple):
     """Static scoring params."""
     match_bonus: int = 0          # 0 e2e / 2 local (scoring.h DEFAULT_MATCH_BONUS)
@@ -70,6 +66,9 @@ class SWResult(NamedTuple):
     row: torch.Tensor     # (B,) int32 row of the best end
     lane: torch.Tensor    # (B,) int32 rect column of the best end
     dirs: torch.Tensor    # (Lmax, B, ceil(W/8)) int32 packed directions
+    origin: Optional[torch.Tensor] = None  # (B,) int32 rect column of the
+                          # first ref char the best path consumes (= the
+                          # walk's ref_start_win), with track_origin=True
 
 
 class BTResult(NamedTuple):
@@ -110,6 +109,21 @@ def _prefix_max_excl(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(out, min=NEG_INF)
 
 
+def _prefix_max_payload_excl(x: torch.Tensor, pay: torch.Tensor):
+    """Exclusive running max along the last axis and the payload of the
+    element that holds it, ties won by the LATER index (sw.py's
+    `_prefix_max_payload_excl`): an NEG_INF fill with payload -1 stands
+    before index 0. The max and the index are one int64 key, so the tie
+    rule holds whatever cummax does on ties."""
+    W = x.shape[1]
+    xs = torch.cat([torch.full_like(x[:, :1], NEG_INF), x[:, :-1]], dim=1)
+    ps = torch.cat([torch.full_like(pay[:, :1], -1), pay[:, :-1]], dim=1)
+    idx = torch.arange(W, dtype=torch.int64, device=x.device)[None, :]
+    key = torch.cummax((xs.to(torch.int64) << 20) + idx, dim=1).values
+    arg = key - ((key >> 20) << 20)
+    return (key >> 20).to(x.dtype), ps.gather(1, arg)
+
+
 # ---------------------------------------------------------------------------
 # rectangle DP
 # ---------------------------------------------------------------------------
@@ -123,7 +137,8 @@ def _col_ok(refwins, rect_cols, col_lo):
 
 
 def _sw_banded_plain(reads, mmpen, read_lens, refwins, p: SWParams,
-                     rect_cols, col_lo) -> SWResult:
+                     rect_cols, col_lo, track_origin: bool = False
+                     ) -> SWResult:
     B, Lmax = reads.shape
     W = refwins.shape[1]
     dev = reads.device
@@ -143,6 +158,14 @@ def _sw_banded_plain(reads, mmpen, read_lens, refwins, p: SWParams,
     best_row = torch.zeros(B, dtype=i32, device=dev)
     best_lane = torch.zeros(B, dtype=i32, device=dev)
     dirs = torch.empty((Lmax, B, (W + 7) // 8), dtype=i32, device=dev)
+    if track_origin:
+        # per cell, the rect column of the first ref char consumed on the
+        # best path into it (-1: none yet), under the direction bits' tie
+        # rules; o for H, oe for E
+        o = torch.full((B, W), -1, dtype=i32, device=dev)
+        oe = o.clone()
+        best_origin = torch.zeros(B, dtype=i32, device=dev)
+        neg1 = torch.full((B, 1), -1, dtype=i32, device=dev)
     for i in range(Lmax):
         rc = reads[:, i:i + 1]
         qp = mmpen[:, i:i + 1]
@@ -167,9 +190,19 @@ def _sw_banded_plain(reads, mmpen, read_lens, refwins, p: SWParams,
         h_diag = torch.cat([pad, h[:, :-1]], dim=1) + sub
         h_noF = torch.maximum(h_diag, e_cur)
         src_noF = torch.where(e_cur > h_diag, H_E, H_DIAG)
-
-        f_cur = _prefix_max_excl(h_noF - rgo + p.read_gap_extend + lane_e) \
-            - lane_e
+        f_arg = h_noF - rgo + p.read_gap_extend + lane_e
+        if track_origin:
+            # diag consumes ref char j (origin j if none yet); E consumes
+            # none; an F run from k consumes k+1..j first
+            o_sh = torch.cat([neg1, o[:, :-1]], dim=1)
+            o_diag = torch.where(o_sh < 0, colw, o_sh)
+            oe_new = torch.where(e_from_ext, oe, o)
+            o_noF = torch.where(e_cur > h_diag, oe_new, o_diag)
+            f_pre, o_F = _prefix_max_payload_excl(
+                f_arg, torch.where(o_noF < 0, colw + 1, o_noF))
+            f_cur = f_pre - lane_e
+        else:
+            f_cur = _prefix_max_excl(f_arg) - lane_e
         f_open = torch.cat([pad, h_noF[:, :-1]], dim=1) - rgo
         f_from_ext = f_cur > f_open
         if p.gap_barrier > 0:
@@ -177,10 +210,14 @@ def _sw_banded_plain(reads, mmpen, read_lens, refwins, p: SWParams,
 
         h_cur = torch.maximum(h_noF, f_cur)
         src = torch.where(f_cur > h_noF, H_F, src_noF)
+        if track_origin:
+            o_cur = torch.where(f_cur > h_noF, o_F, o_noF)
         if p.local:
             clamp = (h_cur < 0) | ((h_cur == 0) & (src == H_DIAG))
             h_cur = torch.clamp(h_cur, min=0)
             src = torch.where(clamp, H_START, src)
+            if track_origin:
+                o_cur = torch.where(clamp, -1, o_cur)
         h_cur = torch.clamp(h_cur, min=NEG_INF)
 
         dirbits = (src | torch.where(e_from_ext, 4, 0)
@@ -197,17 +234,25 @@ def _sw_banded_plain(reads, mmpen, read_lens, refwins, p: SWParams,
         best = torch.where(take, row_best, best)
         best_row = torch.where(take, i, best_row)
         best_lane = torch.where(take, row_best_lane, best_lane).to(i32)
+        if track_origin:
+            row_origin = o_cur.gather(
+                1, torch.clamp(row_best_lane, 0, W - 1)[:, None].long())[:, 0]
+            best_origin = torch.where(take, row_origin, best_origin)
+            o = torch.where(active, o_cur, o)
+            oe = torch.where(active, oe_new, oe)
 
         h = torch.where(active, h_cur, h)
         e = torch.where(active, e_cur, e)
-    return SWResult(best, best_row, best_lane, dirs)
+    return SWResult(best, best_row, best_lane, dirs,
+                    best_origin if track_origin else None)
 
 
 _SW_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P]
 
 
 def _sw_banded_cuda(reads, mmpen, read_lens, refwins, p: SWParams,
-                    rect_cols, col_lo) -> SWResult:
+                    rect_cols, col_lo, track_origin: bool = False
+                    ) -> SWResult:
     B, Lmax = reads.shape
     W = refwins.shape[1]
     dev = reads.device
@@ -225,14 +270,23 @@ def _sw_banded_cuda(reads, mmpen, read_lens, refwins, p: SWParams,
     row = torch.empty(B, dtype=torch.int32, device=dev)
     lane = torch.empty(B, dtype=torch.int32, device=dev)
     dirs = torch.empty((Lmax, B, (W + 7) // 8), dtype=torch.int32, device=dev)
-    _build.call("sw_rect", "sw_rect", _SW_ARGS,
-                ptr(reads), ptr(mmpen), ptr(read_lens), ptr(refwins),
-                ptr(rect_cols), None if col_lo is None else ptr(col_lo),
-                B, Lmax, W, p.match_bonus, p.n_pen, p.read_gap_open,
-                p.read_gap_extend, p.ref_gap_open, p.ref_gap_extend,
-                p.gap_barrier, int(p.local),
-                ptr(score), ptr(row), ptr(lane), ptr(dirs))
-    return SWResult(score, row, lane, dirs)
+    args = [ptr(reads), ptr(mmpen), ptr(read_lens), ptr(refwins),
+            ptr(rect_cols), None if col_lo is None else ptr(col_lo),
+            B, Lmax, W, p.match_bonus, p.n_pen, p.read_gap_open,
+            p.read_gap_extend, p.ref_gap_open, p.ref_gap_extend,
+            p.gap_barrier, int(p.local),
+            ptr(score), ptr(row), ptr(lane), ptr(dirs)]
+    symbol = "sw_rect_origin" if track_origin else "sw_rect"
+    origin = None
+    if track_origin:
+        origin = torch.empty(B, dtype=torch.int32, device=dev)
+        args.append(ptr(origin))
+    # the entry launches one warp a problem, or one block a problem for
+    # the widest windows, and says which: counted as sw_rect[_origin] or
+    # sw_rect[_origin]@block
+    _build.call("sw_rect", symbol, _SW_ARGS + [P] * track_origin, *args,
+                kinds=(symbol, f"{symbol}@block"))
+    return SWResult(score, row, lane, dirs, origin)
 
 
 def sw_banded(reads: torch.Tensor, quals: torch.Tensor,
@@ -247,17 +301,16 @@ def sw_banded(reads: torch.Tensor, quals: torch.Tensor,
     read_lens: (B,) int32; refwins: (B, W) int32 codes 0..5 (4=N, 5=out of
     reference), W >= Lmax + 2*band + 1. rect_cols (B,) = valid rect columns
     per problem (default read_len + 2*band + 1); col_lo (B,) = first rect
-    column of word-aligned windows (default 0). CPU tensors take the plain
-    version, CUDA tensors the sw_rect kernel."""
-    if track_origin:
-        raise NotImplementedError(
-            f"sw_banded(track_origin=True) is not ported yet: see "
-            f"{TRACK_ORIGIN_ITEM}")
+    column of word-aligned windows (default 0). track_origin=True also
+    returns SWResult.origin, the rect column of the first ref char of each
+    best path (the fused PE path's reference extents). CPU tensors take
+    the plain version, CUDA tensors the sw_rect kernel (sw_rect_origin
+    with track_origin)."""
     args = sw_args(reads, quals, read_lens, refwins, params, band,
                    rect_cols, col_lo)
-    if on_cpu(args[0], "sw_rect"):
-        return _sw_banded_plain(*args)
-    return _sw_banded_cuda(*args)
+    if on_cpu(args[0], "sw_rect_origin" if track_origin else "sw_rect"):
+        return _sw_banded_plain(*args, track_origin=track_origin)
+    return _sw_banded_cuda(*args, track_origin=track_origin)
 
 
 def sw_args(reads, quals, read_lens, refwins, params: SWParams, band: int,

@@ -1,6 +1,8 @@
-"""Single-end batched alignment on the device (torch + CUDA kernels).
+"""Single-end batched alignment on the device (torch + CUDA kernels), and
+the machinery the aligners share.
 
-Port of the single-end half of bowtie2_tpu/pipeline/align.py. A batch runs
+Port of bowtie2_tpu/pipeline/align.py; its paired-end half is
+pipeline/paired.py. A batch runs
 as one device pipeline (`ops/fused.py::fused_se`) that `submit` enqueues
 without synchronising; `collect_raw` reads its one result blob back,
 applies the RNG-replay overrides (pipeline/replay.py for exact multimaps,
@@ -49,7 +51,7 @@ BT_FIELDS = ("read_start", "ref_start_win", "n_mm", "n_go",
 
 LONG_READ_MAX = 1 << 20      # 1 Mbp: sanity ceiling for the long path
 
-LONG_READ_ITEM = "ROADMAP.md queue 1, 'K11, long reads'"
+LONG_READ_ITEM = "ROADMAP.md slice queue item 3, 'K11, long reads'"
 
 
 def bucket_groups(lengths, merge_below: int = 1024):
@@ -120,6 +122,13 @@ class AlignStats:
     al_one: int = 0
     al_multi: int = 0
     filtered: int = 0
+    # paired-end
+    pairs: int = 0
+    conc_one: int = 0
+    conc_multi: int = 0
+    disc: int = 0
+    mate_al_one: int = 0   # mates of non-conc/disc pairs aligning once
+    mate_al_multi: int = 0
 
     def merge(self, o: "AlignStats") -> None:
         for f in self.__dataclass_fields__:
@@ -127,6 +136,8 @@ class AlignStats:
 
     def summary(self) -> str:
         """stderr summary in the reference's format (aln_sink.cpp printAlSumm)."""
+        if self.pairs:
+            return self._summary_paired()
         n = max(self.reads, 1)
         lines = [f"{self.reads} reads; of these:",
                  f"  {self.reads} (100.00%) were unpaired; of these:",
@@ -134,6 +145,32 @@ class AlignStats:
                  f"    {self.al_one} ({100.0*self.al_one/n:.2f}%) aligned exactly 1 time",
                  f"    {self.al_multi} ({100.0*self.al_multi/n:.2f}%) aligned >1 times",
                  f"{100.0*(self.al_one+self.al_multi)/n:.2f}% overall alignment rate"]
+        return "\n".join(lines)
+
+    def _summary_paired(self) -> str:
+        np_ = max(self.pairs, 1)
+        conc0 = self.pairs - self.conc_one - self.conc_multi
+        nodisc = conc0 - self.disc
+        nmates = max(2 * nodisc, 1)
+        mate0 = 2 * nodisc - self.mate_al_one - self.mate_al_multi
+        tot = 2 * self.pairs
+        al = tot - mate0 if tot else 0
+        lines = [
+            f"{self.pairs} reads; of these:",
+            f"  {self.pairs} (100.00%) were paired; of these:",
+            f"    {conc0} ({100.0*conc0/np_:.2f}%) aligned concordantly 0 times",
+            f"    {self.conc_one} ({100.0*self.conc_one/np_:.2f}%) aligned concordantly exactly 1 time",
+            f"    {self.conc_multi} ({100.0*self.conc_multi/np_:.2f}%) aligned concordantly >1 times",
+            "    ----",
+            f"    {conc0} pairs aligned concordantly 0 times; of these:",
+            f"      {self.disc} ({100.0*self.disc/max(conc0,1):.2f}%) aligned discordantly 1 time",
+            "    ----",
+            f"    {nodisc} pairs aligned 0 times concordantly or discordantly; of these:",
+            f"      {2*nodisc} mates make up the pairs; of these:",
+            f"        {mate0} ({100.0*mate0/nmates:.2f}%) aligned 0 times",
+            f"        {self.mate_al_one} ({100.0*self.mate_al_one/nmates:.2f}%) aligned exactly 1 time",
+            f"        {self.mate_al_multi} ({100.0*self.mate_al_multi/nmates:.2f}%) aligned >1 times",
+            f"{100.0*al/max(tot,1):.2f}% overall alignment rate"]
         return "\n".join(lines)
 
 
@@ -182,11 +219,14 @@ class DPPool:
     scores: np.ndarray           # (n,) int64
     rows_end: np.ndarray         # (NC,)
     lanes_end: np.ndarray        # (NC,)
-    dirs: torch.Tensor           # (Lmax, NC, Wp)
+    dirs: torch.Tensor           # (Lmax, NCDP, Wp): NCDP <= NC when the
+                                 # fused DP-lane bypass compacted
     jreads: torch.Tensor         # (NC, Lmax)
     jquals: torch.Tensor         # (NC, Lmax)
     wins: torch.Tensor           # (NC, Lmax + 2G + 1)
     mm_ug: np.ndarray = None     # (n,) ungapped anchor-diagonal mismatches
+    dplane: np.ndarray = None    # (NC,) candidate -> dirs lane (-1 =
+                                 # bypassed); None = identity
 
     def end_pos(self, k) -> np.ndarray:
         """Global position of the last ref char consumed."""
@@ -287,23 +327,45 @@ class BatchAligner:
                                         np.where(qcf, self.YF_QC, 0))))
         return lenf | nsf | scf | qcf, yf.astype(np.int8)
 
-    def _live_orient(self, B: int) -> Optional[np.ndarray]:
+    def _live_orient(self, B: int, paired: bool = False
+                     ) -> Optional[np.ndarray]:
         """--nofw/--norc per-orientation-row liveness (rows < B fw, >= B
-        rc), or None if both orientations are live."""
+        rc), or None if both orientations are live. In paired mode the
+        flags pertain to the fragment, so each mate's suppression flips
+        with its expected orientation (bt2_search.cpp:3418-3424); mate-1
+        reads are read indices [0, B/2), mate-2 [B/2, B)."""
         pol = self.pol
         if not (pol.nofw or pol.norc):
             return None
         live = np.ones(2 * B, bool)
-        if pol.nofw:
-            live[:B] = False
-        if pol.norc:
-            live[B:] = False
+        if not paired:
+            if pol.nofw:
+                live[:B] = False
+            if pol.norc:
+                live[B:] = False
+            return live
+        nb = B // 2
+        for mate in (0, 1):
+            matefw = pol.mate_fw_rc[mate] == "f"
+            nofw_m = pol.nofw if matefw else pol.norc
+            norc_m = pol.norc if matefw else pol.nofw
+            if nofw_m:
+                live[mate * nb:(mate + 1) * nb] = False
+            if norc_m:
+                live[B + mate * nb:B + (mate + 1) * nb] = False
         return live
 
     def _run_dp(self, win_start, rid, read_idx, orient, jboth, jquals,
-                lens, G: int, Lmax: int, n: int) -> DPPool:
+                lens, G: int, Lmax: int, n: int, full_width: bool = False,
+                diag_kernel: bool = False) -> DPPool:
         """Gather windows + run the banded DP for n problems (padded to a
-        power of two); read/qual rows are gathered on the device."""
+        power of two); read/qual rows are gathered on the device.
+        full_width: every column of the window is a rect column (the
+        mate-rescue windows span the whole fragment range)."""
+        if diag_kernel:
+            raise NotImplementedError(
+                f"the band-coordinate DP is not ported yet: see "
+                f"{LONG_READ_ITEM}")
         pol = self.pol
         B = lens.size
         width = Lmax + 2 * G + 1
@@ -327,8 +389,10 @@ class BatchAligner:
         lens_c = np.maximum(lens[cr], 1).astype(np.int32)
         lens_c[n:] = 1
         jlens_c = self._put(lens_c)
+        rect_cols = np.full(NC, width, np.int32) if full_width \
+            else (lens_c + 2 * G + 1).astype(np.int32)
         res = sw_banded(jreads_c, jquals_c, jlens_c, wins, pol.sw_params(),
-                        G, self._put((lens_c + 2 * G + 1).astype(np.int32)))
+                        G, self._put(rect_cols))
         # ungapped mismatch count at the anchor diagonal (half-candidate
         # 1mm admission gate)
         diag = wins[:, G:G + Lmax]
@@ -344,6 +408,130 @@ class BatchAligner:
                       lanes_end=sw4[2], dirs=res.dirs, jreads=jreads_c,
                       jquals=jquals_c, wins=wins, mm_ug=sw4[3, :n])
 
+    # ---------------- phase 6: backtrace of chosen problems ----------------
+    def _gapless_core(self, pool: DPPool, sel: np.ndarray,
+                      codes_sel: np.ndarray, quals_sel: np.ndarray,
+                      lens_sel: np.ndarray, end_sel: np.ndarray):
+        """Vectorized gapless-diagonal readout for emission (e2e only).
+
+        A candidate whose DP score equals the pure diagonal score ending at
+        its best cell walks that diagonal exactly (the forward pass prefers
+        DIAG on ties — see ops/sw.diag_readout for the induction), so its
+        CIGAR/MD/edit counts can be synthesized from the reference words
+        directly, skipping the device backtrace round trip. Returns
+        (okg, eq, fc, g0, nmm, nrefn) over sel."""
+        pol = self.pol
+        p = pol.sw_params()
+        L = lens_sel.astype(np.int64)
+        rows_end = pool.rows_end[sel]
+        rid = pool.rid[sel].astype(np.int64)
+        lo = self.data.ref_cum[rid]
+        hi = self.data.ref_cum[rid + 1]
+        g0 = end_sel.astype(np.int64) - (L - 1)
+        Lm = codes_sel.shape[1]
+        ar = np.arange(Lm, dtype=np.int64)
+        gp = g0[:, None] + ar[None, :]
+        live = ar[None, :] < L[:, None]
+        inref = (gp >= lo[:, None]) & (gp < hi[:, None])
+        gpc = np.clip(gp, 0, int(self.data.ref_cum[-1]) - 1)
+        rw = self.data.ref_words
+        rn = self.data.refn_words
+        fc = ((rw[gpc >> 4] >> (2 * (gpc & 15))) & 3).astype(np.int64)
+        fc = np.where((rn[gpc >> 5] >> (gpc & 31)) & 1, 4, fc)
+        fc = np.where(inref, fc, 5)
+        rd = codes_sel.astype(np.int64)
+        is_n = (rd >= 4) | (fc == 4)
+        oob = fc >= 5
+        eq = (fc == rd) & ~is_n & ~oob
+        q = np.minimum(quals_sel.astype(np.int64), 40)
+        mmpen = p.mm_pen_min + (q * (p.mm_pen_max - p.mm_pen_min)) // 40
+        sub = np.where(eq, p.match_bonus,
+                       np.where(is_n & ~oob, -p.n_pen, -mmpen))
+        dscore = np.where(live & ~oob, sub, 0).sum(axis=1)
+        okg = ~(live & oob).any(axis=1) \
+            & (dscore == pool.scores[sel]) \
+            & (rows_end == L - 1) \
+            & (g0 >= pool.win_start[sel])   # full diagonal inside the rect
+        nmm = ((live & ((~eq & (rd < 4) & (fc != 4)) | is_n))
+               .astype(np.int64)).sum(axis=1)
+        nrefn = (live & (fc == 4)).sum(axis=1)
+        return okg, eq, fc, g0, nmm, nrefn
+
+    def _gapless_tb(self, pool: DPPool, sel: np.ndarray,
+                    codes_sel: np.ndarray, quals_sel: np.ndarray,
+                    lens_sel: np.ndarray, end_sel: np.ndarray):
+        """_gapless_core + per-candidate CIGAR/MD string synthesis.
+
+        Returns (tb dict for the gapless members, remaining sel array)."""
+        pol = self.pol
+        if sel.size == 0 or pol.local:
+            return {}, sel
+        okg, eq, fc, g0, nmm, nrefn = self._gapless_core(
+            pool, sel, codes_sel, quals_sel, lens_sel, end_sel)
+        L = lens_sel.astype(np.int64)
+
+        from bowtie2_tpu_torch.pipeline.backtrace import _REF_CHARS
+        tb = {}
+        sc_sel = pool.scores[sel]
+        mop = "=" if pol.xeq else "M"
+        for t in np.nonzero(okg)[0].tolist():
+            k = int(sel[t])
+            Lt = int(L[t])
+            ev = np.nonzero(~eq[t, :Lt])[0]
+            if pol.xeq and ev.size:
+                key = eq[t, :Lt]
+                change = np.nonzero(np.diff(key))[0]
+                bounds = np.concatenate([[0], change + 1, [Lt]])
+                cigar = [("=" if key[s] else "X", int(e - s))
+                         for s, e in zip(bounds[:-1], bounds[1:])]
+            else:
+                cigar = [(mop, Lt)]
+            parts = []
+            prev = 0
+            for e in ev.tolist():
+                parts.append(str(e - prev))
+                parts.append(_REF_CHARS[int(fc[t, e])])
+                prev = e + 1
+            parts.append(str(Lt - prev))
+            sc = {"read_start": 0,
+                  "ref_start_win": int(g0[t] - pool.win_start[k]),
+                  "n_mm": int(nmm[t]), "n_go": 0, "n_gc": 0,
+                  "n_refn": int(nrefn[t]),
+                  "score_check": int(sc_sel[t]),
+                  "cigar_ops": cigar, "md": "".join(parts)}
+            tb[k] = (None, sc)
+        return tb, sel[~okg]
+
+    def _gapless_tb_raw(self, pool: DPPool, sel: np.ndarray,
+                        codes_sel: np.ndarray, quals_sel: np.ndarray,
+                        lens_sel: np.ndarray, end_sel: np.ndarray):
+        """_gapless_core + VECTORIZED packed-op column synthesis for the
+        native line builder (no per-candidate Python): gapless candidates
+        get an all-OP_M walk column carrying (refchar, ismatch) bits, the
+        same byte layout the device backtrace emits (ops/sw.py
+        diag_readout), so the C decoder handles both uniformly.
+
+        Returns (okg, ops_syn (nsel, Lmax) uint8 walk rows,
+        ref_start_win, nmm, nrefn)."""
+        from bowtie2_tpu_torch.ops.sw import OP_M, OP_NONE
+        if sel.size == 0 or self.pol.local:
+            z = np.zeros(0, np.int64)
+            return (np.zeros(0, bool),
+                    np.zeros((0, codes_sel.shape[1]), np.uint8), z, z, z)
+        okg, eq, fc, g0, nmm, nrefn = self._gapless_core(
+            pool, sel, codes_sel, quals_sel, lens_sel, end_sel)
+        L = lens_sel.astype(np.int64)
+        Lm = codes_sel.shape[1]
+        ar = np.arange(Lm, dtype=np.int64)
+        pos = L[:, None] - 1 - ar[None, :]          # walk step -> read pos
+        posc = np.clip(pos, 0, Lm - 1)
+        opb = (OP_M
+               | (np.take_along_axis(fc, posc, axis=1) << 2)
+               | (np.take_along_axis(eq.astype(np.int64), posc, axis=1)
+                  << 5))
+        ops_syn = np.where(pos >= 0, opb, OP_NONE).astype(np.uint8)
+        return okg, ops_syn, g0 - pool.win_start[sel], nmm, nrefn
+
     def _backtrace_sel(self, pool: DPPool, sel: np.ndarray):
         """Backtrace pool problems sel → {k: (opcol, scalars dict)}."""
         if sel.size == 0:
@@ -354,7 +542,21 @@ class BatchAligner:
         sel_pad = np.zeros(Bc, np.int32)
         sel_pad[:sel.size] = sel
         jsel = self._put(sel_pad)
-        bt = backtrace(pool.dirs, jsel,
+        jsel_dirs = jsel
+        if pool.dplane is not None:
+            # fused DP-lane bypass: dirs are indexed by compacted DP lane.
+            # A candidate reaching the walk is gapped, hence DP'd; a -1
+            # here would walk lane 0, which score_check downstream rejects
+            n_miss = int((pool.dplane[sel] < 0).sum())
+            if n_miss:
+                sys.stderr.write(
+                    f"warning: {n_miss} DP-bypassed candidates reached "
+                    "the backtrace walk (gapless recompute mismatch); "
+                    "their score_check will reject them\n")
+                self.metrics.add(host_dplmiss=n_miss)
+            jsel_dirs = self._put(
+                np.clip(pool.dplane[sel_pad], 0, None).astype(np.int32))
+        bt = backtrace(pool.dirs, jsel_dirs,
                        self._put(pool.rows_end[sel_pad].astype(np.int32)),
                        self._put(pool.lanes_end[sel_pad].astype(np.int32)),
                        pool.jreads.index_select(0, jsel.long()),
@@ -383,7 +585,9 @@ class BatchAligner:
         if sc["score_check"] != int(pool.scores[k]):
             return None
         read_end = int(pool.rows_end[k]) + 1
-        if sc["n_mm"] == 0 and sc["n_gc"] == 0 and sc["n_refn"] == 0:
+        if "cigar_ops" in sc:      # host gapless fast path (_gapless_tb)
+            cigar_ops, md = sc["cigar_ops"], sc["md"]
+        elif sc["n_mm"] == 0 and sc["n_gc"] == 0 and sc["n_refn"] == 0:
             span = read_end - sc["read_start"]
             cigar_ops = []
             if sc["read_start"] > 0:
@@ -424,13 +628,15 @@ class BatchAligner:
             raw_tags=getattr(rec, "tags", None))
 
     def _unaligned(self, rec: SeqRecord, yf: Optional[str] = None,
-                   yt: str = "UU") -> SamAlignment:
+                   yt: str = "UU", flag_extra: int = 0, rname: str = "*",
+                   pos: int = 0, rnext: str = "*",
+                   pnext: int = 0) -> SamAlignment:
         opts = [("YT", "Z", yt)]
         if yf:
             opts.append(("YF", "Z", yf))
         return SamAlignment(
-            qname=rec.name, flag=FLAG_UNMAPPED, rname="*", pos=0, mapq=0,
-            cigar="*", rnext="*", pnext=0,
+            qname=rec.name, flag=FLAG_UNMAPPED | flag_extra, rname=rname,
+            pos=pos, mapq=0, cigar="*", rnext=rnext, pnext=pnext,
             seq=decode_seq(rec.seq.astype(np.uint8)).decode(),
             qual=qual_string(rec.qual), opts=opts,
             raw_tags=getattr(rec, "tags", None))
@@ -448,8 +654,8 @@ class BatchAligner:
         self.metrics.add(reads=st.reads, unal=st.unal, al_one=st.al_one,
                          al_multi=st.al_multi)
 
-    def _seed_offsets(self, lens, smax_min: int = 1, nrounds: int = 1,
-                      max_seeds: int = 64):
+    def _seed_offsets(self, lens, ival_boost=None, smax_min: int = 1,
+                      nrounds: int = 1, max_seeds: int = 64):
         """Instantiated seed offsets of both orientations (host numpy):
         fw seeds start at depth d from the 5' end, rc seeds are anchored
         from the 3' end (reference instantiateSeeds aligner_seed.cpp:498).
@@ -464,6 +670,12 @@ class BatchAligner:
         ival_u = np.array([pol.interval(int(l)) if l else 1
                            for l in ulen], np.int32)
         ivals = ival_u[inv]
+        if ival_boost is not None:
+            # paired reads with both mates passing the filters get a
+            # 20%-longer seed interval (bt2_search.cpp:3445-3448)
+            ivals = np.where(ival_boost,
+                             (ivals * 1.2 + 0.5).astype(np.int32), ivals)
+            ivals = np.maximum(ivals, 1)
         base = (ivals[:, None] * np.arange(nrounds, dtype=np.int32)[None, :]
                 ) // nrounds                             # (B, nrounds)
         per_round = np.arange(max_seeds, dtype=np.int32)
@@ -488,6 +700,7 @@ class BatchAligner:
 
     # ------- host phase-by-phase path (fused DP-budget overflow) -------
     def _search_candidates(self, records: Sequence[SeqRecord],
+                           paired: bool = False,
                            nrounds: int = 1) -> "CandSet":
         """Phases 1-4 of the unfused path: searches → canonical candidate
         list (uncapped by the fused NC budget) → SA resolve → dedupe → DP.
@@ -520,8 +733,14 @@ class BatchAligner:
             torch.int32)
         sweep = fm.exact_sweep(self.idx.fw, cs.jboth, self._put(both_lens))
         sweep_d = torch.stack([sweep.top, sweep.bot, sweep.nedit])
+        # paired reads with both mates passing the filters get a boosted
+        # seed interval; mate 2 of read i is read B/2 + i
+        ival_boost = None
+        if paired:
+            okm = ~filtered
+            ival_boost = okm & np.roll(okm, B // 2)
         seed_off, seed_mlen, seed_tb_d, sshape, cs.inst0 = \
-            self._seed_search(fw, rc, lens, nrounds=nrounds)
+            self._seed_search(fw, rc, lens, ival_boost, nrounds=nrounds)
         half_off, half_mlen, half_tb_d = self._half_search(both, both_lens)
         if pol.seed_mms >= 1:
             sh_off, sh_mlen, sh_tb_d = self._seed_half_search(fw, rc,
@@ -570,7 +789,7 @@ class BatchAligner:
         _t = _time.time()
 
         # --nofw/--norc: suppressed orientation rows get empty SA ranges
-        live_or = self._live_orient(B)
+        live_or = self._live_orient(B, paired)
         if live_or is not None:
             sw_bot = np.where(live_or, sw_bot, sw_top)
             seed_bot = np.where(live_or[:, None], seed_bot, seed_top)
@@ -674,13 +893,14 @@ class BatchAligner:
             - np.take_along_axis(cumn, o, axis=1)
         return (valid_all & (nwin == 0)).sum(axis=1)
 
-    def _seed_search(self, fw, rc, lens, nrounds: int = 1):
+    def _seed_search(self, fw, rc, lens, ival_boost=None, nrounds: int = 1):
         """Search the instantiated seeds of both orientations on the
         device (windows holding N die inside the search kernel)."""
         pol = self.pol
         B = fw.shape[0]
         slen = pol.seed_len
-        offs_all, valid_all = self._seed_offsets(lens, nrounds=nrounds)
+        offs_all, valid_all = self._seed_offsets(lens, ival_boost,
+                                                 nrounds=nrounds)
         smax = offs_all.shape[1]
         both = np.concatenate([fw, rc], axis=0).astype(np.int32)
         top, bot = fm.seed_search_offsets(

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bowtie2_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--reads 100000] [--batch 8192] [--seed 7]
+    python3 chip_smoke.py [--reads 50000] [--batch 8192] [--seed 7]
+                          [--pairs 50000] [--mixed 1024]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -61,7 +62,40 @@ Phases, each of which exits non-zero when it fails:
    one 128-row block (`same_block_share`) and the L2 sectors the search
    asks for, over the kernel's time. The SE gapless
    readout (ops/sw.py diag_readout, torch ops) is timed as the window
-   gather is.
+   gather is. The DP's sweep runs the origin-tracking variant
+   (`sw_rect_origin`) on the same cases and on `origin_cases`.
+7. The E. coli-sim corpus: bench.py's gen_ecoli_corpus recipe (a 4.6-Mbp
+   random genome, 100-bp reads and FR pairs at 0.5 % substitutions),
+   --pairs of its 50,000 pairs; the genome, 8,192 of its SE reads and
+   3,125 of its pairs are written to a temporary directory, and the index
+   is built there by the port's CLI (`build`) and loaded.
+8. The paired-end path: after one warm-up batch, `PairedAligner.
+   align_pairs_fast(pairs, batch=3125, raw=True)` as bench.py drives the
+   JAX package, at --sensitive; pairs/s, the host timers and the launch
+   counts, set to 0 just before and read just after: the origin DP
+   (`sw_rect_origin`) and the block DP kernel at the 533-column
+   mate-rescue windows (`sw_rect@block`, as the DP's C entry reports the
+   kernel it launched) must have launched, and no plain
+   version may have run. Then the run again under CUDA events (the
+   `paired-end device time:` line).
+9. The paired-end output: the first batch's SAM groups must equal the
+   same aligner's on the CPU, end to end and --local, and the device
+   pairing's must equal `force_host_pairing`'s on the card; and so for a
+   mixed-outcome batch over the repcorpus genome (--mixed pairs of
+   tests/test_pe_devpair.py's recipe at 0.5 % errors: 15 % garbage
+   mates, 15 % fragments too long), whose hostneed pairs are counted;
+   and the same recipe at its own 2 % errors, whose batch overflows the
+   fused DP budget and must take the phase-by-phase host path
+   (`align_batch_host`, with mate rescue), checked against the CPU.
+10. The paired-end kernels: `sw_rect_origin` on the first fused_pe call's
+   inputs (and the --local batch's first) and `sw_rect@rescue` on the
+   first call that launched the block kernel (and the --local batch's, if
+   it made one), each held to its plain version and timed as in
+   phase 6 (both go into the `kernels` line); K10's paired-end half, the
+   device pairing (`_pe_pairing`, torch ops), timed as the gathers are.
+11. The CLI: `align -U` (8,192 reads) and `align -1/-2` (3,125 pairs) on
+   the card and with `--device cpu`: the SAM files must be identical
+   apart from the @PG line's CL: field.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -74,6 +108,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -118,6 +153,10 @@ OPS_LF = 31
 OPS_RESOLVE_STEP = 35
 OPS_RESOLVE_ROW = 9
 OPS_DP_CELL = 12
+# - one DP cell with origin tracking: the 12 above, and the origin of the
+#   diagonal move (compare, select), of E (select), of H without F
+#   (select), the F payload (select) and the cell's origin (select): 17.
+OPS_DP_CELL_ORIGIN = 17
 OPS_BT_STEP = 9
 SECTORS_STEP = 3
 SECTORS_ROW = 3
@@ -146,11 +185,31 @@ SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,),
 # warp kernel, two blocks of NW (8) walks an SM: past this many walks an SM
 BT_WARP_WALKS_PER_SM = 4 * 2 * 8
 
-# the kernels of each entry in `ptxas -v`'s report of its source
+# the kernels of each entry in `ptxas -v`'s report of its source: a
+# prefix, and for the DP the ORIGIN template flag (`<WPT,LOCAL,ORIGIN>`)
 PTXAS_FUNCS = {"fm_sweep": "sweep_kernel", "fm_seed": "seed_kernel",
                "fm_substring": "substring_kernel",
-               "sa_resolve": "resolve_kernel", "sw_rect": "sw_",
+               "sa_resolve": "resolve_kernel", "sw_rect": ("sw_", ",0>"),
+               "sw_rect_origin": ("sw_", ",1>"),
+               "sw_rect@rescue": ("sw_block_kernel", ",0>"),
                "backtrace": "bt_"}
+
+# the paired-end path's DP entries: the origin-tracking DP of fused_pe and
+# the DP of the mate-rescue windows, whose width takes the block kernel
+# (launch counts under `sw_rect@block`)
+PE_KERNELS = {
+    "sw_rect_origin": ("bowtie2_tpu_torch/csrc/sw_rect.cu",
+                       "bowtie2_tpu/ops/sw.py:144"),
+    "sw_rect@rescue": ("bowtie2_tpu_torch/csrc/sw_rect.cu",
+                       "bowtie2_tpu/ops/pallas_sw.py:145"),
+}
+
+# the E. coli-sim corpus (bench.py gen_ecoli_corpus's recipe)
+ECOLI_GENOME = 4_600_000
+ECOLI_SE = 100_000
+ECOLI_PAIRS = 50_000
+PE_BATCH = 3125
+CLI_SE = 8192
 
 KERNELS = {  # name -> (source, TPU-side function it replaces)
     "fm_sweep": ("bowtie2_tpu_torch/csrc/fm_search.cu",
@@ -213,12 +272,34 @@ class Recorder:
                     lambda half, rows, period=32: (
                         half, rows.to(i32).contiguous(), period),
                     lambda half, rows, period=32: rows)
-        self._patch(sw, "_sw_banded_cuda", "sw_rect", lambda *a: a)
+        self._patch_sw(sw)
+        self._patch(fused, "_pe_pairing", "pe_pairing", lambda *a: a)
         self._patch(sw, "_backtrace_cuda", "backtrace", lambda *a: a,
                     lambda dirs, sel, *a: sel)
         self._patch(fused, "gather_windows_aligned", "gather_windows_aligned",
                     lambda *a: a)
         self._patch(fused, "diag_readout", "diag_readout", lambda *a: a)
+
+    def _patch_sw(self, sw):
+        """The DP: `sw_rect` and `sw_rect_origin` (track_origin) by the
+        entry they launch, and `sw_rect@rescue`, the first call of the
+        plain DP that launched the block kernel (counted by the entry as
+        `sw_rect@block`)."""
+        orig = sw._sw_banded_cuda
+        launches = sw._build.LAUNCHES
+
+        def wrapped(*a, track_origin=False):
+            name = "sw_rect_origin" if track_origin else "sw_rect"
+            self.args.setdefault(name, a)
+            n_block = launches["sw_rect@block"]
+            out = orig(*a, track_origin=track_origin)
+            if launches["sw_rect@block"] > n_block:
+                self.args.setdefault("sw_rect@rescue", a)
+            return out
+        sw._sw_banded_cuda = wrapped
+        self.orig_sw_rect = orig
+        self.orig_sw_rect_origin = lambda *a: orig(*a, track_origin=True)
+        setattr(self, "orig_sw_rect@rescue", orig)
 
     def take(self):
         """The arguments recorded so far; recording starts afresh."""
@@ -280,12 +361,14 @@ class LaunchTimer:
         self._undo = []
         orig = build_mod.call
 
-        def call(name, symbol, argtypes, *args):
+        def call(name, symbol, argtypes, *args, kinds=None):
             e0, e1 = self._start(SPIN_KERNEL)
-            orig(name, symbol, argtypes, *args)
+            counted = orig(name, symbol, argtypes, *args, kinds=kinds)
             e1.record()
-            self.spans.append((symbol, e0, e1, tuple(
-                args[k] for k in SHAPE_ARGS.get(symbol, ()))))
+            if counted is not None:
+                self.spans.append((counted, e0, e1, tuple(
+                    args[k] for k in SHAPE_ARGS.get(counted, ()))))
+            return counted
         build_mod.call = call
         self._undo.append((build_mod, "call", orig))
 
@@ -383,6 +466,10 @@ def max_err(kern, plain, args):
         return got, 1 << 31
     err = 0
     for g, w in zip(got_t, want_t):
+        if g is None or w is None:        # an output only one mode has
+            if g is not None or w is not None:
+                return got, 1 << 31
+            continue
         if g.shape != w.shape:
             return got, 1 << 31
         if g.numel():
@@ -405,12 +492,14 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
     sw = port.sw
     out = {k: [] for k in kerns}
     for seed, scale in ((0, 1), (1, 8)):
-        for c in port.cases.dp_cases(seed=seed, scale=scale):
+        for c in (port.cases.dp_cases(seed=seed, scale=scale)
+                  + port.cases.origin_cases(seed=seed, scale=scale)):
             args = sw.sw_args(put(c.reads), put(c.quals), put(c.lens),
                               put(c.wins), sw.SWParams(**c.params()),
                               c.band, put(c.rect_cols), put(c.col_lo))
-            out["sw_rect"].append((f"{c.name}@x{scale}", max_err(
-                kerns["sw_rect"], plains["sw_rect"], args)[1]))
+            for k in ("sw_rect", "sw_rect_origin"):
+                out[k].append((f"{c.name}@x{scale}", max_err(
+                    kerns[k], plains[k], args)[1]))
 
         def dp(c):
             res = plains["sw_rect"](*sw.sw_args(
@@ -462,6 +551,14 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
                             kerns["sa_resolve"], plains["sa_resolve"],
                             (h, put(rows), period))[1]))
     return out
+
+
+def ptxas_of(build_mod, name, src_name):
+    """ptxas's report of the kernels behind entry `name`."""
+    pre = PTXAS_FUNCS[name]
+    pre, suf = pre if isinstance(pre, tuple) else (pre, "")
+    return {k: v for k, v in build_mod.PTXAS.get(src_name, {}).items()
+            if k.startswith(pre) and k.endswith(suf)}
 
 
 def nbytes(*ts) -> int:
@@ -617,13 +714,184 @@ def resolve_work(fm, args):
     return byt, total * OPS_RESOLVE_STEP + B * OPS_RESOLVE_ROW, facts
 
 
+def ecoli_corpus(n_pairs):
+    """bench.py gen_ecoli_corpus's recipe (default_rng(42)): a 4.6-Mbp
+    random genome, 100,000 x 100-bp SE reads and 50,000 FR pairs (insert
+    150-550), 0.5 % substitutions, quals 25-40. Returns (genome int8,
+    SE (codes, quals), pairs (c1, c2, q1, q2) cut to n_pairs)."""
+    rng = np.random.default_rng(42)
+    G = ECOLI_GENOME
+    genome = rng.integers(0, 4, G, dtype=np.int8)
+
+    def reads(n, L):
+        pos = rng.integers(0, G - L, n)
+        idx = pos[:, None] + np.arange(L)[None, :]
+        codes = genome[idx].astype(np.int8)
+        err = rng.random((n, L)) < 0.005
+        codes = np.where(err, (codes + rng.integers(1, 4, (n, L))) % 4, codes)
+        rc = rng.random(n) < 0.5
+        codes = np.where(rc[:, None], (3 - codes)[:, ::-1], codes)
+        quals = rng.integers(25, 41, (n, L)).astype(np.uint8)
+        return codes, quals
+
+    se = reads(ECOLI_SE, 100)
+    pos = rng.integers(0, G - 600, ECOLI_PAIRS)
+    ins = rng.integers(150, 551, ECOLI_PAIRS)
+    L = 100
+    i1 = pos[:, None] + np.arange(L)[None, :]
+    i2 = (pos + ins - L)[:, None] + np.arange(L)[None, :]
+    c1 = genome[i1].astype(np.int8)
+    c2 = (3 - genome[i2].astype(np.int8))[:, ::-1]
+    for c in (c1, c2):
+        err = rng.random(c.shape) < 0.005
+        c[...] = np.where(err, (c + rng.integers(1, 4, c.shape)) % 4, c)
+    q1 = rng.integers(25, 41, c1.shape).astype(np.uint8)
+    q2 = rng.integers(25, 41, c2.shape).astype(np.uint8)
+    return genome, se, (c1[:n_pairs], c2[:n_pairs], q1[:n_pairs],
+                        q2[:n_pairs])
+
+
+def mk_pairs(data, rng, n, L=100, err=0.02, bad_frac=0.15):
+    """tests/test_pe_devpair.py's _mk_pairs recipe: FR pairs over the
+    indexed genome in every outcome class: concordant, fragment too long
+    (discordant), mate 2 garbage (rescue / mixed). Returns [(name, c1, c2,
+    quals)]."""
+    g_words = data.ref_words
+    G = int(data.ref_cum[-1])
+
+    def ref_codes(lo, k):
+        gp = np.arange(lo, lo + k)
+        return ((g_words[gp >> 4] >> (2 * (gp & 15))) & 3).astype(np.int8)
+
+    out = []
+    for i in range(n):
+        pos = int(rng.integers(0, G - 700))
+        kind = rng.random()
+        if kind < bad_frac:                       # mate 2 garbage
+            c1 = ref_codes(pos, L)
+            c2 = rng.integers(0, 4, L).astype(np.int8)
+        elif kind < 2 * bad_frac:                 # fragment too long
+            ins = int(rng.integers(1200, 2000))
+            if pos + ins + L >= G:
+                ins = 600
+            c1 = ref_codes(pos, L)
+            c2 = ((3 - ref_codes(pos + ins - L, L)) % 4)[::-1].copy()
+        else:                                     # concordant
+            ins = int(rng.integers(150, 500))
+            c1 = ref_codes(pos, L)
+            c2 = ((3 - ref_codes(pos + ins - L, L)) % 4)[::-1].copy()
+        for c in (c1, c2):
+            e = rng.random(L) < err
+            c[e] = (c[e] + rng.integers(1, 4, int(e.sum()))) % 4
+        out.append((f"m{i}", c1.astype(np.uint8), c2.astype(np.uint8),
+                    np.full(L, 35, np.uint8)))
+    return out
+
+
+def write_fastq(path, names, codes, quals):
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "w") as f:
+        for nm, c, q in zip(names, codes, quals):
+            f.write(f"@{nm}\n{alpha[np.asarray(c, np.int64)].tobytes().decode()}"
+                    f"\n+\n{(np.asarray(q, np.uint8) + 33).tobytes().decode()}"
+                    "\n")
+
+
+def sam_without_cl(path):
+    """A SAM file's lines, with the @PG line's CL: field (the command
+    line) cut off."""
+    out = []
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"@PG"):
+                line = b"\t".join(x for x in line.rstrip(b"\n").split(b"\t")
+                                  if not x.startswith(b"CL:"))
+            out.append(line)
+    return out
+
+
+def hostneed_pairs(fpb, fused):
+    """Pairs of a submitted PE batch whose device pairing raised
+    `hostneed` (read back from the blob)."""
+    meta = fpb.res.blob.cpu().numpy()
+    off = fused.PE_READ_FIELDS * fpb.B2
+    pf = meta[off:off + fused.PE_PAIR_FIELDS * fpb.Bp].reshape(
+        fused.PE_PAIR_FIELDS, fpb.Bp)
+    return int(pf[fused.PE_PAIR_FIELDS - 1, :fpb.B].sum())
+
+
+def dp_work(args, origin):
+    """What a DP call's data needs moved and computed: each problem's read
+    rows (a code and a penalty each) and its rect columns of the window (a
+    code each), its length, rect columns and first column; the direction
+    words of its rows over its rect columns; the best cell's fields (and
+    origin) written. Padding problems count with their own (short) lengths.
+    Returns (bytes, cells)."""
+    _r, _m, lens, _w, _p, rect_cols, col_lo = args
+    ln = lens.long().clamp(min=0)
+    rc = rect_cols.long().clamp(min=0)
+    cells = int((ln * rc).sum())
+    dir_words = int((ln * ((rc + 7) // 8)).sum())
+    per_problem = 4 * (2 + (col_lo is not None)) + 4 * (3 + bool(origin))
+    byt = int(ln.sum()) * 8 + int(rc.sum()) * 4 + dir_words * 4 + \
+        ln.numel() * per_problem
+    return byt, cells
+
+
+def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
+             chain_ms, sweep, build_mod, origin):
+    """A DP kernel's entry of the `kernels` line (and its log line): exact
+    against the plain version on args and each of more_args, timed back to
+    back and after idle, its bound from what its data needs (dp_work)."""
+    _got, err = max_err(kern, plain, args)
+    errs = [max_err(kern, plain, m)[1] for m in more_args]
+    sweep_err = max((e for _, e in sweep), default=0)
+    ms = time_cuda(lambda: kern(*args), reps)
+    idle_ms = time_after_idle(lambda: kern(*args), 5)
+    plain_ms = time_cuda(lambda: plain(*args), 2, spin=0)
+    byt, cells = dp_work(args, origin)
+    ops = cells * (OPS_DP_CELL_ORIGIN if origin else OPS_DP_CELL)
+    t_bytes = byt / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S * 1e3
+    e = max([err, sweep_err] + errs)
+    entry = dict(
+        name=name, route="cuda", source=PE_KERNELS[name][0],
+        replaces=PE_KERNELS[name][1], launches=launches, max_abs_err=e,
+        equal=e == 0, ms=round(ms, 4), idle_ms=round(idle_ms, 4),
+        plain_ms=round(plain_ms, 3), bound_ms=round(max(t_bytes, t_ops), 5),
+        bytes_ms=round(t_bytes, 5), ops_ms=round(t_ops, 5),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, total_ms=round(total[0], 4), total_spans=total[1],
+        ptxas=ptxas_of(build_mod, name, "sw_rect"),
+        shape=[list(t.shape) for t in args
+               if isinstance(t, torch.Tensor)][:4], cells=cells)
+    if chain_ms is not None:
+        entry["chain_ms"] = round(chain_ms, 4)
+    if sweep:
+        entry["sweep_cases"] = len(sweep)
+    log(f"kernel {name}: equal={e == 0} max_abs_err={err} (other calls "
+        f"{errs}, sweep {sweep_err} over {len(sweep)} cases) ms={ms:.4f} "
+        f"idle_ms={idle_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={max(t_bytes, t_ops):.5f} (bytes {t_bytes:.5f}, "
+        f"operations {t_ops:.5f}) total_ms={total[0]:.4f} over {total[1]} "
+        f"launches; launches on the PE path {launches}; cells={cells}"
+        + (f" chain_ms={chain_ms:.4f}" if chain_ms is not None else "")
+        + f" shape {entry['shape']} ptxas {entry['ptxas']}")
+    return entry
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--reads", type=int, default=100_000)
+    ap.add_argument("--reads", type=int, default=50_000)
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--reps", type=int, default=20,
                     help="launches per kernel timing")
+    ap.add_argument("--pairs", type=int, default=ECOLI_PAIRS,
+                    help="E. coli-sim pairs of the paired-end path")
+    ap.add_argument("--mixed", type=int, default=1024,
+                    help="pairs of the mixed-outcome batch")
     a = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -637,7 +905,10 @@ def main() -> None:
         from bowtie2_tpu_torch.pipeline import align as align_mod
         from bowtie2_tpu_torch.pipeline.align import (UnpairedAligner,
                                                       bucket_groups)
+        from bowtie2_tpu_torch.pipeline.paired import PairedAligner
         from bowtie2_tpu_torch.pipeline import traj_replay
+        from bowtie2_tpu_torch.index.build import load_index
+        from bowtie2_tpu_torch.cli.main import main as cli_main
         from bowtie2_tpu_torch.pipeline.policy import make_policy
         mrc = load_repcorpus()
     except (ImportError, FileNotFoundError) as e:
@@ -826,12 +1097,16 @@ def main() -> None:
     # ---------------- phase 6: each kernel against its plain version ------
     plains = {"fm_sweep": fm._sweep_plain, "fm_substring": fm._substring_plain,
               "fm_seed": fm._seed_plain, "sa_resolve": fm._resolve_plain,
-              "sw_rect": sw._sw_banded_plain, "backtrace": sw._backtrace_plain}
+              "sw_rect": sw._sw_banded_plain, "backtrace": sw._backtrace_plain,
+              "sw_rect_origin": lambda *x: sw._sw_banded_plain(
+                  *x, track_origin=True),
+              "sw_rect@rescue": sw._sw_banded_plain}
     t0 = time.time()
     port = types.SimpleNamespace(cases=cases, sw=sw, FMIndex=FMIndex,
                                  build_index_from_refs=build_index_from_refs)
     sweep_errs = exactness_sweep(
-        port, {k: getattr(rec, "orig_" + k) for k in KERNELS},
+        port, {k: getattr(rec, "orig_" + k)
+               for k in list(KERNELS) + ["sw_rect_origin"]},
         plains, data, genome, torch.device("cuda"))
     for name, errs in sweep_errs.items():
         bad = [(c, e) for c, e in errs if e]
@@ -915,13 +1190,8 @@ def main() -> None:
                 l2_warp_tb_s=round(facts["sectors_warp"] * 32 / ms / 1e9, 3),
                 walk_steps=facts["steps"])
         elif name == "sw_rect":
-            reads_, mmpen, lens, refwins, _p, rect_cols, col_lo = args
-            res = got
-            byt = nbytes(reads_, mmpen, lens, refwins, rect_cols) + \
-                (nbytes(col_lo) if col_lo is not None else 0) + \
-                nbytes(res.score, res.row, res.lane, res.dirs)
             # cells the data needs: each problem's rows x its rect columns
-            cells = int((lens.long() * rect_cols.long()).sum())
+            byt, cells = dp_work(args, False)
             ops = cells * OPS_DP_CELL
             # derived, not measured: those cells at OPS_DP_CELL
             # instructions each, one instruction a lane a clock on every
@@ -949,8 +1219,7 @@ def main() -> None:
         t_ops = ops / PEAK_OPS_S * 1e3
         sweep_err = max((e for _, e in sweep_errs.get(name, [])), default=0)
         src_name = os.path.splitext(os.path.basename(src))[0]
-        regs = {k: v for k, v in _build.PTXAS.get(src_name, {}).items()
-                if k.startswith(PTXAS_FUNCS[name])}
+        regs = ptxas_of(_build, name, src_name)
         total = dev_ms.get(name, [0.0, 0])
         entry = dict(
             name=name, route="cuda", source=src, replaces=repl,
@@ -1034,6 +1303,264 @@ def main() -> None:
     log(f"torch ops diag_readout (K10): shape {[Bd, Ld]} ms={d_ms:.4f} "
         f"bound_ms={d_bytes / PEAK_BYTES_S * 1e3:.5f} (bytes) "
         f"total_ms={d_total[0]:.4f} over {d_total[1]} calls")
+
+    # ---------------- phase 7: E. coli-sim corpus, index by the CLI -------
+    t0 = time.time()
+    egenome, (se_codes, se_quals), (c1, c2, q1, q2) = ecoli_corpus(a.pairs)
+    pairs = [(SeqRecord(name=f"p{i}", seq=c1[i].astype(np.uint8),
+                        qual=q1[i]),
+              SeqRecord(name=f"p{i}", seq=c2[i].astype(np.uint8),
+                        qual=q2[i])) for i in range(len(c1))]
+    if not pairs:
+        fail("no pairs for the paired-end path")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tdir = tmp.name
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    with open(os.path.join(tdir, "ecoli.fa"), "w") as f:
+        f.write(">ecoli_sim\n")
+        gb = alpha[egenome.astype(np.int64)].tobytes().decode()
+        for k in range(0, len(gb), 70):
+            f.write(gb[k:k + 70] + "\n")
+    idx = os.path.join(tdir, "ecoli")
+    if cli_main(["build", os.path.join(tdir, "ecoli.fa"), idx]) != 0:
+        fail("bt2x build failed")
+    edata = load_index(idx)
+    nse = min(CLI_SE, len(se_codes))
+    write_fastq(os.path.join(tdir, "se.fq"), [f"e{i}" for i in range(nse)],
+                se_codes[:nse], se_quals[:nse])
+    npe = min(PE_BATCH, len(pairs))
+    for m, (cc, qq) in enumerate(((c1, q1), (c2, q2))):
+        write_fastq(os.path.join(tdir, f"pe_{m + 1}.fq"),
+                    [f"p{i}" for i in range(npe)], cc[:npe], qq[:npe])
+    log(f"E. coli-sim corpus: {egenome.size} bp genome, {len(pairs)} pairs "
+        f"of 100 bp; index built by `build` and loaded in "
+        f"{time.time() - t0:.1f} s")
+
+    # ---------------- phase 8: the paired-end path ----------------
+    # one batch first, as bench.py warms the JAX package up: the first
+    # calls of the pairing's torch ops load their CUDA code
+    t0 = time.time()
+    try:
+        PairedAligner(edata, pol).align_pairs_fast(
+            pairs[:PE_BATCH], batch=PE_BATCH, raw=True)
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"paired-end warm-up: {type(e).__name__}: {e}")
+    log(f"paired-end warm-up: {min(PE_BATCH, len(pairs))} pairs in "
+        f"{time.time() - t0:.2f} s")
+    rec.take()
+    pal = PairedAligner(edata, pol)
+    pspent = host_timers([(pal, n) for n in (
+        "submit", "collect_raw", "_pe_decode", "_pe_fast_prep",
+        "_collect_fused_fast_raw", "_collect_fused_legacy",
+        "align_batch_host", "_run_dp", "_backtrace_sel", "_gapless_tb_raw")])
+    first_groups = []
+    timed_collect = pal.collect_raw
+
+    def keep_first(h, suffix=b""):
+        out = timed_collect(h, suffix)
+        if not first_groups:
+            first_groups.append(out)
+        return out
+    pal.collect_raw = keep_first
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.time()
+    try:
+        pal.align_pairs_fast(pairs, batch=PE_BATCH, raw=True)
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"paired-end path: {type(e).__name__}: {e}")
+    pwall = time.time() - t0
+    plaunches = dict(_build.LAUNCHES)
+    pplain = dict(_build.PLAIN_CALLS)
+    pc = pal.metrics.counters
+    ptimers = {k: round(v, 3) for k, v in pc.items() if k.startswith("t_")}
+    log(f"paired-end path: {len(pairs)} pairs in {pwall:.2f} s = "
+        f"{len(pairs) / pwall:.1f} pairs/s; {pal.stats.conc_one} + "
+        f"{pal.stats.conc_multi} concordant, {pal.stats.disc} discordant; "
+        f"host-path batches {pc.get('host_batches', 0)}; mate DPs "
+        f"{pc.get('mate_dps', 0)}; launches {plaunches}; plain calls "
+        f"{pplain}; host timers {ptimers}; wall s in "
+        f"{({k: round(v, 2) for k, v in pspent.items()})}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    pe_args = rec.take()
+    for k in ("sw_rect_origin", "sw_rect@block"):
+        if plaunches.get(k, 0) == 0:
+            fail(f"{k} never launched on the paired-end path")
+    if pplain:
+        fail(f"plain versions ran on the card's paired-end path: {pplain}")
+    # inserts run to 550 against -X 500: about an eighth of the pairs
+    # align discordantly
+    if pal.stats.conc_one + pal.stats.conc_multi + pal.stats.disc \
+            < 0.9 * len(pairs):
+        fail("fewer than 90 % of the pairs aligned as pairs")
+
+    # the same run again under CUDA events, apart from the timed window
+    ptimer = LaunchTimer(_build)
+    ptimer.wrap(fused, "_pe_pairing", "pe_pairing")
+    ptimer.wrap(fused, "gather_windows_aligned", "gather_windows_aligned")
+    ptimer.wrap(align_mod, "gather_windows", "gather_windows")
+    t0 = time.time()
+    try:
+        PairedAligner(edata, pol).align_pairs_fast(pairs, batch=PE_BATCH,
+                                                   raw=True)
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"paired-end device-time pass: {type(e).__name__}: {e}")
+    ptwall = time.time() - t0
+    ptimer.restore()
+    pdev_ms = ptimer.totals()
+    pbusy = sum(v[0] for v in pdev_ms.values()) / 1e3
+    log(f"paired-end device time: "
+        f"{json.dumps({k: [round(v[0], 4), v[1]] for k, v in sorted(pdev_ms.items())})}"
+        f" (total ms, spans); sum {pbusy:.4f} s = "
+        f"{100 * pbusy / pwall:.4f} % of the paired-end path's {pwall:.2f} "
+        f"s wall time; this pass {ptwall:.2f} s")
+
+    # ---------------- phase 9: paired-end output checks ----------------
+    def pe_cpu_check(label, policy, batch, groups, **kw):
+        t1 = time.time()
+        cpu_pa = PairedAligner(edata if kw.get("data") is None
+                               else kw["data"], policy, device="cpu")
+        cg = cpu_pa.collect_raw(cpu_pa.submit(batch))
+        nd = sum(1 for x, y in zip(groups, cg) if x != y)
+        log(f"PE SAM check ({label}): {len(batch)} pairs, card vs CPU plain "
+            f"versions: {nd} groups differ ({time.time() - t1:.1f} s)")
+        if len(cg) != len(groups) or nd:
+            fail(f"PE {label}: card and CPU SAM differ in {nd} pairs")
+
+    batch0 = pairs[:PE_BATCH]
+    pe_cpu_check("end to end, first batch", pol, batch0, first_groups[0])
+    fhal = PairedAligner(edata, pol)
+    fhal.force_host_pairing = True
+    fhg = fhal.collect_raw(fhal.submit(batch0))
+    nd = sum(1 for x, y in zip(first_groups[0], fhg) if x != y)
+    log(f"PE first batch: device pairing vs force_host_pairing on the card: "
+        f"{nd} groups differ")
+    if nd or len(fhg) != len(first_groups[0]):
+        fail(f"device pairing and host pairing differ in {nd} pairs")
+    lpal = PairedAligner(edata, lpol)
+    rec.take()      # from here on, the --local batch's calls only
+    _build.reset_counts()
+    try:
+        lpg = lpal.collect_raw(lpal.submit(batch0))
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"paired-end --local: {type(e).__name__}: {e}")
+    pl_launch = dict(_build.LAUNCHES)
+    log(f"paired-end --local, first batch: launches {pl_launch}; plain "
+        f"calls {dict(_build.PLAIN_CALLS)}")
+    if _build.PLAIN_CALLS or pl_launch.get("sw_rect_origin", 0) == 0:
+        fail("the --local paired-end path did not run on the kernels")
+    pe_local_args = rec.take()
+    if "sw_rect_origin" not in pe_local_args:
+        fail("the --local paired-end batch recorded no origin DP call")
+    pe_cpu_check("--local, first batch", lpol, batch0, lpg)
+
+    # a mixed-outcome batch over the repcorpus genome, at 0.5 % errors (at
+    # the recipe's 2 % the repeats overflow the fused DP budget, and the
+    # batch would skip the device pairing)
+    mixed = [(SeqRecord(name=nm, seq=x, qual=q), SeqRecord(name=nm, seq=y,
+                                                          qual=q))
+             for nm, x, y, q in mk_pairs(data, np.random.default_rng(7),
+                                         a.mixed, err=0.005)]
+    mal = PairedAligner(data, pol)
+    mfpb = mal.submit(mixed)
+    n_hostneed = hostneed_pairs(mfpb, fused)
+    mg = mal.collect_raw(mfpb)
+    hal = PairedAligner(data, pol)
+    hal.force_host_pairing = True
+    hg = hal.collect_raw(hal.submit(mixed))
+    nd = sum(1 for x, y in zip(mg, hg) if x != y)
+    log(f"PE mixed-outcome batch: {len(mixed)} pairs over the repcorpus "
+        f"genome; {n_hostneed} pairs raised hostneed; host-path batches "
+        f"{mal.metrics.counters.get('host_batches', 0)}; concordant "
+        f"{mal.stats.conc_one + mal.stats.conc_multi}, discordant "
+        f"{mal.stats.disc}; device pairing vs force_host_pairing on the "
+        f"card: {nd} groups differ")
+    if nd or len(mg) != len(hg):
+        fail(f"device pairing and host pairing differ in {nd} pairs")
+    pe_cpu_check("mixed outcomes", pol, mixed, mg, data=data)
+
+    # the recipe's own 2 % errors: the repeats overflow the fused DP budget
+    # end to end, and the batch takes the phase-by-phase host path
+    # (align_batch_host, mate rescue included) on the card
+    over = [(SeqRecord(name=nm, seq=x, qual=q), SeqRecord(name=nm, seq=y,
+                                                         qual=q))
+            for nm, x, y, q in mk_pairs(data, np.random.default_rng(7),
+                                        a.mixed, err=0.02)]
+    oal = PairedAligner(data, pol)
+    _build.reset_counts()
+    og = oal.collect_raw(oal.submit(over))
+    torch.cuda.synchronize()
+    n_host = oal.metrics.counters.get("host_batches", 0)
+    log(f"PE overflow batch: {len(over)} pairs at 2 % errors; host-path "
+        f"batches {n_host}; mate DPs "
+        f"{oal.metrics.counters.get('mate_dps', 0)}; launches "
+        f"{dict(_build.LAUNCHES)}; plain calls {dict(_build.PLAIN_CALLS)}")
+    if n_host != 1:
+        fail("the 2 % batch did not take the paired-end host path")
+    if _build.PLAIN_CALLS:
+        fail("plain versions ran on the card's paired-end host path")
+    pe_cpu_check("overflow to the host path", pol, over, og, data=data)
+
+    # ---------------- phase 10: the paired-end kernels ----------------
+    if "sw_rect_origin" not in pe_args or "sw_rect@rescue" not in pe_args:
+        fail("the paired-end path recorded no origin DP or rescue DP call")
+    oargs = pe_args["sw_rect_origin"]
+    chain_o = time_cuda(lambda: rec.orig_sw_rect_origin(*first(oargs, 4)),
+                        a.reps)
+    kernels_out.append(dp_entry(
+        "sw_rect_origin", rec.orig_sw_rect_origin, plains["sw_rect_origin"],
+        oargs, [pe_local_args[k] for k in ("sw_rect_origin",)
+                if k in pe_local_args], a.reps,
+        pdev_ms.get("sw_rect_origin", [0.0, 0]),
+        plaunches.get("sw_rect_origin", 0), chain_o,
+        sweep_errs["sw_rect_origin"], _build, True))
+    rargs = pe_args["sw_rect@rescue"]
+    kernels_out.append(dp_entry(
+        "sw_rect@rescue", rec.orig_sw_rect, plains["sw_rect@rescue"], rargs,
+        [pe_local_args[k] for k in ("sw_rect@rescue",)
+         if k in pe_local_args], a.reps,
+        pdev_ms.get("sw_rect@block", [0.0, 0]),
+        plaunches.get("sw_rect@block", 0), None, [], _build, False))
+    ok &= all(e["equal"] for e in kernels_out[-2:])
+    # K10's paired-end half, the device pairing (torch ops, no kernel)
+    if "pe_pairing" not in pe_args:
+        fail("the paired-end path never paired on the device")
+    pargs = pe_args["pe_pairing"]
+    pairing_fn = rec.orig_pe_pairing
+    p_out = pairing_fn(*pargs)
+    p_ms = time_cuda(lambda: pairing_fn(*pargs), a.reps,
+                     spin=SPIN_TORCH_OPS)
+    p_bytes = nbytes(*[t for t in pargs if isinstance(t, torch.Tensor)]) + \
+        nbytes(*p_out)
+    p_total = pdev_ms.get("pe_pairing", [0.0, 0])
+    log(f"torch ops _pe_pairing (K10, paired end): pairs {pargs[2]}, T "
+        f"{pargs[3]}; ms={p_ms:.4f} bound_ms="
+        f"{p_bytes / PEAK_BYTES_S * 1e3:.5f} (bytes) total_ms="
+        f"{p_total[0]:.4f} over {p_total[1]} calls")
+
+    # ---------------- phase 11: the CLI, card vs --device cpu ------------
+    for label, inp in (("-U", ["-U", os.path.join(tdir, "se.fq")]),
+                       ("-1/-2", ["-1", os.path.join(tdir, "pe_1.fq"),
+                                  "-2", os.path.join(tdir, "pe_2.fq")])):
+        outs = []
+        t1 = time.time()
+        for dev in ([], ["--device", "cpu"]):
+            sam = os.path.join(tdir, f"out{len(outs)}.sam")
+            if cli_main(["align", "-x", idx, "-S", sam, "--quiet"]
+                        + dev + inp) != 0:
+                fail(f"bt2x align {label} {' '.join(dev)} failed")
+            outs.append(sam_without_cl(sam))
+        nd = sum(1 for x, y in zip(*outs) if x != y)
+        log(f"CLI align {label}: {len(outs[0])} SAM lines, card vs --device "
+            f"cpu: {nd} differ apart from @PG CL ({time.time() - t1:.1f} s)")
+        if nd or len(outs[0]) != len(outs[1]):
+            fail(f"CLI align {label}: card and CPU SAM differ")
+    tmp.cleanup()
+
     print(json.dumps({"kernels": kernels_out}), flush=True)
     if not ok:
         fail("a kernel disagrees with its plain version")

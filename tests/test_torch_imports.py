@@ -29,7 +29,11 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "bowtie2_tpu_torch.pipeline.align" in mods
+    for m in ("bowtie2_tpu_torch.pipeline.align",
+              "bowtie2_tpu_torch.pipeline.paired",
+              "bowtie2_tpu_torch.pipeline.pe",
+              "bowtie2_tpu_torch.cli.main"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -78,6 +82,7 @@ def _tiny_index():
 def test_aligner_defaults_to_the_card():
     from bowtie2_tpu_torch.index.fmindex import FMIndex
     from bowtie2_tpu_torch.pipeline.align import UnpairedAligner
+    from bowtie2_tpu_torch.pipeline.paired import PairedAligner
     from bowtie2_tpu_torch.pipeline.policy import make_policy
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -86,8 +91,12 @@ def test_aligner_defaults_to_the_card():
         UnpairedAligner(data, make_policy("sensitive"))
     with pytest.raises(RuntimeError, match="CUDA"):
         FMIndex.from_host(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PairedAligner(data, make_policy("sensitive"))
     al = UnpairedAligner(data, make_policy("sensitive"), device="cpu")
     assert al.device.type == "cpu"
+    assert PairedAligner(data, make_policy("sensitive"),
+                         device="cpu").device.type == "cpu"
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
