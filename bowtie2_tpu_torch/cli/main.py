@@ -6,9 +6,8 @@ more: `align --device` (default: the CUDA card; `--device cpu` runs the
 kernels' plain PyTorch versions). Flag surface mirrors the reference
 binaries (bt2_search.cpp parseOptions:1668 + usage text :746-950,
 bt2_build.cpp, bt2_inspect.cpp). Options whose semantics are not
-implemented yet fail loudly rather than silently diverging; reads over
-8192 bp raise, naming their ROADMAP.md item; observability-only options
-are accepted.
+implemented yet fail loudly rather than silently diverging;
+observability-only options are accepted.
 """
 
 import argparse

@@ -507,3 +507,183 @@ def resolve_cases(half, period: int, seed: int = 0, scale: int = 1
     bulk = rng.integers(0, nrows, 8192 * scale * scale)
     return [(k, np.asarray(r, np.int32)) for k, r in
             zip(RESOLVE_KINDS, (lengths, ends, bulk))]
+
+
+# ---------------------------------------------------------------------------
+# band-coordinate DP and walk (sw_diag, bt_diag: reads over 8192 bp)
+# ---------------------------------------------------------------------------
+
+# (G, e2e Lmax, local Lmax): band widths BW = 2G + 1 from 5 to 61, so
+# ceil(BW / 8) runs 1..8; row counts of one row, of part of a 32-row chunk
+# and of several chunks
+DIAG_SHAPES = ((2, 37, 100), (3, 100, 1), (10, 300, 37), (15, 129, 300),
+               (30, 100, 64))
+DIAG_GBARS = (4, 0, 10)
+
+
+def _diag_case(rng, name, B, Lmax, G, local, gbar, kind="embed"):
+    """One band-DP case, windows of Lmax + 2G + 1 columns. kind:
+    - embed: each read copied into its window from a band column s, by
+      b % 5: no indel (any s), a deletion of 1..G window codes, an
+      insertion of 1..G read codes, and a net drift of +G and of -G from
+      s = G (the path ends at the band's edge); substitutions after;
+    - tie: tandem repeats in read and window (tied row maxima);
+    - frun: a deletion inside a homopolymer run (F runs of equal score
+      from several columns);
+    - clamp: a quarter of the read's codes random (local: the clamp
+      restarts paths many times a row).
+    Every case has N codes in reads and windows, out-of-reference codes
+    (5) at both ends of every other window, and reads shorter than Lmax
+    (padded with N), whose rows past the end are part of the output."""
+    BW = 2 * G + 1
+    W = Lmax + BW
+    lens = rng.integers(1, Lmax + 1, B).astype(np.int32)
+    lens[0] = Lmax
+    if B > 2:
+        lens[1] = max(1, Lmax // 3)
+    reads = rng.integers(0, 4, (B, Lmax)).astype(np.int32)
+    wins = rng.integers(0, 4, (B, W)).astype(np.int32)
+    for b in range(B):
+        L = int(lens[b])
+        if kind == "tie":
+            unit = rng.integers(0, 4, int(rng.integers(1, 4)))
+            reads[b] = np.tile(unit, Lmax)[:Lmax]
+            wins[b] = np.tile(unit, W)[:W]
+            continue
+        seg = reads[b, :L]
+        if kind == "clamp":
+            noisy = rng.random(L) < 0.25
+            read = seg.copy()
+            read[noisy] = rng.integers(0, 4, int(noisy.sum()))
+            _embed_indel(rng, read, wins[b], G, L, "del", 0)
+            continue
+        if kind == "frun" and L > 20:
+            pos = int(rng.integers(8, L - 8))
+            c = int(rng.integers(0, 4))
+            seg[pos - 3:pos + 3] = c
+            n = int(rng.integers(1, min(3, G) + 1))
+            s = int(rng.integers(0, BW - n))
+            _embed_indel(rng, seg, wins[b], s, pos, "del", n)
+            wins[b, s + pos:s + pos + n] = c
+            continue
+        ev = b % 5
+        n = int(rng.integers(1, G + 1)) if ev in (1, 2) else G
+        if L < 2 * n + 6 or ev == 0:
+            _embed_indel(rng, seg, wins[b], int(rng.integers(0, BW)), L,
+                         "del", 0)
+        else:
+            pos = int(rng.integers(3, L - n - 2))
+            gap = "del" if ev in (1, 3) else "ins"
+            s = (int(rng.integers(0, BW - n)) if ev == 1 else
+                 int(rng.integers(n, BW)) if ev == 2 else G)
+            _embed_indel(rng, seg, wins[b], s, pos, gap, n)
+        for _ in range(int(rng.integers(0, 4))):
+            wins[b, int(rng.integers(0, W))] = rng.integers(0, 4)
+    reads[rng.random((B, Lmax)) < 0.02] = 4
+    wins[rng.random((B, W)) < 0.02] = 4
+    for b in range(0, B, 2):
+        wins[b, :int(rng.integers(0, min(W, 9)))] = 5
+        wins[b, W - int(rng.integers(0, min(W, 9))):] = 5
+    reads[np.arange(Lmax)[None, :] >= lens[:, None]] = 4
+    quals = rng.integers(0, 42, (B, Lmax)).astype(np.int32)
+    return DPCase(name, reads, quals, lens, wins, G, None, None, local, gbar)
+
+
+def diag_cases(seed: int = 0, scale: int = 1) -> List[DPCase]:
+    """Band-DP cases (sw_banded_diag; `band` is G): an end-to-end and a
+    local case at each DIAG_SHAPES band, gap barriers 0, 4 and 10 in turn,
+    and the tie, F-run and clamp cases. Every case holds 5 * scale + 1
+    problems, never a multiple of the kernel's four warps a block."""
+    rng = np.random.default_rng(seed + 400)
+    B = 5 * scale + 1
+    out = []
+    for idx, (G, l_e2e, l_local) in enumerate(DIAG_SHAPES):
+        for r, Lmax in enumerate((l_e2e, l_local)):
+            local = bool(r)
+            gbar = DIAG_GBARS[(2 * idx + r) % len(DIAG_GBARS)]
+            out.append(_diag_case(
+                rng, f"d_G{G}_L{Lmax}_{'local' if local else 'e2e'}_g{gbar}",
+                B, Lmax, G, local, gbar))
+    for kind, G, Lmax, local, gbar in (
+            ("tie", 3, 64, False, 4), ("tie", 15, 100, True, 0),
+            ("frun", 10, 80, False, 0), ("frun", 10, 80, True, 4),
+            ("clamp", 15, 90, True, 4)):
+        out.append(_diag_case(
+            rng, f"d_{kind}_G{G}_L{Lmax}_{'local' if local else 'e2e'}",
+            B, Lmax, G, local, gbar, kind))
+    return out
+
+
+def bt_diag_case(c: DPCase, row: np.ndarray, lane: np.ndarray,
+                 dirs: np.ndarray) -> BTCase:
+    """Walks over one band-DP case's direction words (`row`, `lane`, `dirs`
+    from sw_banded_diag on the case, lanes in band columns): each problem
+    from its best cell, from row 0, from band columns 0 and BW - 1 of its
+    best row, and from a row past its read's end; the first walk again (a
+    duplicated candidate); and problem 0 from row -1, from band columns -1
+    and BW (done at once) and from row Lmax + 1 (rows clamp on every
+    load)."""
+    B, Lmax = c.reads.shape
+    BW = 2 * c.band + 1
+    pb = np.arange(B)
+    past = np.minimum(c.lens, Lmax - 1)
+    r0, l0 = int(row[0]), int(lane[0])
+    sel = np.concatenate([pb] * 5 + [[0] * 5])
+    rows = np.concatenate([row, np.zeros(B, np.int64), row, row, past,
+                           [r0, -1, r0, r0, Lmax + 1]])
+    lanes = np.concatenate([lane, lane, np.zeros(B, np.int64),
+                            np.full(B, BW - 1), lane, [l0, l0, -1, BW, l0]])
+    return BTCase(f"bt_{c.name}", np.ascontiguousarray(dirs, np.int32),
+                  sel.astype(np.int32), rows.astype(np.int32),
+                  lanes.astype(np.int32), c.reads[sel], c.quals[sel],
+                  c.wins[sel], c.band, c.local, c.gbar)
+
+
+def bt_diag_random_cases(seed: int = 0, scale: int = 1) -> List[BTCase]:
+    """Random band-coordinate direction words in both modes, many of them
+    gap moves, from random starts (rows -1 .. Lmax + 1, band columns -2 ..
+    BW + 1): walks that leave the band on either side, walks that leave
+    the rows, and, from problem 0's first cell, a walk that alternates I
+    and D until the steps run out."""
+    rng = np.random.default_rng(seed + 500)
+    out = []
+    for local, Lmax, G in ((False, 60, 10), (True, 45, 30), (False, 200, 2)):
+        BW = 2 * G + 1
+        W = Lmax + BW
+        B = 6 * scale + 1
+        src = rng.choice(4, size=(Lmax, B, BW), p=[0.55, 0.2, 0.2, 0.05])
+        cells = src | (rng.integers(0, 4, (Lmax, B, BW)) << 2)
+        # problem 0: I from even band columns, D from odd ones, no
+        # extension: a walk from (Lmax - 1, 0) takes two steps a row
+        cells[:, 0, :] = 1 + np.arange(BW) % 2
+        Wp = (BW + 7) // 8
+        pad = np.zeros((Lmax, B, 8 * Wp), np.int64)
+        pad[:, :, :BW] = cells
+        words = (pad.reshape(Lmax, B, Wp, 8)
+                 << (4 * np.arange(8))).sum(axis=3)
+        dirs = words.astype(np.uint32).view(np.int32)
+        Bc = 4 * B + 1
+        sel = np.resize(np.arange(B), Bc)
+        rows = rng.integers(-1, Lmax + 2, Bc)
+        rows[:B] = Lmax - 1
+        lanes = rng.integers(-2, BW + 2, Bc)
+        lanes[:B] = rng.integers(0, BW, B)
+        lanes[0] = 0
+        reads = rng.integers(0, 5, (Bc, Lmax)).astype(np.int32)
+        quals = rng.integers(0, 42, (Bc, Lmax)).astype(np.int32)
+        wins = rng.integers(0, 6, (Bc, W)).astype(np.int32)
+        out.append(BTCase(f"btd_random_{'local' if local else 'e2e'}_L{Lmax}"
+                          f"_G{G}", dirs, sel.astype(np.int32),
+                          rows.astype(np.int32), lanes.astype(np.int32),
+                          reads, quals, wins, G, local, 4))
+    return out
+
+
+def bt_diag_cases(dp: Callable[[DPCase], tuple], seed: int = 0,
+                  scale: int = 1) -> List[BTCase]:
+    """Every band-walk case: `dp(case)` gives (row, lane, dirs) numpy
+    arrays of sw_banded_diag on a diag case (either version: they are
+    equal)."""
+    return ([bt_diag_case(c, *dp(c))
+             for c in diag_cases(seed=seed, scale=scale)]
+            + bt_diag_random_cases(seed=seed, scale=scale))

@@ -1,10 +1,12 @@
-"""Rectangle gapped-extension DP and its direction walk, in torch + CUDA.
+"""Rectangle gapped-extension DP and its direction walk, and the band-
+coordinate DP and walk of long reads, in torch + CUDA.
 
-Port of bowtie2_tpu/ops/sw.py. The DP (`sw_banded`) and the walk
-(`backtrace`) are hand-written kernels (csrc/sw_rect.cu, csrc/backtrace.cu)
-for CUDA tensors; beside each sits a plain PyTorch version of the same
-function, one torch op per scan step, which runs for CPU tensors (the tests)
-and which chip_smoke.py holds the kernels against on the card.
+Port of bowtie2_tpu/ops/sw.py. The DPs (`sw_banded`, `sw_banded_diag`) and
+the walks (`backtrace`, `backtrace_diag`) are hand-written kernels
+(csrc/sw_rect.cu, csrc/backtrace.cu, csrc/sw_diag.cu) for CUDA tensors;
+beside each sits a plain PyTorch version of the same function, one or a
+few torch ops per scan step, which runs for CPU tensors (the tests) and
+which chip_smoke.py holds the kernels against on the card.
 
 Scoring matches scoring.h defaults exactly in int32 (match 0 / mismatch
 -(2..6 by qual) / N -1 / gaps -(5+3k)); end-to-end mode aligns the whole
@@ -442,6 +444,330 @@ def backtrace(dirs: torch.Tensor, sel: torch.Tensor, rows: torch.Tensor,
     if on_cpu(dirs, "backtrace"):
         return _backtrace_plain(*args, params, S)
     return _backtrace_cuda(*args, params, S)
+
+
+# ---------------------------------------------------------------------------
+# band-coordinate DP and its walk (reads over the rectangle buckets)
+# ---------------------------------------------------------------------------
+# Cell (i, d) is read row i against window column i + d, d in [0, 2G]:
+# the diagonal move keeps d, E (ref gap) comes from the previous row's
+# d + 1, F (read gap) from the same row's d - 1 through the same lazy-F
+# prefix max as the rectangle DP. The direction words are (Lmax, B,
+# ceil(BW / 8)), linear in the read length.
+
+# rows a step of the band DP's plain version prepares at once
+_DIAG_CHUNK = 128
+# a key below every cell's (score, row, band column) key
+_NO_KEY = -(1 << 62)
+
+
+def _sw_banded_diag_plain(reads, mmpen, read_lens, refwins, p: SWParams,
+                          band: int) -> SWResult:
+    """sw_banded_diag with torch ops. The row recurrence runs one row at a
+    time; what does not feed the next row is computed for a chunk of rows
+    at once: the substitution scores and masks before the chunk, and after
+    it the direction cells (from the recorded comparisons) and the best
+    cell. The best cell is the maximum of the key (H, row, band column)
+    over the cells the reference takes from: end to end row len-1, local
+    every active row, where the reference's running `row_best >= best`
+    over rows (rightmost column within a row) ends on that maximum (see
+    csrc/sw_diag.cu)."""
+    B, Lmax = reads.shape
+    W = refwins.shape[1]
+    BW = 2 * band + 1
+    if W < BW:
+        raise ValueError(f"sw_diag: window width {W} below the band {BW}")
+    dev = reads.device
+    i32, i64 = torch.int32, torch.int64
+    lane = torch.arange(BW, dtype=i32, device=dev)
+    lane_e = lane * p.read_gap_extend
+    rgo = p.read_gap_open + p.read_gap_extend
+    fgo = p.ref_gap_open + p.ref_gap_extend
+    floor = 0 if p.local else NEG_INF
+
+    # H, E and H without F in buffers one column wider than the band, the
+    # extra column NEG_INF: h_up[:, d] is H(d + 1) (E's source, NEG_INF past
+    # the band) and h_left[:, d] is H_noF(d - 1) (F's, NEG_INF before it)
+    hx = torch.full((B, BW + 1), NEG_INF, dtype=i32, device=dev)
+    hx[:, :BW] = 0                           # row -1: a free start
+    ex = torch.full((B, BW + 1), NEG_INF, dtype=i32, device=dev)
+    nx = torch.full((B, BW + 1), NEG_INF, dtype=i32, device=dev)
+    h, h_up, e, e_up = hx[:, :BW], hx[:, 1:], ex[:, :BW], ex[:, 1:]
+    h_noF, h_left = nx[:, 1:], nx[:, :BW]
+    # the F scan's input, one column right: column d holds H_noF(d - 1) -
+    # rgo + rde + (d - 1) * rde, and column 0 NEG_INF (the scan's floor)
+    off = torch.cat([lane.new_zeros(1),
+                     (lane_e + p.read_gap_extend - rgo)[:-1]])
+    best_key = torch.full((B,), _NO_KEY, dtype=i64, device=dev)
+    dirs = torch.empty((Lmax, B, (BW + 7) // 8), dtype=i32, device=dev)
+    lens = read_lens.to(i64)
+    for r0 in range(0, Lmax, _DIAG_CHUNK):
+        r1 = min(r0 + _DIAG_CHUNK, Lmax)
+        n = r1 - r0
+        rows = torch.arange(r0, r1, dtype=i64, device=dev)
+        # the band of row i covers window columns [i, i + BW), the start
+        # clamped to the window as jax.lax.dynamic_slice clamps it
+        cols = torch.clamp(rows, max=W - BW)[:, None] + lane.to(i64)
+        refc = refwins[:, cols].permute(1, 0, 2)          # (n, B, BW)
+        rc = reads[:, r0:r1].T[:, :, None]
+        qp = mmpen[:, r0:r1].T[:, :, None]
+        is_n = (rc >= 4) | (refc == 4)
+        oob = refc >= 5
+        eq = (refc == rc) & ~is_n & ~oob
+        sub = torch.where(eq, p.match_bonus,
+                          torch.where(is_n & ~oob, -p.n_pen, -qp))
+        sub = torch.where(oob, NEG_INF // 2, sub).to(i32).contiguous()
+        act = (lens[None, :] > rows[:, None])[:, :, None]
+        mask_e = oob
+        if p.gap_barrier > 0:
+            bar = ((rows[:, None] < p.gap_barrier)
+                   | (rows[:, None] >= lens[None, :] - p.gap_barrier)
+                   )[:, :, None]
+            mask_e = oob | bar
+            bar_r = bar.unbind(0)
+        mask_e = mask_e.contiguous()
+        # per row: E from extension, E over the diagonal, F from
+        # extension, F over H_noF, and H before the local clamp
+        xe, eg, xf, fg = (torch.empty((n, B, BW), dtype=torch.bool,
+                                      device=dev) for _ in range(4))
+        hc = torch.empty((n, B, BW), dtype=i32, device=dev)
+        for k, (sub_k, me_k, act_k, xe_k, eg_k, xf_k, fg_k, hc_k) in \
+                enumerate(zip(sub.unbind(0), mask_e.unbind(0),
+                              act.unbind(0), xe.unbind(0), eg.unbind(0),
+                              xf.unbind(0), fg.unbind(0), hc.unbind(0))):
+            # E: the previous row's band column d + 1
+            e_open = h_up - fgo
+            e_ext = e_up - p.ref_gap_extend
+            torch.gt(e_ext, e_open, out=xe_k)
+            e_cur = torch.maximum(e_open, e_ext).masked_fill_(me_k, NEG_INF)
+            # diagonal: the previous row's same band column
+            h_diag = h + sub_k
+            torch.gt(e_cur, h_diag, out=eg_k)
+            torch.maximum(h_diag, e_cur, out=h_noF)
+            # F: the same row's band column d - 1 (lazy-F prefix max)
+            f_cur = torch.cummax(h_left + off, dim=1).values - lane_e
+            torch.gt(f_cur, h_left - rgo, out=xf_k)
+            if p.gap_barrier > 0:
+                f_cur.masked_fill_(bar_r[k], NEG_INF)
+            torch.gt(f_cur, h_noF, out=fg_k)
+            torch.maximum(h_noF, f_cur, out=hc_k)
+            torch.where(act_k, torch.clamp(hc_k, min=floor), h, out=h)
+            torch.where(act_k, e_cur, e, out=e)
+        src = torch.where(fg, H_F, torch.where(eg, H_E, H_DIAG))
+        if p.local:
+            clamp = (hc < 0) | ((hc == 0) & (src == H_DIAG))
+            src = torch.where(clamp, H_START, src)
+        cells = src | (xe.to(i64) << 2) | (xf.to(i64) << 3)
+        dirs[r0:r1] = _pack_cells(cells.view(n * B, BW)).view(n, B, -1)
+        key = (torch.clamp(hc, min=floor).to(i64) << 32) \
+            + rows[:, None, None] * 64 + lane
+        take = act if p.local else \
+            (rows[:, None] == lens[None, :] - 1)[:, :, None]
+        kmax = torch.where(take, key, _NO_KEY).amax(dim=(0, 2))
+        best_key = torch.maximum(best_key, kmax)
+    none = best_key == _NO_KEY
+    low = best_key & 0xFFFFFFFF
+    return SWResult(torch.where(none, NEG_INF, best_key >> 32).to(i32),
+                    torch.where(none, 0, low >> 6).to(i32),
+                    torch.where(none, 0, low & 63).to(i32), dirs)
+
+
+_SWD_ARGS = [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P]
+
+
+def _sw_banded_diag_cuda(reads, mmpen, read_lens, refwins, p: SWParams,
+                         band: int) -> SWResult:
+    B, Lmax = reads.shape
+    W = refwins.shape[1]
+    BW = 2 * band + 1
+    dev = reads.device
+    for t, n, shp in ((reads, "reads", (B, Lmax)), (mmpen, "mmpen", (B, Lmax)),
+                      (read_lens, "read_lens", (B,)),
+                      (refwins, "refwins", (B, W))):
+        check(t, n, shape=shp, device=dev)
+    # two band cells a lane of one warp; the best cell's row and band
+    # column share 32 bits; every row's band lies inside the window
+    if not 0 <= band <= 31 or W < Lmax + BW - 1 or Lmax >= (1 << 25):
+        raise ValueError(f"sw_diag: unsupported shape B={B} Lmax={Lmax} "
+                         f"W={W} band={band}")
+    if not -(1 << 24) < p.n_pen < (1 << 24):
+        raise ValueError(f"sw_diag: n_pen {p.n_pen} out of range")
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    row = torch.empty(B, dtype=torch.int32, device=dev)
+    lane = torch.empty(B, dtype=torch.int32, device=dev)
+    dirs = torch.empty((Lmax, B, (BW + 7) // 8), dtype=torch.int32,
+                       device=dev)
+    _build.call("sw_diag", "sw_diag", _SWD_ARGS,
+                ptr(reads), ptr(mmpen), ptr(read_lens), ptr(refwins),
+                B, Lmax, W, band, p.match_bonus, p.n_pen, p.read_gap_open,
+                p.read_gap_extend, p.ref_gap_open, p.ref_gap_extend,
+                p.gap_barrier, int(p.local),
+                ptr(score), ptr(row), ptr(lane), ptr(dirs))
+    return SWResult(score, row, lane, dirs)
+
+
+def diag_args(reads, quals, read_lens, refwins, params: SWParams,
+              band: int) -> tuple:
+    """sw_banded_diag's arguments as the kernel and its plain version take
+    them: (reads, mmpen, read_lens, refwins, params, band), int32 and
+    contiguous."""
+    i32 = torch.int32
+    return (reads.to(i32).contiguous(),
+            mm_penalty_from_qual(quals, params).contiguous(),
+            read_lens.to(i32).contiguous(), refwins.to(i32).contiguous(),
+            params, band)
+
+
+def sw_banded_diag(reads: torch.Tensor, quals: torch.Tensor,
+                   read_lens: torch.Tensor, refwins: torch.Tensor,
+                   params: SWParams, band: int) -> SWResult:
+    """Band DP for long reads (bowtie2_tpu/ops/sw.py sw_banded_diag).
+
+    reads/quals: (B, Lmax) int32; read_lens (B,); refwins: (B, Lmax +
+    2 * band + 1) int32 codes 0..5, rect-aligned (column c is the ref char
+    at rect column c). Returns an SWResult whose `lane` is the BAND column
+    d of the best cell (its rect column is row + d) and whose dirs are in
+    band coordinates, (Lmax, B, ceil((2 * band + 1) / 8)) words (walk them
+    with backtrace_diag). CPU tensors take the plain version, CUDA tensors
+    the sw_diag kernel."""
+    args = diag_args(reads, quals, read_lens, refwins, params, band)
+    if on_cpu(args[0], "sw_diag"):
+        return _sw_banded_diag_plain(*args)
+    return _sw_banded_diag_cuda(*args)
+
+
+# band-column move of each op (M, I, D, none) and whether it leaves the row
+_BT_DI = (1, 1, 0, 0)
+_BT_DD = (0, 1, -1, 0)
+
+
+def _backtrace_diag_plain(dirs, sel, rows, lanes, reads, mmpen, refwins,
+                          p: SWParams, band: int, S: int) -> BTResult:
+    """backtrace_diag with torch ops. The walk's chain (cell, move, next
+    cell) runs one step at a time and records each step's op, direction
+    cell, row and band column; the op bytes and the seven fields are then
+    computed from the records for all steps at once. A step of a walk that
+    is done records OP_NONE at its frozen (clamped) cell, as the reference
+    emits it; once every walk is done, the remaining steps repeat that."""
+    Lmax, B, Wp = dirs.shape
+    W = refwins.shape[1]
+    BW = 2 * band + 1
+    Bc = sel.shape[0]
+    dev = dirs.device
+    i32, i64 = torch.int32, torch.int64
+    # each walk's direction words as one run of Lmax * Wp words
+    dflat = dirs.index_select(1, sel.long()).permute(1, 0, 2).reshape(-1)
+    base = torch.arange(Bc, dtype=i64, device=dev) * (Lmax * Wp)
+    di = torch.tensor(_BT_DI, dtype=i64, device=dev)
+    dd_tab = torch.tensor(_BT_DD, dtype=i64, device=dev)
+    i, d = rows.to(i64), lanes.to(i64)
+    mode = torch.zeros(Bc, dtype=i64, device=dev)
+    done = torch.zeros(Bc, dtype=torch.bool, device=dev)
+    rec_op, rec_dd, rec_i, rec_d = [], [], [], []
+    for s in range(S):
+        dc = torch.clamp(d, 0, BW - 1)
+        ic = torch.clamp(i, 0, Lmax - 1)
+        word = torch.take(dflat, base + ic * Wp + (dc >> 3))
+        dd = (word >> ((dc & 7) << 2)) & 15
+        src = dd & 3
+        done_now = (done | ((mode == 0) & (src == H_START)) | (i < 0)
+                    | (dc != d))
+        op = torch.where(mode > 0, mode, src).masked_fill_(done_now, OP_NONE)
+        rec_op.append(op)
+        rec_dd.append(dd)
+        rec_i.append(ic)
+        rec_d.append(dc)
+        # band moves: M -> (i-1, d); I -> (i-1, d+1); D -> (i, d-1); the
+        # E or F extension bit of the move taken keeps its mode
+        i = i - torch.take(di, op)
+        d = d + torch.take(dd_tab, op)
+        mode = op & -((dd >> (op + 1)) & 1)
+        done = done_now | (i < 0)
+        if s % 64 == 63 and bool(done.all()):
+            break
+    op = torch.stack(rec_op)                 # (steps, Bc)
+    dd = torch.stack(rec_dd)
+    ic = torch.stack(rec_i)
+    j = ic + torch.stack(rec_d)              # rect column
+    rc = reads.to(i64).gather(1, ic.T).T
+    qp = mmpen.to(i64).gather(1, ic.T).T
+    fc = refwins.to(i64).gather(1, torch.clamp(j, 0, W - 1).T).T
+    em, ei, ed = op == OP_M, op == OP_I, op == OP_D
+    is_n = (rc >= 4) | (fc == 4)
+    ismatch = em & (rc == fc) & ~is_n & (fc < 4)
+    m_sc = torch.where(ismatch, p.match_bonus,
+                       torch.where(is_n, -p.n_pen, -qp))
+    i_open = ei & ((dd & 4) == 0)
+    d_open = ed & ((dd & 8) == 0)
+    score = (torch.where(em, m_sc, 0) - ei * p.ref_gap_extend
+             - i_open * p.ref_gap_open - ed * p.read_gap_extend
+             - d_open * p.read_gap_open).sum(dim=0)
+    nmm = (em & ~ismatch & (rc < 4) & (fc != 4)).sum(dim=0) \
+        + (em & is_n).sum(dim=0)
+    nrefn = (em & (fc == 4)).sum(dim=0)
+    ngo = i_open.sum(dim=0) + d_open.sum(dim=0)
+    ngc = ei.sum(dim=0) + ed.sum(dim=0)
+    refmin = torch.where(em | ed, j, 1 << 30).amin(dim=0)
+    refmin = torch.where(refmin == (1 << 30), 0, refmin)
+    ops = torch.empty((S, Bc), dtype=torch.uint8, device=dev)
+    n = op.shape[0]
+    ops[:n] = op | (torch.clamp(fc, 0, 5) << 2) | (ismatch.to(i64) << 5)
+    if n < S:       # every walk done: OP_NONE at its frozen cell from here
+        ops[n:] = ops[n - 1]
+    return BTResult(ops, (i + 1).to(i32), refmin.to(i32), nmm.to(i32),
+                    ngo.to(i32), ngc.to(i32), nrefn.to(i32), score.to(i32))
+
+
+_BTD_ARGS = [P, I, I, I, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P]
+
+
+def _backtrace_diag_cuda(dirs, sel, rows, lanes, reads, mmpen, refwins,
+                         p: SWParams, band: int, S: int) -> BTResult:
+    Lmax, B, Wp = dirs.shape
+    Bc = sel.shape[0]
+    W = refwins.shape[1]
+    BW = 2 * band + 1
+    dev = dirs.device
+    check(dirs, "dirs", device=dev)
+    for t, n, shp in ((sel, "sel", (Bc,)), (rows, "rows", (Bc,)),
+                      (lanes, "lanes", (Bc,)), (reads, "reads", (Bc, Lmax)),
+                      (mmpen, "mmpen", (Bc, Lmax)),
+                      (refwins, "refwins", (Bc, W))):
+        check(t, n, shape=shp, device=dev)
+    if not 0 <= band <= 31 or not (BW + 7) // 8 <= Wp <= 8 or W < 1:
+        raise ValueError(f"bt_diag: band {band} does not fit dirs of "
+                         f"{Wp} words a row")
+    ops = torch.empty((S, Bc), dtype=torch.uint8, device=dev)
+    fields = torch.empty((7, Bc), dtype=torch.int32, device=dev)
+    _build.call("sw_diag", "bt_diag", _BTD_ARGS,
+                ptr(dirs), Lmax, B, Wp, ptr(sel), ptr(rows), ptr(lanes),
+                ptr(reads), ptr(mmpen), ptr(refwins), Bc, W, S, band,
+                p.match_bonus, p.n_pen, p.read_gap_open, p.read_gap_extend,
+                p.ref_gap_open, p.ref_gap_extend, ptr(ops), ptr(fields))
+    return BTResult(ops, *fields.unbind(0))
+
+
+def backtrace_diag(dirs: torch.Tensor, sel: torch.Tensor, rows: torch.Tensor,
+                   lanes: torch.Tensor, reads: torch.Tensor,
+                   quals: torch.Tensor, refwins: torch.Tensor,
+                   params: SWParams, band: int) -> BTResult:
+    """Walk band-coordinate direction words from sw_banded_diag
+    (bowtie2_tpu/ops/sw.py backtrace_diag). Moves: M -> (i-1, d); I ->
+    (i-1, d+1); D -> (i, d-1). rows/lanes (Bc,) are best cells in band
+    coordinates; ref_start_win is reported in RECT columns (row + d), so
+    callers share the rectangle walk's position math. CPU tensors take the
+    plain version, CUDA tensors the bt_diag kernel."""
+    i32 = torch.int32
+    Lmax = dirs.shape[0]
+    S = bt_steps(Lmax, 2 * band + 1, params.local)
+    args = (dirs.contiguous(), sel.to(i32).contiguous(),
+            rows.to(i32).contiguous(), lanes.to(i32).contiguous(),
+            reads.to(i32).contiguous(),
+            mm_penalty_from_qual(quals, params).contiguous(),
+            refwins.to(i32).contiguous())
+    if on_cpu(dirs, "bt_diag"):
+        return _backtrace_diag_plain(*args, params, band, S)
+    return _backtrace_diag_cuda(*args, params, band, S)
 
 
 def diag_readout(reads, quals, refwins, rows, lanes, lens, params: SWParams):

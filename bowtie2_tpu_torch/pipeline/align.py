@@ -12,8 +12,11 @@ package's for the same index and reads.
 
 A batch whose fused DP budget overflows is rerun on the uncapped
 phase-by-phase host path (`_align_batch_host`), which drives the same
-kernels, as the JAX package does. Reads longer than the rectangle buckets
-are not ported yet and raise (named in ROADMAP.md).
+kernels, as the JAX package does. A batch with a read longer than the
+rectangle buckets (8192 bp) takes the host path too, in long mode: no
+exact or half-read search, up to 512 seeds a read, and the band-coordinate
+DP and walk (`sw_banded_diag`, `backtrace_diag`; linear in the read
+length).
 
 Entry points take device=None, meaning the CUDA card; device="cpu" runs the
 kernels' plain PyTorch versions (the tests do).
@@ -37,7 +40,8 @@ from bowtie2_tpu_torch.io.sam import (FLAG_REVERSE, FLAG_UNMAPPED,
 from bowtie2_tpu_torch.ops import fm
 from bowtie2_tpu_torch.ops.fused import CHOSEN_FIELDS, SegTables, fused_se
 from bowtie2_tpu_torch.ops.ref import gather_windows
-from bowtie2_tpu_torch.ops.sw import backtrace, bt_steps, sw_banded
+from bowtie2_tpu_torch.ops.sw import (backtrace, backtrace_diag, bt_steps,
+                                      sw_banded, sw_banded_diag)
 from bowtie2_tpu_torch.pipeline.backtrace import cigar_md_from_packed
 from bowtie2_tpu_torch.pipeline.mapq import mapq_v2
 from bowtie2_tpu_torch.pipeline.policy import Policy
@@ -50,8 +54,6 @@ BT_FIELDS = ("read_start", "ref_start_win", "n_mm", "n_go",
              "n_gc", "n_refn", "score_check")
 
 LONG_READ_MAX = 1 << 20      # 1 Mbp: sanity ceiling for the long path
-
-LONG_READ_ITEM = "ROADMAP.md slice queue item 3, 'K11, long reads'"
 
 
 def bucket_groups(lengths, merge_below: int = 1024):
@@ -227,6 +229,9 @@ class DPPool:
     mm_ug: np.ndarray = None     # (n,) ungapped anchor-diagonal mismatches
     dplane: np.ndarray = None    # (NC,) candidate -> dirs lane (-1 =
                                  # bypassed); None = identity
+    diag: bool = False           # dirs in band coordinates (long reads)
+    band_lanes: np.ndarray = None  # (NC,) band column of the best cell
+                                   # (diag; lanes_end holds rect columns)
 
     def end_pos(self, k) -> np.ndarray:
         """Global position of the last ref char consumed."""
@@ -358,18 +363,20 @@ class BatchAligner:
     def _run_dp(self, win_start, rid, read_idx, orient, jboth, jquals,
                 lens, G: int, Lmax: int, n: int, full_width: bool = False,
                 diag_kernel: bool = False) -> DPPool:
-        """Gather windows + run the banded DP for n problems (padded to a
-        power of two); read/qual rows are gathered on the device.
+        """Gather windows + run the banded DP for n problems (the
+        rectangle DP's padded to a power of two, as the JAX package pads
+        them); read/qual rows are gathered on the device.
         full_width: every column of the window is a rect column (the
-        mate-rescue windows span the whole fragment range)."""
-        if diag_kernel:
-            raise NotImplementedError(
-                f"the band-coordinate DP is not ported yet: see "
-                f"{LONG_READ_ITEM}")
+        mate-rescue windows span the whole fragment range). diag_kernel:
+        the band-coordinate DP (long reads) on the same rect-aligned
+        windows."""
         pol = self.pol
         B = lens.size
         width = Lmax + 2 * G + 1
-        NC = _pow2_at_least(max(n, 1))
+        # the band DP takes the live problems only: a padding problem would
+        # run every one of up to 2^20 rows and keep their direction words,
+        # and no walk reads it
+        NC = max(n, 1) if diag_kernel else _pow2_at_least(max(n, 1))
         starts = np.zeros(NC, dtype=np.int32)
         lo = np.zeros(NC, dtype=np.int32)
         hi = np.zeros(NC, dtype=np.int32)
@@ -391,8 +398,12 @@ class BatchAligner:
         jlens_c = self._put(lens_c)
         rect_cols = np.full(NC, width, np.int32) if full_width \
             else (lens_c + 2 * G + 1).astype(np.int32)
-        res = sw_banded(jreads_c, jquals_c, jlens_c, wins, pol.sw_params(),
-                        G, self._put(rect_cols))
+        if diag_kernel:
+            res = sw_banded_diag(jreads_c, jquals_c, jlens_c, wins,
+                                 pol.sw_params(), G)
+        else:
+            res = sw_banded(jreads_c, jquals_c, jlens_c, wins,
+                            pol.sw_params(), G, self._put(rect_cols))
         # ungapped mismatch count at the anchor diagonal (half-candidate
         # 1mm admission gate)
         diag = wins[:, G:G + Lmax]
@@ -403,10 +414,15 @@ class BatchAligner:
                                res.lane.long(), mm_ug_d.long()]))
         ws = np.zeros(NC, dtype=np.int64)
         ws[:n] = win_start
+        # the band DP's lanes are band columns: the pool keeps rect columns
+        # (row + band column), so end_pos() and emission are the same for
+        # both DPs, and the band column for backtrace_diag
         return DPPool(G=G, Lmax=Lmax, n=n, win_start=ws, rid=rid,
                       scores=sw4[0, :n].astype(np.int64), rows_end=sw4[1],
-                      lanes_end=sw4[2], dirs=res.dirs, jreads=jreads_c,
-                      jquals=jquals_c, wins=wins, mm_ug=sw4[3, :n])
+                      lanes_end=sw4[2] + (sw4[1] if diag_kernel else 0),
+                      dirs=res.dirs, jreads=jreads_c, jquals=jquals_c,
+                      wins=wins, mm_ug=sw4[3, :n], diag=diag_kernel,
+                      band_lanes=sw4[2])
 
     # ---------------- phase 6: backtrace of chosen problems ----------------
     def _gapless_core(self, pool: DPPool, sel: np.ndarray,
@@ -556,13 +572,15 @@ class BatchAligner:
                 self.metrics.add(host_dplmiss=n_miss)
             jsel_dirs = self._put(
                 np.clip(pool.dplane[sel_pad], 0, None).astype(np.int32))
-        bt = backtrace(pool.dirs, jsel_dirs,
-                       self._put(pool.rows_end[sel_pad].astype(np.int32)),
-                       self._put(pool.lanes_end[sel_pad].astype(np.int32)),
-                       pool.jreads.index_select(0, jsel.long()),
-                       pool.jquals.index_select(0, jsel.long()),
-                       pool.wins.index_select(0, jsel.long()),
-                       self.pol.sw_params(), pool.G)
+        walk, lanes = ((backtrace_diag, pool.band_lanes) if pool.diag
+                       else (backtrace, pool.lanes_end))
+        bt = walk(pool.dirs, jsel_dirs,
+                  self._put(pool.rows_end[sel_pad].astype(np.int32)),
+                  self._put(lanes[sel_pad].astype(np.int32)),
+                  pool.jreads.index_select(0, jsel.long()),
+                  pool.jquals.index_select(0, jsel.long()),
+                  pool.wins.index_select(0, jsel.long()),
+                  self.pol.sw_params(), pool.G)
         sc_host = _np(torch.stack([getattr(bt, f) for f in BT_FIELDS]))
         ops_host = _np(bt.ops)                 # (S, Bc)
         out = {}
@@ -725,14 +743,26 @@ class BatchAligner:
         import time as _time
         _t = _time.time()
 
+        # long reads (over the rectangle buckets): the whole-read exact
+        # sweep and the half-read search, Lmax-step searches, are skipped
+        # (an exact or one-mismatch hit at 8 kbp and more is vanishing, and
+        # the seeds find the same alignment), and the DP is the band DP
+        long_mode = Lmax > LEN_BUCKETS[-1]
+
         # phase 1+2: enqueue all three searches before reading any back
         both = np.concatenate([fw, rc], axis=0)          # (2B, Lmax) int8
         both_lens = np.concatenate([lens, lens])
         cs.jboth = self._put(both).to(torch.int32)
         cs.jquals = self._put(np.concatenate([qu, qu_r], axis=0)).to(
             torch.int32)
-        sweep = fm.exact_sweep(self.idx.fw, cs.jboth, self._put(both_lens))
-        sweep_d = torch.stack([sweep.top, sweep.bot, sweep.nedit])
+        if long_mode:
+            z2 = np.zeros(2 * B, dtype=self._row_dtype)
+            sweep_d = torch.from_numpy(np.stack(
+                [z2, z2, np.full(2 * B, 99, np.int32).astype(z2.dtype)]))
+        else:
+            sweep = fm.exact_sweep(self.idx.fw, cs.jboth,
+                                   self._put(both_lens))
+            sweep_d = torch.stack([sweep.top, sweep.bot, sweep.nedit])
         # paired reads with both mates passing the filters get a boosted
         # seed interval; mate 2 of read i is read B/2 + i
         ival_boost = None
@@ -740,8 +770,17 @@ class BatchAligner:
             okm = ~filtered
             ival_boost = okm & np.roll(okm, B // 2)
         seed_off, seed_mlen, seed_tb_d, sshape, cs.inst0 = \
-            self._seed_search(fw, rc, lens, ival_boost, nrounds=nrounds)
-        half_off, half_mlen, half_tb_d = self._half_search(both, both_lens)
+            self._seed_search(fw, rc, lens, ival_boost, nrounds=nrounds,
+                              max_seeds=512 if long_mode else 64)
+        if long_mode:       # empty half-read ranges (top 1 > bot 0)
+            half_off = np.zeros((2 * B, 2), np.int64)
+            half_mlen = np.ones((2 * B, 2), np.int64)
+            half_tb_d = torch.from_numpy(np.stack(
+                [np.ones((2, 2 * B), self._row_dtype),
+                 np.zeros((2, 2 * B), self._row_dtype)]).reshape(2, -1))
+        else:
+            half_off, half_mlen, half_tb_d = self._half_search(both,
+                                                               both_lens)
         if pol.seed_mms >= 1:
             sh_off, sh_mlen, sh_tb_d = self._seed_half_search(fw, rc,
                                                               seed_off)
@@ -859,7 +898,8 @@ class BatchAligner:
         n_cand = anchor.size
         G = pol.band_halfwidth(Lmax)
         pool = self._run_dp(anchor - G, rid, cand_read, cand_or,
-                            cs.jboth, cs.jquals, lens, G, Lmax, n_cand)
+                            cs.jboth, cs.jquals, lens, G, Lmax, n_cand,
+                            diag_kernel=long_mode)
         valid = pool.scores >= minsc[cand_read]
         # half-read candidates model the up-front 1-mismatch search: admit
         # them only when the implied ungapped alignment has <= 1 mismatch
@@ -893,14 +933,16 @@ class BatchAligner:
             - np.take_along_axis(cumn, o, axis=1)
         return (valid_all & (nwin == 0)).sum(axis=1)
 
-    def _seed_search(self, fw, rc, lens, ival_boost=None, nrounds: int = 1):
+    def _seed_search(self, fw, rc, lens, ival_boost=None, nrounds: int = 1,
+                     max_seeds: int = 64):
         """Search the instantiated seeds of both orientations on the
         device (windows holding N die inside the search kernel)."""
         pol = self.pol
         B = fw.shape[0]
         slen = pol.seed_len
         offs_all, valid_all = self._seed_offsets(lens, ival_boost,
-                                                 nrounds=nrounds)
+                                                 nrounds=nrounds,
+                                                 max_seeds=max_seeds)
         smax = offs_all.shape[1]
         both = np.concatenate([fw, rc], axis=0).astype(np.int32)
         top, bot = fm.seed_search_offsets(
@@ -1189,13 +1231,13 @@ class UnpairedAligner(BatchAligner):
         return overrides
 
     def submit(self, records: Sequence[SeqRecord]) -> Optional[FusedBatch]:
-        """Enqueue the fused device pipeline for one batch (no host sync)."""
+        """Enqueue the fused device pipeline for one batch (no host sync).
+        A batch with a read over the rectangle buckets is returned as
+        ("long", records): collect runs it on the host path in long mode."""
         if not records:
             return None
         if max(int(r.seq.size) for r in records) > LEN_BUCKETS[-1]:
-            raise NotImplementedError(
-                f"reads over {LEN_BUCKETS[-1]} bp need the band-DP kernels, "
-                f"not yet ported: see {LONG_READ_ITEM}")
+            return ("long", records)
         import time as _time
         _t = _time.time()
         pol = self.pol
@@ -1293,6 +1335,8 @@ class UnpairedAligner(BatchAligner):
         records as objects."""
         if fb is None:
             return []
+        if isinstance(fb, tuple) and fb[0] == "long":
+            return self._align_batch_host(fb[1])
         import time as _time
         pol = self.pol
         B, Bp, kk_bt = fb.B, fb.Bp, fb.kk_bt
@@ -1432,6 +1476,21 @@ class UnpairedAligner(BatchAligner):
     def align_batch(self, records: Sequence[SeqRecord]) -> List[SamAlignment]:
         return self.collect(self.submit(records))
 
+    @staticmethod
+    def _groups_from_objects(records, out, suffix):
+        """Per-read (flag, line) groups of a flat SamAlignment list: each
+        read's primary record and the secondaries that follow it."""
+        groups, t = [], 0
+        for rec in records:
+            grp = [(out[t].flag, out[t].line().encode() + suffix)]
+            t += 1
+            while t < len(out) and out[t].qname == rec.name \
+                    and out[t].flag & 0x100:
+                grp.append((out[t].flag, out[t].line().encode() + suffix))
+                t += 1
+            groups.append(grp)
+        return groups
+
     def collect_raw(self, fb: Optional[FusedBatch], suffix: bytes = b""
                     ) -> List[List[Tuple[int, bytes]]]:
         """collect(), but emit finished SAM line bytes via the native line
@@ -1439,6 +1498,9 @@ class UnpairedAligner(BatchAligner):
         appended to every line (RG)."""
         if fb is None:
             return []
+        if isinstance(fb, tuple) and fb[0] == "long":
+            return self._groups_from_objects(
+                fb[1], self._align_batch_host(fb[1]), suffix)
         from bowtie2_tpu_torch.native.samemit import (RefNameTable, XS_OMIT,
                                                       sam_tails_batch)
         import time as _time
@@ -1446,17 +1508,8 @@ class UnpairedAligner(BatchAligner):
         B, Bp, kk, kk_bt = fb.B, fb.Bp, fb.kk, fb.kk_bt
         dec = self._decode(fb)
         if dec is None:
-            out = self._align_batch_host(fb.records)
-            groups, t = [], 0
-            for rec in fb.records:
-                grp = [(out[t].flag, out[t].line().encode() + suffix)]
-                t += 1
-                while t < len(out) and out[t].qname == rec.name \
-                        and out[t].flag & 0x100:
-                    grp.append((out[t].flag, out[t].line().encode() + suffix))
-                    t += 1
-                groups.append(grp)
-            return groups
+            return self._groups_from_objects(
+                fb.records, self._align_batch_host(fb.records), suffix)
         ops, meta, r_score, r_valid, ch, ovr = dec
         _t = _time.time()
         (ch_ok, ch_or, ch_rid, ch_roff, ch_rdstart, ch_rdend, ch_nmm,
@@ -1710,10 +1763,11 @@ class UnpairedAligner(BatchAligner):
                           nrounds: int = 1,
                           _merge: bool = True) -> List[SamAlignment]:
         """Phase-by-phase path for a batch whose fused DP budget
-        overflowed: uncapped candidate search, -D effort model, ranking,
-        backtrace, replay overrides and the --seed-boost rerun of
-        ultra-repetitive reads (bowtie2_tpu/pipeline/align.py
-        _align_batch_host, single-end, reads up to LEN_BUCKETS[-1])."""
+        overflowed, or that holds a read over the rectangle buckets (long
+        mode, see _search_candidates): uncapped candidate search, -D
+        effort model, ranking, backtrace, replay overrides and the
+        --seed-boost rerun of ultra-repetitive reads
+        (bowtie2_tpu/pipeline/align.py _align_batch_host, single-end)."""
         if not records:
             return []
         pol = self.pol

@@ -32,19 +32,12 @@ from bowtie2_tpu_torch.io.sam import (FLAG_MATE1, FLAG_MATE2,
                                       FLAG_PAIRED, FLAG_PROPER, FLAG_REVERSE,
                                       FLAG_UNMAPPED, SamAlignment)
 from bowtie2_tpu_torch.ops.fused import FusedPEResult, fused_pe
-from bowtie2_tpu_torch.pipeline.align import (LEN_BUCKETS, LONG_READ_ITEM,
+from bowtie2_tpu_torch.pipeline.align import (LEN_BUCKETS,
                                               AlignStats, BatchAligner,
                                               CandSet, DPPool, _bucket, _np,
                                               _round_batch, pad_reads)
 from bowtie2_tpu_torch.pipeline.pe import (PE_DISCORD, pe_classify,
                                            rescue_window)
-
-
-def _check_short(records) -> None:
-    if max(int(r.seq.size) for r in records) > LEN_BUCKETS[-1]:
-        raise NotImplementedError(
-            f"reads over {LEN_BUCKETS[-1]} bp need the band-DP kernels, "
-            f"not yet ported: see {LONG_READ_ITEM}")
 
 
 @dataclass
@@ -94,10 +87,14 @@ class PairedAligner(BatchAligner):
 
     def submit(self, pairs) -> Optional[FusedPEBatch]:
         """Enqueue the fused PE device pipeline for one batch of pairs (no
-        host sync)."""
+        host sync). A batch with a mate over the rectangle buckets is
+        returned as ("host", pairs): collect runs it on align_batch_host,
+        whose search is then in long mode (the band DP)."""
         if not pairs:
             return None
-        _check_short(r for p in pairs for r in p)
+        if max(max(p[0].seq.size, p[1].seq.size) for p in pairs) \
+                > LEN_BUCKETS[-1]:
+            return ("host", pairs)
         import time as _time
         _t = _time.time()
         pol = self.pol
@@ -181,6 +178,8 @@ class PairedAligner(BatchAligner):
     def collect(self, h: Optional[FusedPEBatch]) -> List[SamAlignment]:
         if h is None:
             return []
+        if isinstance(h, tuple) and h[0] == "host":
+            return self.align_batch_host(h[1])
         return self._collect_fused(h)
 
     def collect_raw(self, h, suffix: bytes = b""
@@ -192,6 +191,9 @@ class PairedAligner(BatchAligner):
         back to object records rendered to lines."""
         if h is None:
             return []
+        if isinstance(h, tuple) and h[0] == "host":
+            return self._pe_groups_from_objects(
+                len(h[1]), self.align_batch_host(h[1]), suffix)
         from bowtie2_tpu_torch.ops.fused import PE_PAIR_FIELDS
         dec = self._pe_decode(h)
         if dec is None:    # DP budget overflow
@@ -248,7 +250,6 @@ class PairedAligner(BatchAligner):
                          ) -> List[SamAlignment]:
         if not pairs:
             return []
-        _check_short(r for p in pairs for r in p)
         self.metrics.add(host_batches=1)
         pol = self.pol
         B = len(pairs)
@@ -351,6 +352,8 @@ class PairedAligner(BatchAligner):
 
         rpool = None
         rtb = {}
+        if cs.Lmax > LEN_BUCKETS[-1]:
+            rescue_specs = []      # long reads: no rect-kernel mate rescue
         if rescue_specs:
             Lmax = cs.Lmax
             Gr = max((pol.maxins + 32 - Lmax + 1) // 2,

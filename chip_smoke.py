@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (bowtie2_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--reads 50000] [--batch 8192] [--seed 7]
-                          [--pairs 50000] [--mixed 1024]
+                          [--pairs 50000] [--mixed 1024] [--long-reads 1024]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -96,6 +96,28 @@ Phases, each of which exits non-zero when it fails:
 11. The CLI: `align -U` (8,192 reads) and `align -1/-2` (3,125 pairs) on
    the card and with `--device cpu`: the SAM files must be identical
    apart from the @PG line's CL: field.
+12. Long reads, over the E. coli-sim genome: --long-reads reads of 10-25
+   kbp (lengths uniform; 0.5 % substitutions and 0.02 % 1-3-bp indels,
+   half reverse-complemented, quals 25-40, from --seed) through
+   `UnpairedAligner.submit` / `collect_raw` at --sensitive in batches of
+   256 of one length-bucket group (32,768; the sparse 16,384 group merges
+   into it and leads, and a batch pads to its own longest read's bucket,
+   so the first batches run 16,384 rows): reads/s and aligned bases/s on
+   the host's clock, the launch counts set to 0 just before and read just after (the
+   band DP `sw_diag` and band walk `bt_diag` must have launched, no plain
+   version), at least 95 % of the reads at their sampled position; the
+   run again under CUDA events (`long-read device time:`). Then the first
+   64 reads on the card against the CPU, end to end and --local; 32 pairs
+   with one mate of 9-12 kbp against the CPU (the paired-end host path);
+   two reads of about 1 Mbp (the top bucket, substitutions only), each at
+   its sampled position with NM == XM and its walk's score equal to the
+   DP's, with the two kernels' times on them. Each kernel is held to its
+   plain version on the first long call (its plain time taken there, one
+   call) and the --local batch's first call, and on every case of
+   ops/cases.py `diag_cases` / `bt_diag_cases` at scale 1 and 8, and
+   timed as in phase 6 (`chain_ms`: one problem or one walk alone); its
+   bound counts each problem's len rows of BW cells and what they move,
+   and each walk's steps, as the data needs them.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -177,9 +199,10 @@ IDLE_S = 0.05
 # positions in the C call's arguments of the sizes that pick a kernel's
 # launch shape: backtrace (walks, Lmax, W, S), sa_resolve (rows); and of
 # the calls' sizes: fm_seed (seeds, seed length, K), fm_substring (states,
-# pattern columns)
+# pattern columns), sw_diag (problems, Lmax), bt_diag (walks, Lmax, S)
 SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,),
-              "fm_seed": (8, 9, 10), "fm_substring": (6, 7)}
+              "fm_seed": (8, 9, 10), "fm_substring": (6, 7),
+              "sw_diag": (4, 5), "bt_diag": (10, 1, 12)}
 
 # backtrace.cu runs one thread a walk past LANE_WAVES (4) waves of its
 # warp kernel, two blocks of NW (8) walks an SM: past this many walks an SM
@@ -192,7 +215,8 @@ PTXAS_FUNCS = {"fm_sweep": "sweep_kernel", "fm_seed": "seed_kernel",
                "sa_resolve": "resolve_kernel", "sw_rect": ("sw_", ",0>"),
                "sw_rect_origin": ("sw_", ",1>"),
                "sw_rect@rescue": ("sw_block_kernel", ",0>"),
-               "backtrace": "bt_"}
+               "backtrace": "bt_", "sw_diag": "sw_diag_kernel",
+               "bt_diag": "bt_diag_kernel"}
 
 # the paired-end path's DP entries: the origin-tracking DP of fused_pe and
 # the DP of the mate-rescue windows, whose width takes the block kernel
@@ -203,6 +227,24 @@ PE_KERNELS = {
     "sw_rect@rescue": ("bowtie2_tpu_torch/csrc/sw_rect.cu",
                        "bowtie2_tpu/ops/pallas_sw.py:145"),
 }
+
+# the long-read path's kernels (K11): the band DP and the band walk
+LONG_KERNELS = {
+    "sw_diag": ("bowtie2_tpu_torch/csrc/sw_diag.cu",
+                "bowtie2_tpu/ops/sw.py:655"),
+    "bt_diag": ("bowtie2_tpu_torch/csrc/sw_diag.cu",
+                "bowtie2_tpu/ops/sw.py:765"),
+}
+# the long-read corpus over the E. coli-sim genome: read lengths, errors
+# (substitutions, and 1-3-bp indels a base), the batch, the reads held to
+# the CPU, the paired-end check's pairs and mate lengths, and the two reads
+# of about 1 Mbp (substitutions only)
+LONG_LEN = (10_000, 25_000)
+LONG_SUB, LONG_INDEL = 0.005, 0.0002
+LONG_BATCH = 256
+LONG_CPU = 64
+LONG_PAIRS, LONG_MATE = 32, (9_000, 12_000)
+MBP_LENS, MBP_SUB = (1_000_000, 1_040_000), 0.002
 
 # the E. coli-sim corpus (bench.py gen_ecoli_corpus's recipe)
 ECOLI_GENOME = 4_600_000
@@ -273,6 +315,8 @@ class Recorder:
                         half, rows.to(i32).contiguous(), period),
                     lambda half, rows, period=32: rows)
         self._patch_sw(sw)
+        self._patch(sw, "_sw_banded_diag_cuda", "sw_diag", lambda *a: a)
+        self._patch(sw, "_backtrace_diag_cuda", "bt_diag", lambda *a: a)
         self._patch(fused, "_pe_pairing", "pe_pairing", lambda *a: a)
         self._patch(sw, "_backtrace_cuda", "backtrace", lambda *a: a,
                     lambda dirs, sel, *a: sel)
@@ -460,21 +504,27 @@ def max_err(kern, plain, args):
     want = plain(*args)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+    return got, result_err(got, want)
+
+
+def result_err(got, want):
+    """Max abs difference of two results (tuples of tensors, or tensors);
+    a differing shape or arity counts as 2^31."""
     got_t = list(got) if isinstance(got, tuple) else [got]
     want_t = list(want) if isinstance(want, tuple) else [want]
     if len(got_t) != len(want_t):
-        return got, 1 << 31
+        return 1 << 31
     err = 0
     for g, w in zip(got_t, want_t):
         if g is None or w is None:        # an output only one mode has
             if g is not None or w is not None:
-                return got, 1 << 31
+                return 1 << 31
             continue
         if g.shape != w.shape:
-            return got, 1 << 31
+            return 1 << 31
         if g.numel():
             err = max(err, int((g.long() - w.long()).abs().max()))
-    return got, err
+    return err
 
 
 def exactness_sweep(port, kerns, plains, data, genome, device):
@@ -714,6 +764,68 @@ def resolve_work(fm, args):
     return byt, total * OPS_RESOLVE_STEP + B * OPS_RESOLVE_ROW, facts
 
 
+def walk_work(got, sel, rows, lanes):
+    """A walk call's (bytes, operations, share of steps past the walks'
+    ends) from its op bytes: a direction word a step and one for the test
+    that ends each walk; a read code and a penalty a row moved through (M
+    or I), a window code a column moved through (M or D); sel, rows and
+    lanes; the ops and the seven fields written; OPS_BT_STEP operations a
+    step walked."""
+    op = got.ops & 3
+    none = int((op == 3).sum())
+    walked = got.ops.numel() - none
+    moved_rows = int((op < 2).sum())
+    moved_cols = int(((op & 1) == 0).sum())
+    byt = (walked + sel.numel()) * 4 + moved_rows * 8 + moved_cols * 4 + \
+        nbytes(sel, rows, lanes, got.ops) + 7 * sel.numel() * 4
+    return byt, walked * OPS_BT_STEP, round(none / got.ops.numel(), 4)
+
+
+def diag_work(args):
+    """What a band-DP call's data needs: each problem's len rows of BW
+    cells at OPS_DP_CELL operations; its len rows' direction words (Wp
+    words a row), read code, penalty and the one window code that enters
+    the band a row, the first row's BW codes, its length and the best
+    cell's three fields. Returns (bytes, operations, cells)."""
+    reads, _m, lens, _w, _p, band = args
+    BW = 2 * band + 1
+    Wp = (BW + 7) // 8
+    rows = int(lens.long().clamp(0, reads.shape[1]).sum())
+    B = reads.shape[0]
+    byt = rows * (4 * Wp + 12) + B * (4 * BW + 16)
+    return byt, rows * BW * OPS_DP_CELL, rows * BW
+
+
+def mutate(rng, codes, sub, indel=0.0):
+    """codes with substitutions at rate sub and a 1-3-bp insertion or
+    deletion at rate indel a base (none within 100 bp of either end)."""
+    c = codes.astype(np.int8).copy()
+    err = rng.random(c.size) < sub
+    c[err] = (c[err] + rng.integers(1, 4, int(err.sum()))) % 4
+    for _ in range(int(rng.binomial(c.size, indel))):
+        q = int(rng.integers(100, c.size - 100))
+        n = int(rng.integers(1, 4))
+        c = (np.concatenate([c[:q], rng.integers(0, 4, n), c[q:]])
+             if rng.random() < 0.5 else np.delete(c, range(q, q + n)))
+    return c.astype(np.uint8)
+
+
+def long_corpus(genome, rng, n, lens, sub, indel):
+    """n reads of lengths uniform in lens[0]..lens[1] from the genome with
+    mutate()'s errors, half reverse-complemented, quals 25-40. Returns
+    [(name, codes, quals, 0-based start)]."""
+    out = []
+    for i in range(n):
+        L = int(rng.integers(lens[0], lens[1] + 1))
+        p = int(rng.integers(0, genome.size - L))
+        c = mutate(rng, genome[p:p + L], sub, indel)
+        if rng.random() < 0.5:
+            c = (3 - c)[::-1].copy()
+        out.append((f"lr{i}", c, rng.integers(25, 41, c.size).astype(
+            np.uint8), p))
+    return out
+
+
 def ecoli_corpus(n_pairs):
     """bench.py gen_ecoli_corpus's recipe (default_rng(42)): a 4.6-Mbp
     random genome, 100,000 x 100-bp SE reads and 50,000 FR pairs (insert
@@ -881,6 +993,312 @@ def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
 
 
 
+def long_phase(a, m, egenome, edata, pol, lpol, rec):
+    """Phase 12, the long-read path on the card (see the module's
+    docstring). m: the port's modules and classes. Returns the `kernels`
+    entries of sw_diag and bt_diag."""
+    t_phase = time.time()
+    sw, build = m.sw, m._build
+    rng = np.random.default_rng(a.seed)
+    reads = long_corpus(egenome, rng, a.long_reads, LONG_LEN, LONG_SUB,
+                        LONG_INDEL)
+    recs = [m.SeqRecord(name=n, seq=c, qual=q) for n, c, q, _p in reads]
+    start = {n.encode(): p for n, _c, _q, p in reads}
+
+    def run(al, rs):
+        by_bucket = m.bucket_groups([r.seq.size for r in rs])
+        handles = []
+        for bkt in sorted(by_bucket):
+            idxs = by_bucket[bkt]
+            for k in range(0, len(idxs), LONG_BATCH):
+                handles.append(al.submit([rs[j] for j in
+                                          idxs[k:k + LONG_BATCH]]))
+        return [g for h in handles for g in al.collect_raw(h)], \
+            sorted(by_bucket)
+
+    # the full-size run, timed on the host's clock
+    rec.take()
+    al = m.UnpairedAligner(edata, pol)
+    spent = host_timers([(al, n) for n in (
+        "submit", "collect_raw", "_align_batch_host", "_search_candidates",
+        "_run_dp", "_se_effort_filter", "_rank_per_read", "_backtrace_sel",
+        "_emit_aligned", "_groups_from_objects")]
+        + [(m.traj_replay, "run_replays")])
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.time()
+    try:
+        groups, buckets = run(al, recs)
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"long-read path: {type(e).__name__}: {e}")
+    wall = time.time() - t0
+    launches = dict(build.LAUNCHES)
+    plain = dict(build.PLAIN_CALLS)
+    long_args = rec.take()
+    prim = [g[0][1].split(b"\t") for g in groups]
+    aligned = [f for f in prim if not int(f[1]) & 4]
+    at_start = sum(1 for f in aligned if int(f[3]) == start[f[0]] + 1)
+    bases = sum(len(f[9]) for f in aligned)
+    log(f"long-read path: {len(recs)} reads of {LONG_LEN[0]}-{LONG_LEN[1]} "
+        f"bp (length buckets {buckets}, batches of {LONG_BATCH}) in "
+        f"{wall:.2f} s = {len(recs) / wall:.2f} reads/s, "
+        f"{bases / wall:.0f} aligned bases/s; {len(aligned)} aligned, "
+        f"{at_start} at their sampled position; trajectory overrides "
+        f"{al.metrics.counters.get('traj_overridden', 0)}; launches "
+        f"{launches}; plain calls {plain}; wall s in "
+        f"{({k: round(v, 2) for k, v in spent.items()})}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if len(groups) != len(recs):
+        fail(f"{len(groups)} SAM groups for {len(recs)} long reads")
+    missing = [k for k in LONG_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"kernels never launched on the long-read path: {missing}")
+    if plain:
+        fail(f"plain versions ran on the card's long-read path: {plain}")
+    if at_start < 0.95 * len(recs):
+        fail(f"only {at_start} of {len(recs)} long reads aligned at their "
+             f"sampled position")
+
+    # the same run again under CUDA events, apart from the timed window
+    timer = LaunchTimer(build)
+    timer.wrap(m.align_mod, "gather_windows", "gather_windows")
+    t0 = time.time()
+    try:
+        run(m.UnpairedAligner(edata, pol), recs)
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"long-read device-time pass: {type(e).__name__}: {e}")
+    twall = time.time() - t0
+    timer.restore()
+    dev_ms = timer.totals()
+    busy = sum(v[0] for v in dev_ms.values()) / 1e3
+    shapes = {k: {str(sh): [round(v[0], 4), v[1]] for sh, v in
+                  sorted(d.items())}
+              for k, d in timer.totals(by_shape=True).items()
+              if k in LONG_KERNELS}
+    log(f"long-read device time: "
+        f"{json.dumps({k: [round(v[0], 4), v[1]] for k, v in sorted(dev_ms.items())})}"
+        f" (total ms, spans); sum {busy:.4f} s = {100 * busy / wall:.4f} % "
+        f"of the long-read path's {wall:.2f} s wall time; this pass "
+        f"{twall:.2f} s; call shapes {json.dumps(shapes)} (sw_diag by "
+        f"(problems, Lmax), bt_diag by (walks, Lmax, S))")
+
+    # the card's SAM against the CPU's: the first reads, e2e and --local
+    first = recs[:LONG_CPU]
+    for label, policy in (("end to end", pol), ("--local", lpol)):
+        t1 = time.time()
+        card = m.UnpairedAligner(edata, policy)
+        rec.take()
+        cg = card.collect_raw(card.submit(first))
+        torch.cuda.synchronize()
+        if policy is lpol:
+            local_args = rec.take()
+        cpu = m.UnpairedAligner(edata, policy, device="cpu")
+        pg = cpu.collect_raw(cpu.submit(first))
+        nd = sum(1 for x, y in zip(cg, pg) if x != y)
+        log(f"long-read SAM check ({label}): {len(first)} reads, card vs "
+            f"CPU plain versions: {nd} groups differ "
+            f"({time.time() - t1:.1f} s)")
+        if nd or len(cg) != len(pg):
+            fail(f"long reads {label}: card and CPU SAM differ in {nd} reads")
+    for k in LONG_KERNELS:
+        if k not in local_args:
+            fail(f"the --local long-read batch recorded no {k} call")
+
+    # a paired-end batch, one mate of each pair long: the host path
+    t1 = time.time()
+    prng = np.random.default_rng(a.seed + 1)
+    pairs = []
+    for i in range(LONG_PAIRS):
+        L = int(prng.integers(LONG_MATE[0], LONG_MATE[1] + 1))
+        p = int(prng.integers(0, egenome.size - L))
+        lc = mutate(prng, egenome[p:p + L], LONG_SUB)
+        q0 = int(prng.integers(0, L - 100))
+        sc = (prng.integers(0, 4, 100).astype(np.uint8) if i % 8 == 7 else
+              (3 - mutate(prng, egenome[p + q0:p + q0 + 100], LONG_SUB)
+               )[::-1].copy())
+        m1, m2 = (lc, sc) if i % 2 == 0 else (sc, lc)
+        pairs.append(tuple(m.SeqRecord(
+            name=f"lp{i}", seq=x, qual=prng.integers(25, 41, x.size).astype(
+                np.uint8)) for x in (m1, m2)))
+    card = m.PairedAligner(edata, pol)
+    build.reset_counts()
+    cg = card.collect_raw(card.submit(pairs))
+    torch.cuda.synchronize()
+    pe_launch = dict(build.LAUNCHES)
+    cpu = m.PairedAligner(edata, pol, device="cpu")
+    pg = cpu.collect_raw(cpu.submit(pairs))
+    nd = sum(1 for x, y in zip(cg, pg) if x != y)
+    log(f"long-read PE SAM check: {len(pairs)} pairs, one mate of "
+        f"{LONG_MATE[0]}-{LONG_MATE[1]} bp; host-path batches "
+        f"{card.metrics.counters.get('host_batches', 0)}; launches "
+        f"{pe_launch}; card vs CPU plain versions: {nd} groups differ "
+        f"({time.time() - t1:.1f} s)")
+    if nd or len(cg) != len(pg):
+        fail(f"long-read PE: card and CPU SAM differ in {nd} pairs")
+    if not all(pe_launch.get(k, 0) for k in LONG_KERNELS):
+        fail("the long-read PE batch did not run on the band kernels")
+
+    # two reads of about 1 Mbp (the top bucket): aligned at their sampled
+    # positions, NM == XM (substitutions only), the walk's score equal to
+    # the DP's
+    mrng = np.random.default_rng(a.seed + 2)
+    big, big_start = [], {}
+    for i, L in enumerate(MBP_LENS):
+        p = int(mrng.integers(0, egenome.size - L))
+        c = mutate(mrng, egenome[p:p + L], MBP_SUB)
+        if i % 2:
+            c = (3 - c)[::-1].copy()
+        big.append(m.SeqRecord(name=f"mbp{i}", seq=c,
+                               qual=np.full(c.size, 35, np.uint8)))
+        big_start[f"mbp{i}"] = p
+    mal = m.UnpairedAligner(edata, pol)
+    walked = []
+    bt_sel = mal._backtrace_sel
+
+    def keep_walks(pool, sel):
+        out = bt_sel(pool, sel)
+        walked.extend((int(pool.scores[k]), v[1]["score_check"])
+                      for k, v in out.items())
+        return out
+    mal._backtrace_sel = keep_walks
+    rec.take()
+    t1 = time.time()
+    try:
+        out = mal.collect(mal.submit(big))
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"1-Mbp reads: {type(e).__name__}: {e}")
+    mwall = time.time() - t1
+    margs = rec.take()
+    for r in out:
+        o = {t: v for t, _y, v in r.opts}
+        if r.flag & 4 or r.pos != big_start[r.qname] + 1 or \
+                o.get("NM") != o.get("XM"):
+            fail(f"1-Mbp read {r.qname}: flag {r.flag} pos {r.pos} (want "
+                 f"{big_start[r.qname] + 1}) NM {o.get('NM')} XM "
+                 f"{o.get('XM')}")
+    if not walked or any(sc != chk for sc, chk in walked):
+        fail(f"1-Mbp reads: walk scores differ from the DP's: {walked}")
+    if any(k not in margs for k in LONG_KERNELS):
+        fail("the 1-Mbp reads did not run on the band kernels")
+    mb_ms = {k: time_cuda(lambda k=k: getattr(rec, "orig_" + k)(*margs[k]),
+                          2) for k in LONG_KERNELS}
+    log(f"1-Mbp reads: {[r.seq.size for r in big]} bp in {mwall:.2f} s on "
+        f"the host's clock; {len(out)} records at their sampled positions, "
+        f"NM == XM; walks (DP score, walk score) {walked}; sw_diag "
+        f"{mb_ms['sw_diag']:.3f} ms over {margs['sw_diag'][0].shape[0]} "
+        f"problems of {margs['sw_diag'][0].shape[1]} rows, bt_diag "
+        f"{mb_ms['bt_diag']:.3f} ms over "
+        f"{margs['bt_diag'][1].shape[0]} walks of {margs['bt_diag'][-1]} "
+        f"steps")
+
+    # each kernel against its plain version: the first long call (timed
+    # there, each plain call once), the --local batch's first call, and
+    # every diag_cases / bt_diag_cases case at scale 1 and 8
+    dev = torch.device("cuda")
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    plains = {"sw_diag": sw._sw_banded_diag_plain,
+              "bt_diag": sw._backtrace_diag_plain}
+    kerns = {k: getattr(rec, "orig_" + k) for k in LONG_KERNELS}
+    sweep = {k: [] for k in LONG_KERNELS}
+    t1 = time.time()
+    for seed, scale in ((0, 1), (1, 8)):
+        for c in m.cases.diag_cases(seed=seed, scale=scale):
+            args = sw.diag_args(put(c.reads), put(c.quals), put(c.lens),
+                                put(c.wins), sw.SWParams(**c.params()),
+                                c.band)
+            sweep["sw_diag"].append((f"{c.name}@x{scale}", max_err(
+                kerns["sw_diag"], plains["sw_diag"], args)[1]))
+
+        def dp(c):
+            r = plains["sw_diag"](*sw.diag_args(
+                put(c.reads), put(c.quals), put(c.lens), put(c.wins),
+                sw.SWParams(**c.params()), c.band))
+            return r.row.cpu().numpy(), r.lane.cpu().numpy(), \
+                r.dirs.cpu().numpy()
+        for c in m.cases.bt_diag_cases(dp, seed=seed, scale=scale):
+            p = sw.SWParams(**c.params())
+            args = (put(c.dirs), put(c.sel), put(c.rows), put(c.lanes),
+                    put(c.reads), sw.mm_penalty_from_qual(put(c.quals), p),
+                    put(c.wins), p, c.band,
+                    sw.bt_steps(c.dirs.shape[0], 2 * c.band + 1, c.local))
+            sweep["bt_diag"].append((f"{c.name}@x{scale}", max_err(
+                kerns["bt_diag"], plains["bt_diag"], args)[1]))
+    for name, errs in sweep.items():
+        bad = [(c, e) for c, e in errs if e]
+        log(f"exactness sweep {name}: {len(errs)} cases, "
+            f"{len(errs) - len(bad)} equal to the plain version, max abs "
+            f"err {max(e for _, e in errs)}" + (f"; differ: {bad}" if bad
+                                                 else "")
+            + f" ({time.time() - t1:.1f} s)")
+
+    def first(args, n):
+        return tuple(x[:n].contiguous() if isinstance(x, torch.Tensor)
+                     else x for x in args)
+    entries = []
+    for name, (src, repl) in LONG_KERNELS.items():
+        kern, plain_fn = kerns[name], plains[name]
+        args = long_args[name]
+        got = kern(*args)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = plain_fn(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        err = result_err(got, want)
+        del want
+        lerr = max_err(kern, plain_fn, local_args[name])[1]
+        sweep_err = max((e for _, e in sweep[name]), default=0)
+        ms = time_cuda(lambda: kern(*args), a.reps)
+        idle_ms = time_after_idle(lambda: kern(*args), 5)
+        if name == "sw_diag":
+            chain = first(args, 1)
+            byt, ops, cells = diag_work(args)
+            extra = dict(cells=cells, band=args[5])
+        else:
+            chain = (args[0],) + first(args[1:], 1)
+            byt, ops, tail = walk_work(got, *args[1:4])
+            extra = dict(tail_share=tail, steps=args[9])
+        chain_ms = time_cuda(lambda: kern(*chain), a.reps)
+        t_bytes = byt / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_OPS_S * 1e3
+        total = dev_ms.get(name, [0.0, 0])
+        e = max(err, lerr, sweep_err)
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=repl,
+            launches=launches.get(name, 0), max_abs_err=e, equal=e == 0,
+            ms=round(ms, 4), idle_ms=round(idle_ms, 4),
+            chain_ms=round(chain_ms, 4), plain_ms=round(plain_ms, 3),
+            bound_ms=round(max(t_bytes, t_ops), 5),
+            bytes_ms=round(t_bytes, 5), ops_ms=round(t_ops, 5),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, total_ms=round(total[0], 4),
+            total_spans=total[1], ptxas=ptxas_of(build, name, "sw_diag"),
+            shape=[list(t.shape) for t in args
+                   if isinstance(t, torch.Tensor)][:2],
+            sweep_cases=len(sweep[name]))
+        entry.update(extra)
+        entries.append(entry)
+        log(f"kernel {name}: equal={e == 0} max_abs_err={err} (local "
+            f"{lerr}, sweep {sweep_err} over {len(sweep[name])} cases) "
+            f"ms={ms:.4f} idle_ms={idle_ms:.4f} chain_ms={chain_ms:.4f} "
+            f"plain_ms={plain_ms:.3f} bound_ms={max(t_bytes, t_ops):.5f} "
+            f"(bytes {t_bytes:.5f}, operations {t_ops:.5f}) "
+            f"total_ms={total[0]:.4f} over {total[1]} launches; "
+            + "".join(f" {k}={v}" for k, v in extra.items())
+            + f" shape {entry['shape']} ptxas {entry['ptxas']}")
+    log(f"long-read phase: {time.time() - t_phase:.1f} s")
+    return entries
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=50_000)
@@ -892,6 +1310,8 @@ def main() -> None:
                     help="E. coli-sim pairs of the paired-end path")
     ap.add_argument("--mixed", type=int, default=1024,
                     help="pairs of the mixed-outcome batch")
+    ap.add_argument("--long-reads", type=int, default=1024,
+                    help="reads of 10-25 kbp on the long-read path")
     a = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1198,23 +1618,8 @@ def main() -> None:
             # SM at the maximum SM clock
             issue_ms = ops / (n_sm * 128 * clock_hz) * 1e3
         else:   # backtrace
-            dirs, sel, rows, lanes, reads_, mmpen, refwins, _p, S = args
-            op = got.ops & 3
-            none = int((op == 3).sum())
-            walked = got.ops.numel() - none
-            # what the walks touch: a direction word a step and one for
-            # the test that ends each walk; a read code and a penalty a
-            # row moved through (M or I), a window code a column moved
-            # through (M or D); sel, rows and lanes; the ops and the seven
-            # fields written
-            moved_rows = int((op < 2).sum())
-            moved_cols = int(((op & 1) == 0).sum())
-            byt = (walked + sel.numel()) * 4 + moved_rows * 8 + \
-                moved_cols * 4 + nbytes(sel, rows, lanes, got.ops) + \
-                7 * sel.numel() * 4
-            ops = walked * OPS_BT_STEP
-            extra = dict(tail_share=round(none / got.ops.numel(), 4),
-                         steps=S)
+            byt, ops, tail = walk_work(got, *args[1:4])
+            extra = dict(tail_share=tail, steps=args[8])
         t_bytes = byt / PEAK_BYTES_S * 1e3
         t_ops = ops / PEAK_OPS_S * 1e3
         sweep_err = max((e for _, e in sweep_errs.get(name, [])), default=0)
@@ -1560,6 +1965,16 @@ def main() -> None:
         if nd or len(outs[0]) != len(outs[1]):
             fail(f"CLI align {label}: card and CPU SAM differ")
     tmp.cleanup()
+
+    # ---------------- phase 12: long reads ----------------
+    port_mods = types.SimpleNamespace(
+        sw=sw, _build=_build, cases=cases, align_mod=align_mod,
+        traj_replay=traj_replay, SeqRecord=SeqRecord,
+        UnpairedAligner=UnpairedAligner,
+        PairedAligner=PairedAligner, bucket_groups=bucket_groups)
+    long_entries = long_phase(a, port_mods, egenome, edata, pol, lpol, rec)
+    kernels_out.extend(long_entries)
+    ok &= all(e["equal"] for e in long_entries)
 
     print(json.dumps({"kernels": kernels_out}), flush=True)
     if not ok:

@@ -7,7 +7,6 @@ Two corpora (tests/test_torch_corpus.py): one that stays inside the fused
 pipeline's DP budget, and a denser one whose batch overflows it and takes
 the host phase-by-phase path in both packages."""
 
-import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -103,15 +102,6 @@ def test_collect_objects_match_jax(fused_corpus):
     (_jal, _js, jout), (_pal, _ps, pout) = _both(data, reads[:300], False,
                                                  collect="collect")
     assert [r.line() for r in jout] == [r.line() for r in pout]
-
-
-def test_long_reads_raise_naming_the_roadmap(fused_corpus):
-    data, _reads = fused_corpus
-    pal = PAligner(data, ppolicy("sensitive"), device="cpu")
-    long = PRec(name="long", seq=np.zeros(9000, np.uint8),
-                qual=np.full(9000, 30, np.uint8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pal.submit([long])
 
 
 @pytest.mark.parametrize("overrides", [
