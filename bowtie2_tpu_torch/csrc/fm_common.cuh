@@ -15,9 +15,21 @@
 // Semantics match the JAX op exactly, including its out-of-range block:
 // jnp.take fills rows past the last block with 0xFFFFFFFF, which a query at
 // i = n + 1 reaches when n + 1 is a multiple of 128.
+//
+// Row type R: int in the small mode (a joined text below 2^31 bp), uint32_t
+// in the large mode (up to 2^32 - 1 rows, the JAX package's uint32 row
+// space). Adds and subtracts are the same bits in both (mod 2^32, as the
+// JAX ops wrap); what the type changes is every compare (i > z_off, the
+// empty-range tests of the searches), the shift that finds a row's block,
+// and the checkpoint of a row past the last block, read as -1 in the
+// row type (0xFFFFFFFF). RowOut<R> is the type a kernel writes rows in:
+// int, or int64 holding the uint32 value (the port's tensor API).
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
+
+template <typename R> struct RowOut { using T = int; };
+template <> struct RowOut<uint32_t> { using T = long long; };
 
 struct FmRow {
     uint32_t w[8];
@@ -64,14 +76,13 @@ __device__ __forceinline__ int fm_count_lean(const FmRow& r, int c, int pos) {
 // return both results. Rows past the last block read as 0xFFFFFFFF. LEAN
 // counts with fm_count_lean (the half-read search), else with
 // fm_count_below (the sweep).
-template <bool LEAN = false>
+template <bool LEAN = false, typename R = int>
 __device__ __forceinline__ void fm_lf2_pair(const uint32_t* __restrict__ fm,
-                                            int nblocks, int fchr_c,
-                                            int z_off, int top, int bot,
-                                            int c, int j, int& ntop,
-                                            int& nbot) {
-    const int i = j == 0 ? top : bot;
-    const int block = i >> 7;
+                                            int nblocks, R fchr_c, R z_off,
+                                            R top, R bot, int c, int j,
+                                            R& ntop, R& nbot) {
+    const R i = j == 0 ? top : bot;
+    const int block = (int)(i >> 7);
     // load a real row always and fill after it: no branch around the load
     const uint32_t* row = fm + (size_t)min(block, nblocks - 1) * 12;
     const uint4 a = __ldg(reinterpret_cast<const uint4*>(row));
@@ -79,16 +90,17 @@ __device__ __forceinline__ void fm_lf2_pair(const uint32_t* __restrict__ fm,
     FmRow r;
     r.w[0] = a.x; r.w[1] = a.y; r.w[2] = a.z; r.w[3] = a.w;
     r.w[4] = b.x; r.w[5] = b.y; r.w[6] = b.z; r.w[7] = b.w;
-    int base = (int)__ldg(row + 8 + c);
+    R base = (R)__ldg(row + 8 + c);
     if (block >= nblocks) {
         #pragma unroll
         for (int k = 0; k < 8; ++k) r.w[k] = 0xFFFFFFFFu;
-        base = -1;
+        base = (R)-1;
     }
-    const int cnt = (LEAN ? fm_count_lean(r, c, i & 127)
-                          : fm_count_below(r, c, i & 127)) + base + fchr_c
-                    - ((c == 0 && i > z_off) ? 1 : 0);
-    const int other = __shfl_xor_sync(0xFFFFFFFFu, cnt, 1);
+    const int pos = (int)(i & 127);
+    const R cnt = (R)(LEAN ? fm_count_lean(r, c, pos)
+                           : fm_count_below(r, c, pos)) + base + fchr_c
+                  - (R)((c == 0 && i > z_off) ? 1 : 0);
+    const R other = __shfl_xor_sync(0xFFFFFFFFu, cnt, 1);
     ntop = j == 0 ? cnt : other;
     nbot = j == 0 ? other : cnt;
 }
@@ -99,11 +111,12 @@ __device__ __forceinline__ void fm_lf2_pair(const uint32_t* __restrict__ fm,
 // a position past 64 (up to it their crumbs count nothing). A row past the
 // last block is reached only at i = n + 1 = 128 nblocks, position 0, where
 // the words count nothing: only its checkpoint reads as 0xFFFFFFFF.
+template <typename R>
 __device__ __forceinline__ void fm_lf_range(const uint32_t* __restrict__ fm,
-                                            int nblocks, int fchr_c,
-                                            int z_off, int c, int& top,
-                                            int& bot) {
-    const int bt = top >> 7, bb = bot >> 7, pt = top & 127, pb = bot & 127;
+                                            int nblocks, R fchr_c, R z_off,
+                                            int c, R& top, R& bot) {
+    const int bt = (int)(top >> 7), bb = (int)(bot >> 7);
+    const int pt = (int)(top & 127), pb = (int)(bot & 127);
     const bool same = bt == bb;
     const uint4* rt =
         reinterpret_cast<const uint4*>(fm + (size_t)min(bt, nblocks - 1) * 12);
@@ -111,24 +124,24 @@ __device__ __forceinline__ void fm_lf_range(const uint32_t* __restrict__ fm,
         reinterpret_cast<const uint4*>(fm + (size_t)min(bb, nblocks - 1) * 12);
     uint4 a0 = __ldg(rt), a1 = make_uint4(0, 0, 0, 0);
     if (max(pt, same ? pb : 0) > 64) a1 = __ldg(rt + 1);
-    int cpt = (int)__ldg(reinterpret_cast<const uint32_t*>(rt) + 8 + c);
+    R cpt = (R)__ldg(reinterpret_cast<const uint32_t*>(rt) + 8 + c);
     uint4 b0 = a0, b1 = a1;
-    int cpb = cpt;
+    R cpb = cpt;
     if (!same) {
         b0 = __ldg(rb);
         if (pb > 64) b1 = __ldg(rb + 1);
-        cpb = (int)__ldg(reinterpret_cast<const uint32_t*>(rb) + 8 + c);
+        cpb = (R)__ldg(reinterpret_cast<const uint32_t*>(rb) + 8 + c);
     }
-    if (bt >= nblocks) cpt = -1;
-    if (bb >= nblocks) cpb = -1;
+    if (bt >= nblocks) cpt = (R)-1;
+    if (bb >= nblocks) cpb = (R)-1;
     FmRow r, s;
     r.w[0] = a0.x; r.w[1] = a0.y; r.w[2] = a0.z; r.w[3] = a0.w;
     r.w[4] = a1.x; r.w[5] = a1.y; r.w[6] = a1.z; r.w[7] = a1.w;
     s.w[0] = b0.x; s.w[1] = b0.y; s.w[2] = b0.z; s.w[3] = b0.w;
     s.w[4] = b1.x; s.w[5] = b1.y; s.w[6] = b1.z; s.w[7] = b1.w;
-    const int nt = fchr_c + cpt + fm_count_lean(r, c, pt)
-                   - ((c == 0 && top > z_off) ? 1 : 0);
-    bot = fchr_c + cpb + fm_count_lean(s, c, pb)
-          - ((c == 0 && bot > z_off) ? 1 : 0);
+    const R nt = fchr_c + cpt + (R)fm_count_lean(r, c, pt)
+                 - (R)((c == 0 && top > z_off) ? 1 : 0);
+    bot = fchr_c + cpb + (R)fm_count_lean(s, c, pb)
+          - (R)((c == 0 && bot > z_off) ? 1 : 0);
     top = nt;
 }

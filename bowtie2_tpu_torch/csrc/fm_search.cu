@@ -48,6 +48,11 @@
 // the ftab has narrowed the range, and both rows' loads together otherwise
 // (fm_lf_range). A dead seed stops. At most 64 registers keep the main
 // path's 1,024 blocks in one wave.
+//
+// Each kernel is a template on the row type R (fm_common.cuh): int for the
+// small mode (fm_sweep, fm_substring, fm_seed) and uint32_t for the large
+// mode's uint32 row space (the `_u32` entries), which writes its rows as
+// int64. Launch shapes, staging and shared memory are the same in both.
 #include "fm_common.cuh"
 
 namespace {
@@ -58,18 +63,21 @@ constexpr int SWEEP_CHUNK = 128;            // pattern columns staged at once
 // words per staged pattern: +1 so the states of a warp hit distinct banks
 constexpr int SWEEP_STRIDE = SWEEP_CHUNK / 4 + 1;
 
+template <typename R>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 sweep_kernel(const uint32_t* __restrict__ fm, int nblocks,
-             const int* __restrict__ fchr, int z_off, int nrows,
-             const int* __restrict__ rr, int B, int L, int* top_out,
-             int* bot_out, int* nedit_out) {
+             const R* __restrict__ fchr, R z_off, R nrows,
+             const int* __restrict__ rr, int B, int L,
+             typename RowOut<R>::T* top_out, typename RowOut<R>::T* bot_out,
+             int* nedit_out) {
     __shared__ uint32_t pat[SWEEP_STATES * SWEEP_STRIDE];
     const int t = threadIdx.x;
     const int g = t >> 1, j = t & 1;
     const int b0 = blockIdx.x * SWEEP_STATES;
-    const int f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
-              f3 = __ldg(fchr + 3);
-    int top = 0, bot = nrows, nedit = 0;
+    const R f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
+            f3 = __ldg(fchr + 3);
+    R top = 0, bot = nrows;
+    int nedit = 0;
     for (int p0 = 0; p0 < L; p0 += SWEEP_CHUNK) {
         const int n = min(SWEEP_CHUNK, L - p0);
         __syncthreads();                     // the previous chunk is used
@@ -94,11 +102,11 @@ sweep_kernel(const uint32_t* __restrict__ fm, int nblocks,
                 // all lanes of the warp take part in the shuffles, or none
                 if (__any_sync(0xFFFFFFFFu, c < 4)) {
                     const int cc = c < 4 ? c : 0;
-                    const int fc = cc == 0 ? f0 : (cc == 1 ? f1
-                                                 : (cc == 2 ? f2 : f3));
-                    int nt, nb;
-                    fm_lf2_pair(fm, nblocks, fc, z_off, top, bot, cc, j, nt,
-                                nb);
+                    const R fc = cc == 0 ? f0 : (cc == 1 ? f1
+                                               : (cc == 2 ? f2 : f3));
+                    R nt, nb;
+                    fm_lf2_pair<false, R>(fm, nblocks, fc, z_off, top, bot,
+                                          cc, j, nt, nb);
                     if (c < 4) {
                         const bool empty = nt >= nb;
                         top = empty ? 0 : nt;
@@ -178,20 +186,22 @@ __device__ __forceinline__ uint32_t codes4(const uint32_t* pat, int off) {
     return __funnelshift_r(w[0], w[1], 8 * (off & 3));
 }
 
+template <typename R>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
-                 const int* __restrict__ fchr, int z_off, int nrows,
-                 const int* __restrict__ rr, int B, int L, int* top_out,
-                 int* bot_out) {
+                 const R* __restrict__ fchr, R z_off, R nrows,
+                 const int* __restrict__ rr, int B, int L,
+                 typename RowOut<R>::T* top_out,
+                 typename RowOut<R>::T* bot_out) {
     // + 2 words: codes4 reads a word past a pattern's last code
     __shared__ uint32_t pat[SWEEP_STATES * SWEEP_CHUNK / 4 + 2];
     const int t = threadIdx.x;
     const int g = t >> 1, j = t & 1;
     const int b0 = blockIdx.x * SWEEP_STATES, b = b0 + g;
-    const int f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
-              f3 = __ldg(fchr + 3);
+    const R f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
+            f3 = __ldg(fchr + 3);
     // a state past the batch starts dead and never steps
-    int top = b < B ? 0 : 1, bot = b < B ? nrows : 0;
+    R top = b < B ? 0 : 1, bot = b < B ? nrows : 0;
     for (int p0 = 0; p0 < L; p0 += SWEEP_CHUNK) {
         const int n = min(SWEEP_CHUNK, L - p0);
         __syncthreads();                     // the previous chunk is used
@@ -207,14 +217,14 @@ substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
                 // all lanes of the warp take part in the shuffles, or none
                 if (__any_sync(0xFFFFFFFFu, step)) {
                     const int cc = c < 4 ? c : 0;
-                    const int fc = cc == 0 ? f0 : (cc == 1 ? f1
-                                                 : (cc == 2 ? f2 : f3));
+                    const R fc = cc == 0 ? f0 : (cc == 1 ? f1
+                                               : (cc == 2 ? f2 : f3));
                     // a state that does not step loads row 0 (a dead
                     // range's bot may be -1)
-                    int nt, nb;
-                    fm_lf2_pair<true>(fm, nblocks, fc, z_off,
-                                      step ? top : 0, step ? bot : 0, cc, j,
-                                      nt, nb);
+                    R nt, nb;
+                    fm_lf2_pair<true, R>(fm, nblocks, fc, z_off,
+                                         step ? top : (R)0,
+                                         step ? bot : (R)0, cc, j, nt, nb);
                     if (step) {
                         top = nt;
                         bot = nb;
@@ -239,20 +249,21 @@ constexpr int SEED_CHUNK = 32;              // codes a 64-bit word holds
 // path's 1,024 blocks of seeds run in one wave on 132 SMs
 constexpr int SEED_MIN_BLOCKS = 8;
 
+template <typename R>
 __global__ void __launch_bounds__(SEED_THREADS, SEED_MIN_BLOCKS)
 seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
-            const int* __restrict__ fchr, int z_off, int nrows,
-            const int* __restrict__ ftab, const int* __restrict__ seeds,
+            const R* __restrict__ fchr, R z_off, R nrows,
+            const R* __restrict__ ftab, const int* __restrict__ seeds,
             const unsigned char* __restrict__ valid, int B, int L, int K,
-            int* top_out, int* bot_out) {
+            typename RowOut<R>::T* top_out, typename RowOut<R>::T* bot_out) {
     // + 2 words: codes4 reads a word past a seed's last code
     __shared__ uint32_t pat[SEED_THREADS * SEED_CHUNK / 4 + 2];
     const int t = threadIdx.x;
     const int b0 = blockIdx.x * SEED_THREADS, b = b0 + t;
-    const int f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
-              f3 = __ldg(fchr + 3);
+    const R f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
+            f3 = __ldg(fchr + 3);
     const bool ok0 = b < B && valid[b] != 0;
-    int top = 0, bot = ok0 ? nrows : 0;
+    R top = 0, bot = ok0 ? nrows : (R)0;
     bool live = b < B;
     // chunks of up to 32 columns from the right end: the LF steps run right
     // to left, and the ftab tail (K <= 32, checked at the launch) lies in
@@ -300,8 +311,8 @@ seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
                 live = false;
             } else {
                 const int c = (int)(w >> (2 * q)) & 3;
-                const int fc = c == 0 ? f0 : (c == 1 ? f1 : (c == 2 ? f2 : f3));
-                fm_lf_range(fm, nblocks, fc, z_off, c, top, bot);
+                const R fc = c == 0 ? f0 : (c == 1 ? f1 : (c == 2 ? f2 : f3));
+                fm_lf_range<R>(fm, nblocks, fc, z_off, c, top, bot);
             }
         }
     }
@@ -311,42 +322,95 @@ seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
     }
 }
 
+// the launches, one per kernel and row type
+template <typename R>
+int launch_sweep(const void* fm, int nblocks, const void* fchr, R z_off,
+                 R nrows, const void* rr, int B, int L, void* top, void* bot,
+                 void* nedit, void* stream) {
+    using O = typename RowOut<R>::T;
+    if (B > 0)
+        sweep_kernel<R><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
+                          SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)fm, nblocks, (const R*)fchr, z_off, nrows,
+            (const int*)rr, B, L, (O*)top, (O*)bot, (int*)nedit);
+    return (int)cudaGetLastError();
+}
+
+template <typename R>
+int launch_substring(const void* fm, int nblocks, const void* fchr, R z_off,
+                     R nrows, const void* rr, int B, int L, void* top,
+                     void* bot, void* stream) {
+    using O = typename RowOut<R>::T;
+    if (B > 0)
+        substring_kernel<R><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
+                              SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)fm, nblocks, (const R*)fchr, z_off, nrows,
+            (const int*)rr, B, L, (O*)top, (O*)bot);
+    return (int)cudaGetLastError();
+}
+
+template <typename R>
+int launch_seed(const void* fm, int nblocks, const void* fchr, R z_off,
+                R nrows, const void* ftab, const void* seeds,
+                const void* valid, int B, int L, int K, void* top, void* bot,
+                void* stream) {
+    using O = typename RowOut<R>::T;
+    // a ftab key of more than 32 codes would not lie in the first chunk
+    // (and no ftab has one: keys are 4^K entries with K <= 15)
+    if (K > SEED_CHUNK && K <= L) return (int)cudaErrorInvalidValue;
+    if (B > 0)
+        seed_kernel<R><<<(B + SEED_THREADS - 1) / SEED_THREADS, SEED_THREADS,
+                         0, (cudaStream_t)stream>>>(
+            (const uint32_t*)fm, nblocks, (const R*)fchr, z_off, nrows,
+            (const R*)ftab, (const int*)seeds, (const unsigned char*)valid,
+            B, L, K, (O*)top, (O*)bot);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fm_sweep(const void* fm, int nblocks, const void* fchr,
                         int z_off, int nrows, const void* rr, int B, int L,
                         void* top, void* bot, void* nedit, void* stream) {
-    if (B > 0)
-        sweep_kernel<<<(B + SWEEP_STATES - 1) / SWEEP_STATES, SWEEP_THREADS,
-                       0, (cudaStream_t)stream>>>(
-            (const uint32_t*)fm, nblocks, (const int*)fchr, z_off, nrows,
-            (const int*)rr, B, L, (int*)top, (int*)bot, (int*)nedit);
-    return (int)cudaGetLastError();
+    return launch_sweep<int>(fm, nblocks, fchr, z_off, nrows, rr, B, L, top,
+                             bot, nedit, stream);
+}
+
+extern "C" int fm_sweep_u32(const void* fm, int nblocks, const void* fchr,
+                            unsigned z_off, unsigned nrows, const void* rr,
+                            int B, int L, void* top, void* bot, void* nedit,
+                            void* stream) {
+    return launch_sweep<uint32_t>(fm, nblocks, fchr, z_off, nrows, rr, B, L,
+                                  top, bot, nedit, stream);
 }
 
 extern "C" int fm_substring(const void* fm, int nblocks, const void* fchr,
                             int z_off, int nrows, const void* rr, int B, int L,
                             void* top, void* bot, void* stream) {
-    if (B > 0)
-        substring_kernel<<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
-                           SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)fm, nblocks, (const int*)fchr, z_off, nrows,
-            (const int*)rr, B, L, (int*)top, (int*)bot);
-    return (int)cudaGetLastError();
+    return launch_substring<int>(fm, nblocks, fchr, z_off, nrows, rr, B, L,
+                                 top, bot, stream);
+}
+
+extern "C" int fm_substring_u32(const void* fm, int nblocks, const void* fchr,
+                                unsigned z_off, unsigned nrows,
+                                const void* rr, int B, int L, void* top,
+                                void* bot, void* stream) {
+    return launch_substring<uint32_t>(fm, nblocks, fchr, z_off, nrows, rr, B,
+                                      L, top, bot, stream);
 }
 
 extern "C" int fm_seed(const void* fm, int nblocks, const void* fchr,
                        int z_off, int nrows, const void* ftab,
                        const void* seeds, const void* valid, int B, int L,
                        int K, void* top, void* bot, void* stream) {
-    // a ftab key of more than 32 codes would not lie in the first chunk
-    // (and no ftab has one: keys are 4^K entries with K <= 15)
-    if (K > SEED_CHUNK && K <= L) return (int)cudaErrorInvalidValue;
-    if (B > 0)
-        seed_kernel<<<(B + SEED_THREADS - 1) / SEED_THREADS, SEED_THREADS, 0,
-                      (cudaStream_t)stream>>>(
-            (const uint32_t*)fm, nblocks, (const int*)fchr, z_off, nrows,
-            (const int*)ftab, (const int*)seeds, (const unsigned char*)valid,
-            B, L, K, (int*)top, (int*)bot);
-    return (int)cudaGetLastError();
+    return launch_seed<int>(fm, nblocks, fchr, z_off, nrows, ftab, seeds,
+                            valid, B, L, K, top, bot, stream);
+}
+
+extern "C" int fm_seed_u32(const void* fm, int nblocks, const void* fchr,
+                           unsigned z_off, unsigned nrows, const void* ftab,
+                           const void* seeds, const void* valid, int B,
+                           int L, int K, void* top, void* bot, void* stream) {
+    return launch_seed<uint32_t>(fm, nblocks, fchr, z_off, nrows, ftab,
+                                 seeds, valid, B, L, K, top, bot, stream);
 }

@@ -19,6 +19,14 @@
 // mark word and the whole FM row are issued together, one latency a step
 // (the FM row of the step that finds the mark is loaded for nothing), and
 // a step has no branch but its exit test.
+//
+// A template on the row type R (fm_common.cuh): int in the small mode
+// (sa_resolve), uint32_t in the large mode (sa_resolve_u32: rows are read
+// and offsets written as int64 holding uint32 values, offs[rank] + steps
+// wraps mod 2^32 as the JAX op's uint32 add does). The mark-rank
+// checkpoint stays int in both modes, as the builder and the JAX op keep
+// it (int32: up to 2^31 - 1 marked rows, any table at the default
+// off_rate).
 #include "fm_common.cuh"
 
 namespace {
@@ -26,15 +34,16 @@ namespace {
 constexpr int THREADS = 128;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-__device__ __forceinline__ int pick4(int c, int a0, int a1, int a2, int a3) {
+template <typename T>
+__device__ __forceinline__ T pick4(int c, T a0, T a1, T a2, T a3) {
     return c == 0 ? a0 : (c == 1 ? a1 : (c == 2 ? a2 : a3));
 }
 
 // LF(row, code at pos), with every select branch-free
-__device__ __forceinline__ int lf_step(const uint4& a, const uint4& b,
-                                       const uint4& cp, int row, int pos,
-                                       int z_off, int f0, int f1, int f2,
-                                       int f3) {
+template <typename R>
+__device__ __forceinline__ R lf_step(const uint4& a, const uint4& b,
+                                     const uint4& cp, R row, int pos,
+                                     R z_off, R f0, R f1, R f2, R f3) {
     const uint4 v = (pos & 64) ? b : a;
     const uint32_t word = (pos & 32) ? ((pos & 16) ? v.w : v.z)
                                      : ((pos & 16) ? v.y : v.x);
@@ -43,22 +52,26 @@ __device__ __forceinline__ int lf_step(const uint4& a, const uint4& b,
     r.w[0] = a.x; r.w[1] = a.y; r.w[2] = a.z; r.w[3] = a.w;
     r.w[4] = b.x; r.w[5] = b.y; r.w[6] = b.z; r.w[7] = b.w;
     return pick4(c, f0, f1, f2, f3)
-           + pick4(c, (int)cp.x, (int)cp.y, (int)cp.z, (int)cp.w)
-           + fm_count_below(r, c, pos) - ((c == 0 && row > z_off) ? 1 : 0);
+           + pick4(c, (R)cp.x, (R)cp.y, (R)cp.z, (R)cp.w)
+           + (R)fm_count_below(r, c, pos)
+           - (R)((c == 0 && row > z_off) ? 1 : 0);
 }
 
+template <typename R>
 __global__ void __launch_bounds__(THREADS)
 resolve_kernel(const uint32_t* __restrict__ fm, int nblocks,
-               const int* __restrict__ fchr, int z_off,
+               const R* __restrict__ fchr, R z_off,
                const uint32_t* __restrict__ marks,
-               const int* __restrict__ offs, int n_offs,
-               const int* __restrict__ rows, int B, int period, int* out) {
+               const R* __restrict__ offs, int n_offs,
+               const typename RowOut<R>::T* __restrict__ rows, int B,
+               int period, typename RowOut<R>::T* out) {
     const int t = blockIdx.x * THREADS + threadIdx.x;
     if (t >= B) return;
-    const int f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
-              f3 = __ldg(fchr + 3);
-    int row = __ldg(rows + t), steps = 0;
-    int block = min(row >> 7, nblocks - 1), pos = row & 127;
+    const R f0 = __ldg(fchr), f1 = __ldg(fchr + 1), f2 = __ldg(fchr + 2),
+            f3 = __ldg(fchr + 3);
+    R row = (R)__ldg(rows + t);
+    int steps = 0;
+    int block = min((int)(row >> 7), nblocks - 1), pos = (int)(row & 127);
     for (;;) {
         const uint32_t mw = __ldg(marks + (size_t)block * 5 + (pos >> 5));
         // the FM row: words 0-3, words 4-7 and the checkpoints
@@ -68,10 +81,10 @@ resolve_kernel(const uint32_t* __restrict__ fm, int nblocks,
         // the loads stay above the test that would use neither
         asm volatile("" : "+r"(steps) : : "memory");
         if (((mw >> (pos & 31)) & 1u) || steps == period) break;
-        row = lf_step(a, b, cp, row, pos, z_off, f0, f1, f2, f3);
+        row = lf_step<R>(a, b, cp, row, pos, z_off, f0, f1, f2, f3);
         ++steps;
-        block = min(row >> 7, nblocks - 1);
-        pos = row & 127;
+        block = min((int)(row >> 7), nblocks - 1);
+        pos = (int)(row & 127);
     }
     // rank: the marked rows of the block before pos
     const uint32_t* m = marks + (size_t)block * 5;
@@ -84,7 +97,22 @@ resolve_kernel(const uint32_t* __restrict__ fm, int nblocks,
         rank += __popc(__ldg(m + k) & mask);
     }
     rank = rank < 0 ? 0 : (rank >= n_offs ? n_offs - 1 : rank);
-    out[t] = __ldg(offs + rank) + steps;
+    out[t] = (R)(__ldg(offs + rank) + (R)steps);
+}
+
+template <typename R>
+int launch_resolve(const void* fm, int nblocks, const void* fchr, R z_off,
+                   const void* marks, const void* offs, int n_offs,
+                   const void* rows, int B, int period, void* out,
+                   void* stream) {
+    using O = typename RowOut<R>::T;
+    if (B > 0)
+        resolve_kernel<R><<<(B + THREADS - 1) / THREADS, THREADS, 0,
+                            (cudaStream_t)stream>>>(
+            (const uint32_t*)fm, nblocks, (const R*)fchr, z_off,
+            (const uint32_t*)marks, (const R*)offs, n_offs, (const O*)rows,
+            B, period, (O*)out);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -93,11 +121,14 @@ extern "C" int sa_resolve(const void* fm, int nblocks, const void* fchr,
                           int z_off, const void* marks, const void* offs,
                           int n_offs, const void* rows, int B, int period,
                           void* out, void* stream) {
-    if (B > 0)
-        resolve_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
-                         (cudaStream_t)stream>>>(
-            (const uint32_t*)fm, nblocks, (const int*)fchr, z_off,
-            (const uint32_t*)marks, (const int*)offs, n_offs,
-            (const int*)rows, B, period, (int*)out);
-    return (int)cudaGetLastError();
+    return launch_resolve<int>(fm, nblocks, fchr, z_off, marks, offs, n_offs,
+                               rows, B, period, out, stream);
+}
+
+extern "C" int sa_resolve_u32(const void* fm, int nblocks, const void* fchr,
+                              unsigned z_off, const void* marks,
+                              const void* offs, int n_offs, const void* rows,
+                              int B, int period, void* out, void* stream) {
+    return launch_resolve<uint32_t>(fm, nblocks, fchr, z_off, marks, offs,
+                                    n_offs, rows, B, period, out, stream);
 }

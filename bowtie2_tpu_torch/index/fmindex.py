@@ -9,8 +9,19 @@ checkpoint. Tables the JAX package keeps as uint32 are int32 tensors here
 with the same bits (torch has thin uint32 coverage; the kernels read them
 as uint32).
 
-Only the int32 row mode exists in the port so far: a joined text of 2^31
-bp or more (the index's int64 ".bt2l"-analog mode) raises.
+Two row modes, as in the JAX package (bowtie2_tpu/index/fmindex.py):
+- small: rows, fchr, ftab and offs are int32, for a joined text below
+  2^31 bp with global coordinates below 2^31;
+- large: the row space is uint32 up to 2^32 - 1 rows (GRCh38 fits). The
+  index was built with `large=True` (int64 host tables, chosen by the
+  builder once the joined text nears 2^31 bp), or its global coordinates
+  pass 2^31 (a genome whose references hold long N runs). The device
+  tables keep the low 32 bits of each value (int32 tensors with uint32
+  bits), `ref_cum` is int64, and at the tensor API rows are int64 tensors
+  holding the uint32 values (`FMHalf.row_dtype`); the kernels compute in
+  uint32 and wrap where the JAX package's uint32 ops wrap.
+The int64 row mode past 2^32 rows (the JAX package's `occ_cp64`) is not
+ported: it raises.
 """
 
 from typing import NamedTuple, Optional
@@ -20,8 +31,8 @@ import torch
 
 from bowtie2_tpu_torch.index.build import HalfIndex, IndexData
 
-LARGE_INDEX_ITEM = ("ROADMAP.md slice queue item 4, 'the large "
-                    "(uint32/int64 row) index mode'")
+INT64_ROWS_ITEM = ("ROADMAP.md slice queue item 5, 'the int64 row mode "
+                   "past 2^32 rows'")
 
 
 class FMHalf(NamedTuple):
@@ -36,18 +47,35 @@ class FMHalf(NamedTuple):
     mark_rows: torch.Tensor     # int32[nblocks, 5]: cols 0:4 mark bits,
                                 # col 4 mark-rank checkpoint
     offs: torch.Tensor          # int32[n_marked]
+    row_dtype: torch.dtype = torch.int32   # rows at the tensor API: int32,
+                                # or int64 holding uint32 values (large)
 
     @property
     def nrows(self) -> int:
         return self.n + 1
 
+    @property
+    def large(self) -> bool:
+        """The uint32 row space: rows are int64 tensors at the API, the
+        kernels' `_u32` entries compute in uint32."""
+        return self.row_dtype == torch.int64
+
+
+def _low32(a: np.ndarray) -> np.ndarray:
+    """The low 32 bits of each value, as uint32 (int64 tables of the large
+    mode wrap; int32 tables keep their bits)."""
+    if a.dtype == np.int64:
+        return (a & np.int64(0xFFFFFFFF)).astype(np.uint32)
+    return a.astype(np.uint32, copy=False)
+
 
 def pack_fm_blocks(bwt_words: np.ndarray, occ_cp: np.ndarray) -> np.ndarray:
-    """[bwt8|occ4] fusion of one direction's BWT → uint32[nblocks, 12]."""
+    """[bwt8|occ4] fusion of one direction's BWT → uint32[nblocks, 12]; the
+    checkpoints keep their low 32 bits, the exact value below 2^32 rows."""
     nblocks = occ_cp.shape[0]
     fm = np.empty((nblocks, 12), dtype=np.uint32)
     fm[:, :8] = bwt_words.reshape(nblocks, 8).view(np.uint32)
-    fm[:, 8:] = occ_cp.astype(np.uint32, copy=False)
+    fm[:, 8:] = _low32(occ_cp)
     return fm
 
 
@@ -61,11 +89,10 @@ def pack_mark_rows(mark_words: np.ndarray, mark_cp: np.ndarray) -> np.ndarray:
 
 
 def _as_i32(a: np.ndarray, device) -> torch.Tensor:
-    """uint32/int32 numpy array → int32 tensor with the same bits."""
-    a = np.ascontiguousarray(a)
-    if a.dtype == np.uint32:
-        a = a.view(np.int32)
-    return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+    """uint32/int32/int64 numpy array → int32 tensor with the bits of each
+    value's low 32 (uint32 bits for the large mode's int64 tables)."""
+    a = np.ascontiguousarray(_low32(np.asarray(a)))
+    return torch.from_numpy(a.view(np.int32)).to(device)
 
 
 def resolve_device(device) -> torch.device:
@@ -85,17 +112,24 @@ class FMIndex(NamedTuple):
     bw: Optional[FMHalf]
     ref_words: torch.Tensor     # int32 (uint32 bits): 2-bit global reference
     refn_words: torch.Tensor    # int32 (uint32 bits): N bitmask
-    ref_cum: torch.Tensor       # int32[nrefs + 1]
+    ref_cum: torch.Tensor       # int32[nrefs + 1]; int64 in large mode
     n_ref_total: int
 
     @staticmethod
     def from_host(data: IndexData, device=None) -> "FMIndex":
         device = resolve_device(device)
-        if data.fw.occ_cp.dtype == np.int64 or data.fw.n + 1 >= (1 << 31) \
-                or int(data.ref_cum[-1]) >= (1 << 31):
+        if data.fw.n + 1 >= (1 << 32):
             raise NotImplementedError(
-                "a genome of 2^31 bp or more needs the large index mode, not "
-                f"yet ported: see {LARGE_INDEX_ITEM}")
+                f"a joined text of {data.fw.n} bp has 2^32 rows or more and "
+                f"needs the int64 row mode, not yet ported: see "
+                f"{INT64_ROWS_ITEM}")
+        if int(data.ref_cum[-1]) >= (1 << 32) - 4096:
+            # the paired-end export wraps global positions to 32 bits and
+            # decodes them unambiguously only below 2^32 - 4096
+            raise NotImplementedError(
+                f"global coordinates of {int(data.ref_cum[-1])} bp pass "
+                f"2^32 - 4096 and need the int64 mode: see {INT64_ROWS_ITEM}")
+        large = is_large(data)
 
         def half(h: HalfIndex):
             if h is None:
@@ -106,19 +140,39 @@ class FMIndex(NamedTuple):
             markcp = h.mark_cp if h.mark_cp is not None else \
                 np.zeros(nblocks, dtype=np.int32)
             offs = h.offs if h.offs is not None else np.zeros(1, np.int32)
-            return FMHalf(
-                n=int(h.n), z_off=int(h.z_off),
-                fm_blocks=_as_i32(pack_fm_blocks(h.bwt_words, h.occ_cp),
-                                  device),
-                fchr=_as_i32(h.fchr, device),
-                ftab=_as_i32(h.ftab, device),
-                mark_rows=_as_i32(pack_mark_rows(mark.reshape(nblocks, -1),
-                                                 markcp), device),
-                offs=_as_i32(offs, device))
+            return half_from_tables(
+                h.n, h.z_off, pack_fm_blocks(h.bwt_words, h.occ_cp), h.fchr,
+                h.ftab, pack_mark_rows(mark.reshape(nblocks, -1), markcp),
+                offs, large, device)
 
         return FMIndex(
             fw=half(data.fw), bw=half(data.bw),
             ref_words=_as_i32(data.ref_words, device),
             refn_words=_as_i32(data.refn_words, device),
-            ref_cum=_as_i32(data.ref_cum, device),
+            ref_cum=torch.from_numpy(np.asarray(data.ref_cum, np.int64)).to(
+                device) if large else _as_i32(data.ref_cum, device),
             n_ref_total=int(data.ref_cum[-1]))
+
+
+def half_from_tables(n: int, z_off: int, fm_blocks: np.ndarray, fchr,
+                     ftab, mark_rows: np.ndarray, offs, large: bool,
+                     device) -> FMHalf:
+    """An FMHalf on `device` from packed host tables (fm_blocks uint32[nb,
+    12], mark_rows uint32[nb, 5]; fchr, ftab and offs of any integer
+    type), in the large row mode or the small one."""
+    return FMHalf(
+        n=int(n), z_off=int(z_off), fm_blocks=_as_i32(fm_blocks, device),
+        fchr=_as_i32(fchr, device), ftab=_as_i32(ftab, device),
+        mark_rows=_as_i32(mark_rows, device), offs=_as_i32(offs, device),
+        row_dtype=torch.int64 if large else torch.int32)
+
+
+def is_large(data: IndexData) -> bool:
+    """The uint32 row mode: a forced-large build (int64 host tables) or
+    global coordinates past int32 (long N runs, or a joined text near
+    2^31 bp). The JAX package's large mode follows the host tables'
+    dtype only; on a small-table index whose coordinates pass 2^31 it
+    would wrap its int32 reference offsets, so the port takes the large
+    mode there, which gives the forced-large build's results."""
+    return (data.fw.occ_cp.dtype == np.int64
+            or int(data.ref_cum[-1]) >= (1 << 31))

@@ -43,6 +43,7 @@ _LOCK = threading.Lock()
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 
 
 def reset_counts() -> None:
@@ -67,10 +68,16 @@ def _stale(name: str) -> bool:
     return any(os.path.getmtime(d) > os.path.getmtime(so) for d in deps)
 
 
+# the template arguments of this repo's kernels that are types: the FM
+# kernels' row type (int, or uint32_t in the large mode)
+_TYPE_ARGS = {"i": "int", "j": "uint32"}
+
+
 def kernel_name(mangled: str) -> str:
     """`_ZN12_GLOBAL__N_114sw_warp_kernelILi1ELb0EEEvNS_4ArgsENS_8SwParamsE`
     -> `sw_warp_kernel<1,0>`: the innermost name of a (nested) Itanium
-    name and its integer or bool template arguments, enough to tell this
+    name and its integer or bool template arguments, or its one int or
+    unsigned type argument (`sweep_kernel<uint32>`), enough to tell this
     repo's kernels apart; anything else is returned as it is."""
     if not mangled.startswith("_Z"):
         return mangled
@@ -92,6 +99,9 @@ def kernel_name(mangled: str) -> str:
         return mangled
     targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
     args = re.findall(r"\d+", targs.group(1)) if targs else []
+    ttype = re.match(r"I([ij])E", mangled[i:])
+    if ttype:
+        args = [_TYPE_ARGS[ttype.group(1)]]
     return names[-1] + (f"<{','.join(args)}>" if args else "")
 
 

@@ -36,6 +36,20 @@ thread a walk. Resolve cases hold rows at every walk
 length, marked rows, rows 0, n and z_off, the last block's rows, and one
 bulk case that at scale 8 holds more rows than an H100 runs threads at
 once, so the kernel's blocks (one thread a row) run in several waves.
+
+The large index mode's tables (`large_fm_case`) are made without a text:
+random 2-bit BWT words over `rows` rows with checkpoints consistent with
+them, marks at 1/32 density with their rank checkpoints and offsets below
+n, a ftab computed from the table by backward search, and search states
+and SA rows chosen to reach the rows past 2^31 at the default size
+(2^31 + 2^27 rows), which no genome a test can build reaches: read,
+half-read and seed patterns read off the table by LF walks from its top
+rows (whose ranges stay alive and hold those rows), T-led ones (whose
+ranges start near fchr[3] and run to the last row) and random ones, and
+SA rows drawn mostly from the top of the row space.
+chip_smoke.py holds the `_u32` kernels to their plain versions on it on
+the card; tests/test_torch_zlarge.py runs the same builder at a small
+`rows` against the JAX package's uint32 ops.
 """
 
 from typing import Callable, List, NamedTuple, Optional
@@ -687,3 +701,199 @@ def bt_diag_cases(dp: Callable[[DPCase], tuple], seed: int = 0,
     return ([bt_diag_case(c, *dp(c))
              for c in diag_cases(seed=seed, scale=scale)]
             + bt_diag_random_cases(seed=seed, scale=scale))
+
+
+# ---------------------------------------------------------------------------
+# the large index mode's FM tables (uint32 row space)
+# ---------------------------------------------------------------------------
+
+# rows of the default large table: past 2^31 by 2^27 less one, so that the
+# last block is one row short of full and a search from the whole range
+# reads the row count's true checkpoint (about 17.8 M blocks: fm_blocks
+# 0.86 GB, mark_rows 0.36 GB, offs 0.27 GB)
+LARGE_ROWS = (1 << 31) + (1 << 27) - 1
+LARGE_FTAB = 5          # ftab key codes (4^5 keys) of the large table
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+class LargeFmCase(NamedTuple):
+    n: int                      # rows - 1
+    z_off: int
+    fm_blocks: np.ndarray       # uint32[nblocks, 12]: words, checkpoints
+    fchr: np.ndarray            # uint32[5]
+    ftab: np.ndarray            # uint32[2 * 4^K + 1]
+    ftab_chars: int
+    mark_rows: np.ndarray       # uint32[nblocks, 5]: mark words, rank cp
+    offs: np.ndarray            # uint32[n_marked], each below n
+    sweep_rr: np.ndarray        # (batch, 128) int32 reversed patterns
+    substring_rr: np.ndarray    # (2 batch, 65) int32
+    seeds: np.ndarray           # (8 batch, 22) int32
+    seed_valid: np.ndarray      # (8 batch,) bool
+    seed_len: int
+    resolve_rows: np.ndarray    # (8 batch,) int64 rows
+
+
+def _popcount32(x: np.ndarray) -> np.ndarray:
+    """Bits set in each uint32 (SWAR, no numpy 2 bitwise_count)."""
+    x = x.astype(np.uint32, copy=True)
+    x -= (x >> 1) & np.uint32(0x55555555)
+    x = (x & np.uint32(0x33333333)) + ((x >> 2) & np.uint32(0x33333333))
+    x = (x + (x >> 4)) & np.uint32(0x0F0F0F0F)
+    return ((x * np.uint32(0x01010101)) >> 24).astype(np.int64)
+
+
+def _crumb_counts(words: np.ndarray) -> np.ndarray:
+    """(m,) uint32 words → (m, 4) counts of each 2-bit code in them."""
+    lo = words & np.uint32(0x55555555)
+    hi = (words >> 1) & np.uint32(0x55555555)
+    c3 = _popcount32(lo & hi)
+    c1 = _popcount32(lo) - c3
+    c2 = _popcount32(hi) - c3
+    return np.stack([16 - c1 - c2 - c3, c1, c2, c3], axis=1)
+
+
+def lf_np(fm_blocks, fchr, z_off, i, c):
+    """LF(i, c) of a uint32-row table in int64 numpy, wrapping mod 2^32
+    where the JAX package's uint32 op does (a row past the last block
+    reads as 0xFFFFFFFF). i: (m,) rows, c: (m,) codes 0..3."""
+    i = np.asarray(i, np.int64)
+    c = np.asarray(c, np.int64)
+    nb = fm_blocks.shape[0]
+    block = i >> 7
+    past = block >= nb
+    row = fm_blocks[np.minimum(block, nb - 1)]
+    words = np.where(past[:, None], np.uint32(0xFFFFFFFF), row[:, :8])
+    cp = np.where(past, 0xFFFFFFFF,
+                  row[np.arange(i.size), 8 + c].astype(np.int64))
+    pos = i & 127
+    pat = (c * 0x55555555).astype(np.uint32)
+    cnt = np.zeros(i.size, np.int64)
+    for k in range(8):
+        x = words[:, k] ^ pat
+        eq = ~(x | (x >> 1)) & np.uint32(0x55555555)
+        n = np.clip(pos - 16 * k, 0, 16)
+        mask = np.where(n >= 16, 0xFFFFFFFF,
+                        (1 << (2 * n)) - 1).astype(np.uint32)
+        cnt += _popcount32(eq & mask)
+    corr = ((c == 0) & (i > z_off)).astype(np.int64)
+    return (fchr.astype(np.int64)[c] + cp + cnt - corr) & 0xFFFFFFFF
+
+
+def _bwt_code(fm_blocks, row):
+    """The 2-bit BWT code at each row."""
+    w = fm_blocks[row >> 7, (row >> 4) & 7]
+    return ((w >> (2 * (row & 15)).astype(np.uint32)) & 3).astype(np.int64)
+
+
+def _large_patterns(rng, fm_blocks, fchr, z_off, B, L, tails=True):
+    """(B, L) reversed patterns by b % 4: two of four read off the table
+    by LF walks from rows in its top quarter (their backward searches keep
+    a range holding the walk's next row all the way), one a run of Ts (its
+    range climbs to the last rows), one random with some Ns; with `tails`
+    each of an active length drawn from 1..L (the rest 5), the first of
+    all L."""
+    rows = fm_blocks.shape[0] * 128
+    rr = rng.integers(0, 4, (B, L)).astype(np.int32)
+    kind = np.arange(B) % 4
+    rr[kind == 2] = 3
+    rr[:, 0] = np.where(kind == 3, rr[:, 0], 3)
+    walk = np.nonzero(kind < 2)[0]
+    row = rng.integers(rows - rows // 4, rows, walk.size)
+    for p in range(L):
+        c = _bwt_code(fm_blocks, row)
+        rr[walk, p] = c
+        row = lf_np(fm_blocks, fchr, z_off, row, c)
+        row = np.where(row < rows, row, 0)
+    noise = (kind == 3)[:, None] & (rng.random((B, L)) < 0.02)
+    rr[noise] = 4
+    if not tails:
+        return rr
+    n = rng.integers(1, L + 1, B)
+    n[0] = L
+    rr[np.arange(L)[None, :] >= n[:, None]] = 5
+    return rr
+
+
+def large_fm_case(seed: int = 0, rows: int = LARGE_ROWS,
+                  batch: int = 16384, ftab_chars: int = LARGE_FTAB
+                  ) -> LargeFmCase:
+    """The large mode's FM tables over `rows` rows and the search states
+    of the four kernels: `batch` read patterns of 128 columns, 2 batch
+    half-read patterns of 65, 8 batch seeds of 22 codes and 8 batch SA
+    rows (the main path's first-call shapes at the default 16,384). As
+    the builder does, the sentinel row's BWT code is an A, the last
+    block's codes past the rows are As, and neither counts in fchr."""
+    assert rows < (1 << 32)
+    rng = np.random.default_rng(seed)
+    nb = -(-rows // 128)
+    n = rows - 1
+    words = rng.integers(0, 1 << 32, nb * 8, dtype=np.uint32)
+    z_off = int(rng.integers(0, rows))
+    for r in [z_off] + list(range(rows, nb * 128)):
+        words[r >> 4] &= ~np.uint32(3 << (2 * (r & 15)))
+    counts = np.zeros((nb, 4), np.int64)
+    step = 1 << 22                               # words a pass
+    for s in range(0, words.size, step):
+        part = _crumb_counts(words[s:s + step])
+        counts[s // 8:(s + part.shape[0]) // 8] = \
+            part.reshape(-1, 8, 4).sum(axis=1)
+    occ = np.concatenate([np.zeros((1, 4), np.int64),
+                          np.cumsum(counts, axis=0)[:-1]])
+    tot = counts.sum(axis=0)
+    tot[0] -= 1 + nb * 128 - rows                # the sentinel, the pad
+    fchr = np.concatenate([[1], 1 + np.cumsum(tot)]).astype(np.int64)
+    assert fchr[4] == rows
+    fm = np.empty((nb, 12), np.uint32)
+    fm[:, :8] = words.reshape(nb, 8)
+    fm[:, 8:] = (occ & 0xFFFFFFFF).astype(np.uint32)
+    del words, occ, counts
+    # marks at 1/32 density (each bit the AND of five random bits), the
+    # last row marked, so that every row's rank indexes offs
+    marks = rng.integers(0, 1 << 32, nb * 4, dtype=np.uint32)
+    for _ in range(4):
+        marks &= rng.integers(0, 1 << 32, nb * 4, dtype=np.uint32)
+    marks[(rows - 1) >> 5] |= np.uint32(1 << ((rows - 1) & 31))
+    per = np.zeros(nb, np.int64)
+    for s in range(0, marks.size, step):
+        part = _popcount32(marks[s:s + step])
+        per[s // 4:(s + part.size) // 4] = part.reshape(-1, 4).sum(axis=1)
+    mark_rows = np.empty((nb, 5), np.uint32)
+    mark_rows[:, :4] = marks.reshape(nb, 4)
+    mark_rows[:, 4] = np.concatenate([[0], np.cumsum(per)[:-1]]).astype(
+        np.uint32)
+    offs = rng.integers(0, n, int(per.sum()), dtype=np.uint32)
+    del marks, per
+    # ftab: each full K-mer's range by backward search from the last code
+    K = ftab_chars
+    keys = np.arange(4 ** K, dtype=np.int64)
+    top = np.zeros(keys.size, np.int64)
+    bot = np.full(keys.size, rows, np.int64)
+    for q in range(K):                           # codes right to left
+        c = (keys // 4 ** q) % 4
+        top, bot = lf_np(fm, fchr, z_off, top, c), \
+            lf_np(fm, fchr, z_off, bot, c)
+    ftab = np.zeros(2 * keys.size + 1, np.int64)
+    ftab[2 * keys + 1] = top
+    ftab[2 * keys + 2] = bot
+    # the states: patterns read off the table, T runs and random ones;
+    # seeds are text-order patterns (the search runs right to left)
+    srng = np.random.default_rng(seed + 1)
+    sweep_rr = _large_patterns(srng, fm, fchr, z_off, batch, 128)
+    substring_rr = _large_patterns(srng, fm, fchr, z_off, 2 * batch, 65)
+    S, slen = 8 * batch, 22
+    seeds = np.ascontiguousarray(_large_patterns(
+        srng, fm, fchr, z_off, S, slen, tails=False)[:, ::-1])
+    valid = srng.random(S) < 0.95
+    # SA rows: most from the top quarter of the row space (past 2^31 at
+    # the default size), the rest anywhere, and the ends
+    hi = srng.integers(rows - rows // 4, rows, S - S // 4 - 8)
+    anyr = srng.integers(0, rows, S // 4)
+    ends = np.array([0, n, z_off, max(z_off - 1, 0), min(z_off + 1, n),
+                     rows - 128, rows - 2, (1 << 31) % rows], np.int64)
+    resolve_rows = srng.permutation(np.concatenate([hi, anyr, ends]))
+    return LargeFmCase(
+        n=n, z_off=z_off, fm_blocks=fm, fchr=fchr.astype(np.uint32),
+        ftab=ftab.astype(np.uint32), ftab_chars=K, mark_rows=mark_rows,
+        offs=offs, sweep_rr=sweep_rr, substring_rr=substring_rr,
+        seeds=seeds, seed_valid=valid, seed_len=slen,
+        resolve_rows=resolve_rows.astype(np.int64))

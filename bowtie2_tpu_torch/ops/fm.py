@@ -13,6 +13,12 @@ Core math (classic FM index, = reference Ebwt::mapLF bt2_idx.h:2313):
 Occ is the block's checkpoint plus the in-block count over 8 words of
 2-bit crumbs; the sentinel row (z_off) stores a spurious 'A' which is
 subtracted when (c == 0 and i > z_off).
+
+Rows follow the index's row mode (index/fmindex.py): int32 tensors in the
+small mode, int64 tensors holding uint32 values in the large mode, whose
+plain versions compute in int64 and wrap to 32 bits where the JAX
+package's uint32 ops wrap (`_wrap`), and whose kernels are the `_u32`
+C entries, the same sources computing in uint32.
 """
 
 from typing import NamedTuple, Tuple
@@ -22,9 +28,10 @@ import torch
 from bowtie2_tpu_torch.constants import OCC_BLOCK
 from bowtie2_tpu_torch.index.fmindex import FMHalf
 from bowtie2_tpu_torch.ops import _build
-from bowtie2_tpu_torch.ops._build import I, P, check, on_cpu, ptr
+from bowtie2_tpu_torch.ops._build import I, P, U, check, on_cpu, ptr
 
 i32 = torch.int32
+MASK32 = 0xFFFFFFFF
 
 
 class SweepResult(NamedTuple):
@@ -49,6 +56,18 @@ def _rows(half: FMHalf, block: torch.Tensor) -> torch.Tensor:
     return torch.where(((block < 0) | (block >= nb))[:, None], -1, rows)
 
 
+def _wrap(half: FMHalf, x: torch.Tensor) -> torch.Tensor:
+    """A row-type result: x mod 2^32 in the large mode (JAX's uint32 ops
+    wrap there), int32 in the small mode (whose int32 ops wrap)."""
+    return x & MASK32 if half.large else x.to(i32)
+
+
+def _val(half: FMHalf, t: torch.Tensor) -> torch.Tensor:
+    """Values of a table stored as int32 bits (checkpoints, fchr, ftab,
+    offs) in the row type: their uint32 value in the large mode."""
+    return t.long() & MASK32 if half.large else t
+
+
 def _crumbs(words: torch.Tensor) -> torch.Tensor:
     """(B, 8) int32 (uint32 bits) → (B, 128) int32 2-bit crumbs."""
     sh = 2 * torch.arange(16, dtype=i32, device=words.device)
@@ -60,14 +79,14 @@ def _occ_rows(half: FMHalf, i: torch.Tensor, c: torch.Tensor, rows):
     pos = i % OCC_BLOCK
     crumbs = _crumbs(rows[:, :8])
     inb = ((crumbs == c[:, None]) & (lane < pos[:, None])).sum(dim=1)
-    cp = rows[:, 8:12].gather(1, c.long()[:, None])[:, 0]
+    cp = _val(half, rows[:, 8:12].gather(1, c.long()[:, None])[:, 0])
     corr = ((c == 0) & (i > half.z_off)).to(i32)
-    return (cp + inb - corr).to(i32)
+    return _wrap(half, cp + inb - corr)
 
 
 def occ_batch(half: FMHalf, i: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """#occurrences of per-state char c (0..3) in bwt[0:i). i, c: (B,)."""
-    i = i.to(i32)
+    i = i.to(half.row_dtype)
     c = c.to(i32)
     return _occ_rows(half, i, c, _rows(half, i // OCC_BLOCK))
 
@@ -75,14 +94,16 @@ def occ_batch(half: FMHalf, i: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def lf_batch(half: FMHalf, i: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Batched LF mapping (reference mapLF). i, c: (B,)."""
     c = c.to(i32)
-    return (half.fchr.index_select(0, c.long()) + occ_batch(half, i, c)).to(i32)
+    return _wrap(half, _val(half, half.fchr.index_select(0, c.long()))
+                 + occ_batch(half, i, c))
 
 
 def ftab_lookup_batch(half: FMHalf, keys: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched ftab range lookup. keys: (B,) base-4 ints (first K chars)."""
     k = keys.long()
-    return half.ftab.index_select(0, 2 * k + 1), half.ftab.index_select(0, 2 * k + 2)
+    return (_val(half, half.ftab.index_select(0, 2 * k + 1)),
+            _val(half, half.ftab.index_select(0, 2 * k + 2)))
 
 
 def _lf2(half, top, bot, cc):
@@ -96,9 +117,22 @@ def _fm_args(half: FMHalf):
             half.z_off, half.nrows)
 
 
+def _entry(half: FMHalf, name: str, argtypes, unsigned=(3, 4)):
+    """The C entry of a kernel in the index's row mode, and its argument
+    types: the `_u32` entry takes its row-valued scalars as unsigned
+    (z_off and the row count, the 4th and 5th arguments of the searches;
+    z_off, the 4th, of sa_resolve)."""
+    if not half.large:
+        return name, argtypes
+    return name + "_u32", [U if k in unsigned else t
+                           for k, t in enumerate(argtypes)]
+
+
 def _check_half(half: FMHalf, dev) -> None:
     check(half.fm_blocks, "fm_blocks", device=dev)
     check(half.fchr, "fchr", shape=(5,), device=dev)
+    if half.nrows >= (1 << (32 if half.large else 31)):
+        raise ValueError(f"{half.nrows} rows do not fit the row mode")
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +141,8 @@ def _check_half(half: FMHalf, dev) -> None:
 
 def _sweep_plain(half: FMHalf, rr: torch.Tensor) -> SweepResult:
     B, L = rr.shape
-    top = torch.zeros(B, dtype=i32, device=rr.device)
-    bot = torch.full((B,), half.nrows, dtype=i32, device=rr.device)
+    top = torch.zeros(B, dtype=half.row_dtype, device=rr.device)
+    bot = torch.full((B,), half.nrows, dtype=half.row_dtype, device=rr.device)
     nedit = torch.zeros(B, dtype=i32, device=rr.device)
     for p in range(L):
         c = rr[:, p]
@@ -134,11 +168,13 @@ def exact_sweep_rr(half: FMHalf, rr: torch.Tensor) -> SweepResult:
     dev = rr.device
     _check_half(half, dev)
     B, L = rr.shape
-    out = torch.empty((3, B), dtype=i32, device=dev)
-    _build.call("fm_search", "fm_sweep", [P, I, P, I, I, P, I, I, P, P, P],
+    out = torch.empty((2, B), dtype=half.row_dtype, device=dev)
+    nedit = torch.empty(B, dtype=i32, device=dev)
+    _build.call("fm_search", *_entry(half, "fm_sweep",
+                                     [P, I, P, I, I, P, I, I, P, P, P]),
                 *_fm_args(half), ptr(rr), B, L,
-                ptr(out[0]), ptr(out[1]), ptr(out[2]))
-    return SweepResult(out[0], out[1], out[2])
+                ptr(out[0]), ptr(out[1]), ptr(nedit))
+    return SweepResult(out[0], out[1], nedit)
 
 
 def _reverse_stream(reads: torch.Tensor, lengths: torch.Tensor):
@@ -162,8 +198,8 @@ def exact_sweep(half: FMHalf, reads: torch.Tensor, lengths: torch.Tensor
 
 def _substring_plain(half: FMHalf, rr: torch.Tensor):
     B, L = rr.shape
-    top = torch.zeros(B, dtype=i32, device=rr.device)
-    bot = torch.full((B,), half.nrows, dtype=i32, device=rr.device)
+    top = torch.zeros(B, dtype=half.row_dtype, device=rr.device)
+    bot = torch.full((B,), half.nrows, dtype=half.row_dtype, device=rr.device)
     for p in range(L):
         c = rr[:, p]
         active = c < 5
@@ -184,8 +220,9 @@ def substring_search_rr(half: FMHalf, rr: torch.Tensor
     dev = rr.device
     _check_half(half, dev)
     B, L = rr.shape
-    out = torch.empty((2, B), dtype=i32, device=dev)
-    _build.call("fm_search", "fm_substring", [P, I, P, I, I, P, I, I, P, P],
+    out = torch.empty((2, B), dtype=half.row_dtype, device=dev)
+    _build.call("fm_search", *_entry(half, "fm_substring",
+                                     [P, I, P, I, I, P, I, I, P, P]),
                 *_fm_args(half), ptr(rr), B, L, ptr(out[0]), ptr(out[1]))
     return out[0], out[1]
 
@@ -222,11 +259,12 @@ def _seed_plain(half: FMHalf, seeds, valid, seed_len: int, K: int):
         for q in range(seed_len - K - 1, -1, -1):
             top, bot = step(top, bot, seeds[:, q])
     else:
-        top = torch.zeros(B, dtype=i32, device=dev)
-        bot = torch.where(valid, half.nrows, 0).to(i32)
+        top = torch.zeros(B, dtype=half.row_dtype, device=dev)
+        bot = torch.where(valid, half.nrows, 0).to(half.row_dtype)
         for q in range(seed_len - 1, -1, -1):
             top, bot = step(top, bot, seeds[:, q])
-    return top.to(i32), torch.maximum(top, bot).to(i32)
+    return top.to(half.row_dtype), \
+        torch.maximum(top, bot).to(half.row_dtype)
 
 
 def seed_search_exact(half: FMHalf, seeds: torch.Tensor, valid: torch.Tensor,
@@ -246,9 +284,9 @@ def seed_search_exact(half: FMHalf, seeds: torch.Tensor, valid: torch.Tensor,
     B = seeds.shape[0]
     check(seeds, "seeds", shape=(B, seed_len))
     check(valid, "valid", dtype=torch.bool, shape=(B,), device=dev)
-    out = torch.empty((2, B), dtype=i32, device=dev)
-    _build.call("fm_search", "fm_seed",
-                [P, I, P, I, I, P, P, P, I, I, I, P, P],
+    out = torch.empty((2, B), dtype=half.row_dtype, device=dev)
+    _build.call("fm_search", *_entry(half, "fm_seed",
+                                     [P, I, P, I, I, P, P, P, I, I, I, P, P]),
                 *_fm_args(half), ptr(half.ftab), ptr(seeds), ptr(valid),
                 B, seed_len, ftab_chars, ptr(out[0]), ptr(out[1]))
     return out[0], out[1]
@@ -298,20 +336,32 @@ def _resolve_plain(half: FMHalf, rows: torch.Tensor, period: int):
         mbits, _ = _mark_bits(half, block)
         marked = mbits.gather(1, pos.long())[:, 0] == 1
         done = done | marked
-        nrow = half.fchr.index_select(0, c.long()) + _occ_rows(half, row, c, frows)
-        row = torch.where(done, row, nrow).to(i32)
+        nrow = lf_row(half, row, c, frows)
+        row = torch.where(done, row, nrow)
         steps = torch.where(done, steps, steps + 1)
     block = row // OCC_BLOCK
     pos = row % OCC_BLOCK
     bits, mcp = _mark_bits(half, block)
     rank = mcp + (bits * (lane < pos[:, None])).sum(dim=1)
-    return (half.offs.index_select(0, rank.long()) + steps).to(i32)
+    return _wrap(half, _val(half, half.offs.index_select(0, rank.long()))
+                 + steps)
+
+
+def lf_row(half: FMHalf, row: torch.Tensor, c: torch.Tensor, frows
+           ) -> torch.Tensor:
+    """LF(row, c) over the row's already gathered FM rows (the SA walk's
+    step, which reads the code c at the row from the same rows)."""
+    return _wrap(half, _val(half, half.fchr.index_select(0, c.long()))
+                 + _occ_rows(half, row, c, frows))
 
 
 def sa_resolve(half: FMHalf, rows: torch.Tensor, period: int = 32
                ) -> torch.Tensor:
-    """Batched BWT row → joined text offset. rows: (B,) int32."""
-    rows = rows.to(i32).contiguous()
+    """Batched BWT row → joined text offset. rows: (B,) of the row type."""
+    # rows in the row type: int32, or the uint32 value of each (int64
+    # rows wrap mod 2^32 as the JAX op's astype(uint32) does)
+    rows = (rows.long() & MASK32 if half.large else rows.to(i32)
+            ).contiguous()
     if on_cpu(rows, "sa_resolve"):
         return _resolve_plain(half, rows, period)
     dev = rows.device
@@ -319,8 +369,10 @@ def sa_resolve(half: FMHalf, rows: torch.Tensor, period: int = 32
     check(half.mark_rows, "mark_rows", device=dev)
     check(half.offs, "offs", device=dev)
     B = rows.shape[0]
-    out = torch.empty(B, dtype=i32, device=dev)
-    _build.call("sa_resolve", "sa_resolve", [P, I, P, I, P, P, I, P, I, I, P],
+    out = torch.empty(B, dtype=half.row_dtype, device=dev)
+    _build.call("sa_resolve", *_entry(half, "sa_resolve",
+                                      [P, I, P, I, P, P, I, P, I, I, P],
+                                      unsigned=(3,)),
                 ptr(half.fm_blocks), half.fm_blocks.shape[0], ptr(half.fchr),
                 half.z_off, ptr(half.mark_rows), ptr(half.offs),
                 half.offs.shape[0], ptr(rows), B, period, ptr(out))

@@ -15,6 +15,13 @@ backtrace ops, then the int32 metadata vector (CHOSEN_FIELDS per chosen
 candidate; layout decoded by pipeline/align.py). The glue between kernels
 is plain torch: gathers, sorts and masks, compacting by sort as the JAX
 program does, so a call issues no host synchronisation.
+
+In the large index mode (index/fmindex.py) the searches' rows are int64
+tensors holding uint32 values, and from the SA walk on the position
+arithmetic (joined offsets, global positions, anchors, window starts and
+ends) is int64, the segment tables' type; the exports wrap rows and
+positions to int32 words where the JAX program casts them (`_i32`), and
+the host decodes them (pipeline/align.py `_u32pos`).
 """
 
 from typing import NamedTuple, Optional
@@ -39,11 +46,12 @@ i32 = torch.int32
 
 
 class SegTables(NamedTuple):
-    """Joined-text segment geometry (device copies of IndexData tables)."""
-    seg_joined_start: torch.Tensor   # (nseg,) int32
-    seg_global_start: torch.Tensor   # (nseg,) int32
-    seg_end_joined: torch.Tensor     # (nseg,) int32 = joined_start + len
-    ref_cum: torch.Tensor            # (nref+1,) int32
+    """Joined-text segment geometry (device copies of IndexData tables):
+    int32, or int64 in the large index mode."""
+    seg_joined_start: torch.Tensor   # (nseg,)
+    seg_global_start: torch.Tensor   # (nseg,)
+    seg_end_joined: torch.Tensor     # (nseg,) = joined_start + len
+    ref_cum: torch.Tensor            # (nref+1,)
 
 
 class FusedResult(NamedTuple):
@@ -53,6 +61,14 @@ class FusedResult(NamedTuple):
 
 def _ar(n: int, dev) -> torch.Tensor:
     return torch.arange(n, dtype=i32, device=dev)
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """The int32 image of t: int64 values (the large mode's rows and global
+    positions) wrap mod 2^32, as the JAX program's int32 casts do."""
+    if t.dtype == torch.int64:
+        t = ((t + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    return t.to(i32)
 
 
 def _set_drop(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
@@ -181,11 +197,11 @@ def _assemble_slots(B, T, lens, live_read, sw_top, sw_bot, sw_ned,
     # source-range bookkeeping of the PE -D effort model (pe_effort.py):
     # range id in width-sorted order (-2/-1 = exact fw/rc) and the source
     # range's full SA width
-    ex_full = (sw_bot - sw_top).to(i32).index_select(
+    ex_full = _i32(sw_bot - sw_top).index_select(
         0, (ex_or * B + rdix).reshape(-1).long()).reshape(B, T)
     slot_rangej = torch.where(is_exact, -2 + ex_or, sj.to(i32))
     slot_rwidth = torch.where(is_exact, ex_full, w.gather(1, sj))
-    return (slot_valid, slot_row.to(i32), slot_or.to(i32),
+    return (slot_valid, slot_row.to(sw_top.dtype), slot_or.to(i32),
             slot_off.to(i32), is_exact & slot_valid, slot_mlen.to(i32),
             slot_half, slot_rangej.to(i32), slot_rwidth.to(i32))
 
@@ -285,8 +301,12 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
         tops2, bots2, offs2, mlens2, halfs2, max_exact_rows)
 
     # ---------------- phase 3b: SA resolution of every slot ----------------
+    # positions take the row mode's tensor type, as the segment tables do
+    # (int64 in the large mode: window starts may be negative near the
+    # origin, and global positions may pass 2^31)
+    pdt = half.row_dtype
     jpos = fm.sa_resolve(half, slot_row.reshape(-1), period=period
-                         ).reshape(B, T)
+                         ).reshape(B, T).to(pdt)
     # straddle filter: the matched stretch stays inside one segment; for
     # half-read slots the FULL read span must fit
     segi = torch.clamp(torch.searchsorted(seg.seg_joined_start, jpos,
@@ -298,8 +318,8 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
     full_ok = (r0 >= seg_js) & (r0 + lens[:, None] <= seg_end)
     slot_valid = slot_valid & seg_ok & (~slot_half | full_ok)
     gpos = _take(seg.seg_global_start, segi) + (jpos - seg_js)
-    anchor = (gpos - slot_off).to(i32)
-    rid = (torch.searchsorted(seg.ref_cum, gpos.to(i32), right=True) - 1
+    anchor = (gpos - slot_off).to(pdt)
+    rid = (torch.searchsorted(seg.ref_cum, gpos.to(pdt), right=True) - 1
            ).to(i32)
 
     # dedupe by (orient, anchor) within each read, keep the first slot;
@@ -405,7 +425,7 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
     c_end = astart + res.lane
 
     # per-read seed-hit demand (SeedResults::averageHitsPerSeed inputs)
-    seed_w_all = torch.clamp(seed_bot - seed_top, min=0)
+    seed_w_all = _i32(torch.clamp(seed_bot - seed_top, min=0))
     selt2 = seed_w_all.sum(dim=1).to(i32)
     snz2 = (seed_w_all > 0).sum(dim=1).to(i32)
 
@@ -454,8 +474,8 @@ def fused_se(half: FMHalf, ref_words, refn_words, seg: SegTables,
     sc_sl = _set_drop(torch.full((B * T,), NEG, dtype=i32, device=dev),
                       flat_ci, torch.where(c_valid, c_score, NEG)
                       ).reshape(B, T)
-    end_sl = _set_drop(torch.zeros(B * T, dtype=i32, device=dev), flat_ci,
-                       c_end).reshape(B, T)
+    end_sl = _set_drop(torch.zeros(B * T, dtype=c_end.dtype, device=dev),
+                       flat_ci, c_end).reshape(B, T)
     cpos_sl = _set_drop(torch.zeros(B * T, dtype=i32, device=dev), flat_ci,
                         _ar(NC, dev)).reshape(B, T)
     vd_sl = sc_sl > NEG
@@ -547,7 +567,7 @@ def fused_se(half: FMHalf, ref_words, refn_words, seg: SegTables,
     # beyond the NBT budget (the host path then takes the batch)
     n_dropped = torch.clamp(flat_valid.sum() - NC, min=0).to(i32) \
         + n_btdrop + cx["n_dpdrop"]
-    meta = torch.cat([t.reshape(-1).to(i32) for t in (
+    meta = torch.cat([_i32(t.reshape(-1)) for t in (
         r_score.T, r_valid.T, ch_okf, _take(c_or, ch_ci), ch_rid, roff,
         rdstart, rows_sel + 1, nmm, ngo, ngc, nrefn, sccheck,
         _take(c_score, ch_ci), n_dropped, ee_block)])
@@ -693,8 +713,8 @@ def _pe_pairing(pairing, B, Bp, T_, aok, score, slot_or, rid, lo_p, hi_p,
     has_l2 = att_rank2.gather(1, sec_slot[:, None])[:, 0] < PAIR_BIGR
     nL = (rep & ATT).sum(dim=1).to(i32)
 
-    def tk(arr, slot):
-        return arr.gather(1, slot.reshape(-1, 1))[:, 0].to(i32)
+    def tk(arr, slot):       # positions wrap to int32 (host: _u32pos)
+        return _i32(arr.gather(1, slot.reshape(-1, 1))[:, 0])
 
     fs, ss = first_slot, sec_slot
     read_fields = torch.stack([
@@ -738,18 +758,25 @@ def fused_pe(half: FMHalf, ref_words, refn_words, seg: SegTables,
 
     def scat(vals, fill=0):
         return _set_drop(torch.full((B * T_,), fill, dtype=i32, device=dev),
-                         flat_ci, vals.to(i32)).reshape(B, T_)
+                         flat_ci, _i32(vals)).reshape(B, T_)
+
+    def scat_raw(vals):
+        return _set_drop(torch.zeros(B * T_, dtype=vals.dtype, device=dev),
+                         flat_ci, vals).reshape(B, T_)
 
     aok = scat(cx["c_valid"])
     score = scat(torch.where(cx["c_valid"], cx["c_score"], NEG), fill=NEG)
-    lo = scat(cx["astart"] + res.origin)
-    hi = scat(cx["c_end"])
+    # the device pairing keeps the true extents (int64 in the large mode);
+    # the exported slot extents wrap to int32 (host: _u32pos)
+    lo_p = scat_raw(cx["astart"] + res.origin)
+    hi_p = scat_raw(cx["c_end"])
+    lo, hi = _i32(lo_p), _i32(hi_p)
     rdend = scat(res.row + 1)
     cpos = scat(_ar(NC, dev), fill=-1)
 
     sweep = cx["sweep"]
-    ee2 = torch.where((sweep.nedit == 0) & (cx["sweep_bot"] > sweep.top),
-                      cx["sweep_bot"] - sweep.top, 0).to(i32)
+    ee2 = _i32(torch.where((sweep.nedit == 0) & (cx["sweep_bot"] > sweep.top),
+                           cx["sweep_bot"] - sweep.top, 0))
     ee_read = ee2[:B] + ee2[B:]                  # fw + rc rows per read
 
     n_dropped = (torch.clamp(cx["flat_valid"].sum() - NC, min=0)
@@ -765,13 +792,13 @@ def fused_pe(half: FMHalf, ref_words, refn_words, seg: SegTables,
         cx["slot_rangej"], cx["slot_rwidth"], cpos, mmug, cx["anchor"]]
     ci_fields = [cx["astart"], cx["c_rid"], res.row, res.lane,
                  cx["c_score"], cx["dplane"]]
-    slots = torch.stack([f.to(i32) for f in slot_fields])
+    slots = torch.stack([_i32(f) for f in slot_fields])
 
     Bp = B // 2
     if pairing is not None:
         read_fields, pair_fields = _pe_pairing(
             pairing, B, Bp, T_, aok, score, cx["slot_or"], cx["rid"],
-            lo, hi, cx["slot_valid"], cx["agg_exact"], cx["agg_half"],
+            lo_p, hi_p, cx["slot_valid"], cx["agg_exact"], cx["agg_half"],
             mmug, cpos, ee_read, cx["seed_nz"].to(i32), inst_read, filtered)
     else:
         read_fields = torch.zeros((PE_READ_FIELDS, B), dtype=i32, device=dev)
@@ -786,6 +813,6 @@ def fused_pe(half: FMHalf, ref_words, refn_words, seg: SegTables,
          # rounds loop breaks when the first mate's seed search comes up
          # empty (bt2_search.cpp:3968-3971)
          cx["seed_nz"].to(i32)]
-        + [f.to(i32).reshape(-1) for f in ci_fields] + [n_dropped])
+        + [_i32(f).reshape(-1) for f in ci_fields] + [n_dropped])
     return FusedPEResult(blob, slots, res.dirs, cx["jreads_c"],
                          cx["jquals_c"], cx["wins"])

@@ -5,12 +5,20 @@ reference.h:98-111): for each DP candidate, expand a window of 2-bit packed
 reference into codes 0..5, where 4 = N (from the ambiguity bitmask) and
 5 = outside the candidate's reference sequence. One word gather plus
 shifts and masks, no loop: these stay plain torch ops on every device.
-Window positions are in global reference space (index/build.py IndexData).
+Window positions are in global reference space (index/build.py IndexData):
+int32 in the small index mode, int64 in the large mode, whose global
+coordinates may pass 2^31 (word indices, below 2^28, are the same values
+either way).
 """
 
 import torch
 
 i32 = torch.int32
+
+
+def _positions(starts: torch.Tensor) -> torch.Tensor:
+    """Window starts in their mode's type: int64 stays, else int32."""
+    return starts if starts.dtype == torch.int64 else starts.to(i32)
 
 
 def _take_words(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -31,10 +39,10 @@ def _unpack(words: torch.Tensor, bits: int) -> torch.Tensor:
 def gather_windows(ref_words: torch.Tensor, refn_words: torch.Tensor,
                    starts: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                    width: int) -> torch.Tensor:
-    """starts/lo/hi: (B,) int32 global positions → (B, width) int32 codes;
-    positions outside [lo, hi) are code 5."""
+    """starts/lo/hi: (B,) global positions (int32, or int64 in the large
+    mode) → (B, width) int32 codes; positions outside [lo, hi) are code 5."""
     dev = starts.device
-    starts = starts.to(i32)
+    starts = _positions(starts)
     ar_w = torch.arange(width, dtype=i32, device=dev)[None, :]
     nw = width // 16 + 2
     wstart = torch.clamp(starts, min=-(1 << 24)) >> 4
@@ -72,7 +80,7 @@ def gather_windows_aligned(ref_words: torch.Tensor, refn_words: torch.Tensor,
     (B,) in [0, 32)); the rect's columns live at [col_shift, col_shift +
     width). Positions outside [lo, hi) or left of `starts` are code 5."""
     dev = starts.device
-    starts = starts.to(i32)
+    starts = _positions(starts)
     Wa = aligned_width(width)
     astart = starts & ~31
     col_shift = starts - astart

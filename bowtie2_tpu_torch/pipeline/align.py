@@ -95,6 +95,18 @@ def _bucket(n: int, buckets=LEN_BUCKETS) -> int:
     return b
 
 
+def _u32pos(a: np.ndarray) -> np.ndarray:
+    """Decode an int32-wrapped global position back to int64.
+
+    The fused PE metadata exports global reference positions as int32 to
+    keep the blob one dtype; in the large-index mode true positions span
+    [-(G+31), 4.29e9) — an interval shorter than 2^32, so the mod-2^32
+    image is unambiguous: values in the top 4096 slots are the (small)
+    negatives, everything else is the non-negative position."""
+    v = a.astype(np.int64) & 0xFFFFFFFF
+    return np.where(v >= (1 << 32) - 4096, v - (1 << 32), v)
+
+
 def _pow2_at_least(n: int, lo: int = 256) -> int:
     b = lo
     while b < n:
@@ -296,12 +308,16 @@ class BatchAligner:
         self.dp_log = None       # --log-dp sink
         self._stats_lock = threading.Lock()
         self._seg_end_joined = data.seg_joined_start + data.seg_len
+        # device segment tables and host row arrays follow the index's row
+        # mode: int64 in the large mode (global positions past 2^31,
+        # uint32 rows), int32 otherwise
+        sdt = np.int64 if self.idx.fw.large else np.int32
         self.seg = SegTables(
-            seg_joined_start=self._put(data.seg_joined_start.astype(np.int32)),
-            seg_global_start=self._put(data.seg_global_start.astype(np.int32)),
-            seg_end_joined=self._put(self._seg_end_joined.astype(np.int32)),
-            ref_cum=self._put(data.ref_cum.astype(np.int32)))
-        self._row_dtype = np.int32
+            seg_joined_start=self._put(data.seg_joined_start.astype(sdt)),
+            seg_global_start=self._put(data.seg_global_start.astype(sdt)),
+            seg_end_joined=self._put(self._seg_end_joined.astype(sdt)),
+            ref_cum=self._put(data.ref_cum.astype(sdt)))
+        self._row_dtype = sdt
 
     def _put(self, a) -> torch.Tensor:
         """Host → device. On the card the copy goes from pinned memory and
@@ -377,9 +393,9 @@ class BatchAligner:
         # run every one of up to 2^20 rows and keep their direction words,
         # and no walk reads it
         NC = max(n, 1) if diag_kernel else _pow2_at_least(max(n, 1))
-        starts = np.zeros(NC, dtype=np.int32)
-        lo = np.zeros(NC, dtype=np.int32)
-        hi = np.zeros(NC, dtype=np.int32)
+        starts = np.zeros(NC, dtype=self._row_dtype)
+        lo = np.zeros(NC, dtype=self._row_dtype)
+        hi = np.zeros(NC, dtype=self._row_dtype)
         starts[:n] = win_start
         lo[:n] = self.data.ref_cum[rid]
         hi[:n] = self.data.ref_cum[rid + 1]
@@ -1052,7 +1068,7 @@ class BatchAligner:
                 parts.append((r_ids, np.full(tot, oi, np.int64),
                               np.zeros(tot, np.int64),
                               (sw_top[oi * B:oi * B + B][r_ids]
-                               + d).astype(np.int32),
+                               + d).astype(np.int64),
                               np.ones(tot, bool),
                               lens[r_ids].astype(np.int64),
                               np.zeros(tot, bool),
@@ -1069,7 +1085,7 @@ class BatchAligner:
             parts.append((flat_read,
                           oris[flat_read, flat_j],
                           offs[flat_read, flat_j].astype(np.int64),
-                          (tops[flat_read, flat_j] + d).astype(np.int32),
+                          (tops[flat_read, flat_j] + d).astype(np.int64),
                           np.zeros(tot, bool),
                           mlens[flat_read, flat_j].astype(np.int64),
                           halfs[flat_read, flat_j],
@@ -1079,7 +1095,7 @@ class BatchAligner:
                           w[flat_read, flat_j].astype(np.int64)))
         if not parts:
             z = np.zeros(0, np.int64)
-            return (z, z.copy(), z.copy(), np.zeros(0, np.int32),
+            return (z, z.copy(), z.copy(), z.copy(),
                     np.zeros(0, bool), z.copy(), np.zeros(0, bool),
                     z.copy(), z.copy())
         cat = [np.concatenate([p[i] for p in parts]) for i in range(11)]
@@ -1167,7 +1183,7 @@ class UnpairedAligner(BatchAligner):
     def _resolve(self, rows: List[int]) -> np.ndarray:
         """sa_resolve of host rows → joined offsets (int64)."""
         NR = _pow2_at_least(len(rows), lo=64)
-        rows_pad = np.zeros(NR, dtype=np.int32)
+        rows_pad = np.zeros(NR, dtype=self._row_dtype)
         rows_pad[:len(rows)] = rows
         return _np(fm.sa_resolve(self.idx.fw, self._put(rows_pad),
                                  period=1 << self.data.off_rate)

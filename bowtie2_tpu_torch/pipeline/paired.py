@@ -35,7 +35,8 @@ from bowtie2_tpu_torch.ops.fused import FusedPEResult, fused_pe
 from bowtie2_tpu_torch.pipeline.align import (LEN_BUCKETS,
                                               AlignStats, BatchAligner,
                                               CandSet, DPPool, _bucket, _np,
-                                              _round_batch, pad_reads)
+                                              _round_batch, _u32pos,
+                                              pad_reads)
 from bowtie2_tpu_torch.pipeline.pe import (PE_DISCORD, pe_classify,
                                            rescue_window)
 
@@ -566,13 +567,14 @@ class PairedAligner(BatchAligner):
         sf = _np(fpb.res.slots)
         self.metrics.add(t_dp=_time.time() - _t)
         _t = _time.time()
+        large = self.idx.fw.large
         OCC = sf[0].astype(bool)
         AOK = sf[1].astype(bool)
         S = sf[2]
         OR = sf[3]
         RID = sf[4]
-        LO = sf[5].astype(np.int64)
-        HI = sf[6].astype(np.int64)
+        LO = _u32pos(sf[5]) if large else sf[5].astype(np.int64)
+        HI = _u32pos(sf[6]) if large else sf[6].astype(np.int64)
         RDEND = sf[7]
         EXACT = sf[8].astype(bool)
         HALF = sf[9].astype(bool)
@@ -580,8 +582,10 @@ class PairedAligner(BatchAligner):
         RWID = sf[11]
         CPOS = sf[12]
         MMUG = sf[13]
-        ANCH = sf[14].astype(np.int64)
+        ANCH = _u32pos(sf[14]) if large else sf[14].astype(np.int64)
         astart, ci_rid, ci_row, ci_lane, ci_score, ci_dplane = cif
+        if large:
+            astart = _u32pos(astart)
 
         pool = DPPool(G=fpb.G, Lmax=fpb.Lmax, n=NC,
                       win_start=astart.astype(np.int64),
@@ -1001,17 +1005,20 @@ class PairedAligner(BatchAligner):
         from types import SimpleNamespace
         pol = self.pol
         B, Bp, B2, T, NC = fpb.B, fpb.Bp, fpb.B2, fpb.T, fpb.NC
+        large = self.idx.fw.large
         (r_fc, r_fo, r_flo32, r_fhi32, r_fs, r_hasl,
          r_sc, r_ss, r_hasl2, r_nl) = rf
-        r_flo = r_flo32.astype(np.int64)
-        r_fhi = r_fhi32.astype(np.int64)
+        r_flo = _u32pos(r_flo32) if large else r_flo32.astype(np.int64)
+        r_fhi = _u32pos(r_fhi32) if large else r_fhi32.astype(np.int64)
         (p_has, b1c, b1o, b1lo32, b1hi32, b1s,
          b2c, b2o, b2lo32, b2hi32, b2s, p_bss, p_sss, p_nk, _hn) = pf
-        b1lo = b1lo32.astype(np.int64)
-        b1hi = b1hi32.astype(np.int64)
-        b2lo = b2lo32.astype(np.int64)
-        b2hi = b2hi32.astype(np.int64)
+        b1lo = _u32pos(b1lo32) if large else b1lo32.astype(np.int64)
+        b1hi = _u32pos(b1hi32) if large else b1hi32.astype(np.int64)
+        b2lo = _u32pos(b2lo32) if large else b2lo32.astype(np.int64)
+        b2hi = _u32pos(b2hi32) if large else b2hi32.astype(np.int64)
         astart, ci_rid, ci_row, ci_lane, ci_score, ci_dplane = cif
+        if large:
+            astart = _u32pos(astart)
 
         pool = DPPool(G=fpb.G, Lmax=fpb.Lmax, n=NC,
                       win_start=astart.astype(np.int64),

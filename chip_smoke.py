@@ -118,6 +118,28 @@ Phases, each of which exits non-zero when it fails:
    timed as in phase 6 (`chain_ms`: one problem or one walk alone); its
    bound counts each problem's len rows of BW cells and what they move,
    and each walk's steps, as the data needs them.
+13. The large index mode (uint32 rows, int64 positions): (a) the four FM
+   kernels' `_u32` entries on ops/cases.py `large_fm_case` (2^31 + 2^27 -
+   1 rows: fm_blocks 0.86 GB, mark_rows 0.36 GB, offs 0.27 GB on the
+   card; read, half-read and seed states at the main path's first-call
+   shapes, SA rows mostly past 2^31), each held to its plain version,
+   some of its results past 2^31, timed, its bound from what the states
+   touch (fm_work, resolve_work); (b) global coordinates past 2^31: an
+   all-N reference of PAD_BP bp, then the E. coli-sim genome split into
+   two references with N runs, built by the port's builder; the first SE
+   batch (--batch reads) and the first PE batch (3,125 pairs) on the card
+   must equal the same reads against the two references alone, and
+   LARGE_CPU_SE reads and LARGE_CPU_PE pairs on the card the CPU's; (c)
+   the repcorpus and E. coli-sim genomes indexed with `large=True`: the
+   first SE batch, the first PE batch (fused path) and the first long
+   reads of phase 12 must equal their small-index runs, with SE reads/s
+   and PE pairs/s beside the small index's on the same batch (two runs
+   each, in turns, with the host timers of each), and each
+   `_u32` kernel is held to its plain version on the forced-large main
+   path's first call and timed on phase 6's first-call inputs beside the
+   small-mode kernel. Every large-mode run is counted from 0: only `_u32`
+   FM entries may launch, no plain version may run, and each `_u32` entry
+   must launch.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -210,9 +232,15 @@ BT_WARP_WALKS_PER_SM = 4 * 2 * 8
 
 # the kernels of each entry in `ptxas -v`'s report of its source: a
 # prefix, and for the DP the ORIGIN template flag (`<WPT,LOCAL,ORIGIN>`)
-PTXAS_FUNCS = {"fm_sweep": "sweep_kernel", "fm_seed": "seed_kernel",
-               "fm_substring": "substring_kernel",
-               "sa_resolve": "resolve_kernel", "sw_rect": ("sw_", ",0>"),
+PTXAS_FUNCS = {"fm_sweep": ("sweep_kernel", "<int>"),
+               "fm_seed": ("seed_kernel", "<int>"),
+               "fm_substring": ("substring_kernel", "<int>"),
+               "sa_resolve": ("resolve_kernel", "<int>"),
+               "fm_sweep_u32": ("sweep_kernel", "<uint32>"),
+               "fm_seed_u32": ("seed_kernel", "<uint32>"),
+               "fm_substring_u32": ("substring_kernel", "<uint32>"),
+               "sa_resolve_u32": ("resolve_kernel", "<uint32>"),
+               "sw_rect": ("sw_", ",0>"),
                "sw_rect_origin": ("sw_", ",1>"),
                "sw_rect@rescue": ("sw_block_kernel", ",0>"),
                "backtrace": "bt_", "sw_diag": "sw_diag_kernel",
@@ -252,6 +280,29 @@ ECOLI_SE = 100_000
 ECOLI_PAIRS = 50_000
 PE_BATCH = 3125
 CLI_SE = 8192
+
+# the large index mode's C entries (uint32 rows), by the wrapper that
+# launches each: name -> (wrapper, source, TPU-side function it replaces)
+LARGE_KERNELS = {
+    "fm_sweep_u32": ("fm_sweep", "bowtie2_tpu_torch/csrc/fm_search.cu",
+                     "bowtie2_tpu/ops/fm.py:215"),
+    "fm_seed_u32": ("fm_seed", "bowtie2_tpu_torch/csrc/fm_search.cu",
+                    "bowtie2_tpu/ops/fm.py:335"),
+    "fm_substring_u32": ("fm_substring",
+                         "bowtie2_tpu_torch/csrc/fm_search.cu",
+                         "bowtie2_tpu/ops/fm.py:275"),
+    "sa_resolve_u32": ("sa_resolve", "bowtie2_tpu_torch/csrc/sa_resolve.cu",
+                       "bowtie2_tpu/ops/fm.py:408"),
+}
+# phase 13's genome whose global coordinates pass 2^31: an all-N leading
+# reference of PAD_BP, then the E. coli-sim genome split at its middle
+# into two references, the first with an N run at N_RUN, the second with
+# N_ENDS Ns at both ends; and the reads held to the CPU there
+PAD_BP = (1 << 31) + (1 << 24)
+N_RUN, N_ENDS = (1_000_000, 1_001_000), 100
+LARGE_CPU_SE, LARGE_CPU_PE = 512, 256
+# the row that the large table's states must pass
+PAST_ROW = 1 << 31
 
 KERNELS = {  # name -> (source, TPU-side function it replaces)
     "fm_sweep": ("bowtie2_tpu_torch/csrc/fm_search.cu",
@@ -312,7 +363,7 @@ class Recorder:
                     lambda half, seeds, *a, **k: seeds)
         self._patch(fm, "sa_resolve", "sa_resolve",
                     lambda half, rows, period=32: (
-                        half, rows.to(i32).contiguous(), period),
+                        half, rows.to(half.row_dtype).contiguous(), period),
                     lambda half, rows, period=32: rows)
         self._patch_sw(sw)
         self._patch(sw, "_sw_banded_diag_cuda", "sw_diag", lambda *a: a)
@@ -617,14 +668,17 @@ def nbytes(*ts) -> int:
 
 def fm_work(fm, name, args):
     """(bytes, LF steps, derived facts) that the search needs on these
-    inputs: each input read once, each output written once. The read sweep
-    is charged the whole FM table and fchr. The seed and half-read
-    searches replay the plain version's state on the card and are charged
-    only what it touches: the 48-byte row of each distinct block where a
-    live step (a LF step of a range that is not empty, code < 4) reads top
-    or bot, 8 bytes for each distinct ftab key a valid seed with no N in
-    its tail looks up, and fchr. LF steps are two a live step. The facts
-    are derived from the replay, not measured:
+    inputs: each input read once, each output written once. Each search
+    replays the plain version's state on the card and is charged only
+    what it touches: the 48-byte row of each distinct block where a live
+    step (a LF step of a range that is not empty, code < 4; the read
+    sweep restarts an empty range and steps every code < 4) reads top or
+    bot, two ftab entries (4 bytes each, int32 bits in either mode) for
+    each distinct ftab key a valid seed with no N in its tail looks up,
+    and fchr. Rows in and out count at the tensor API's row type: 8 bytes
+    in the large mode, whose rows are int64 tensors holding uint32 values.
+    LF steps are two a live step. The facts are derived from the replay,
+    not measured:
     - live_step_share: live steps over the state-steps the search has (a
       seed's seed_len - K columns; a half-read state's columns of code
       < 5);
@@ -636,20 +690,18 @@ def fm_work(fm, name, args):
       another block, and the inputs and outputs read or written once (one
       sector a ftab lookup)."""
     half = args[0]
-    if name == "fm_sweep":
-        rr = args[1]
-        return (nbytes(half.fm_blocks, half.fchr) + nbytes(rr)
-                + 3 * rr.shape[0] * 4, int((rr < 4).sum()) * 2, {})
-    i32 = torch.int32
+    rdt = half.row_dtype
+    rsize = torch.empty(0, dtype=rdt).element_size()
     keys = lookups = 0
-    if name == "fm_substring":
+    if name in ("fm_sweep", "fm_substring"):
         rr = args[1]
         B = rr.shape[0]
-        top = torch.zeros(B, dtype=i32, device=rr.device)
-        bot = torch.full((B,), half.nrows, dtype=i32, device=rr.device)
+        top = torch.zeros(B, dtype=rdt, device=rr.device)
+        bot = torch.full((B,), half.nrows, dtype=rdt, device=rr.device)
         cols = [rr[:, p] for p in range(rr.shape[1])]
         slots = int((rr < 5).sum())
-        io = nbytes(rr) + 2 * B * 4
+        # outputs: top and bot (and the sweep's int32 edit count)
+        io = nbytes(rr) + 2 * B * rsize + 4 * B * (name == "fm_sweep")
     else:
         _, seeds, valid, seed_len, K = args
         B = seeds.shape[0]
@@ -658,7 +710,7 @@ def fm_work(fm, name, args):
         if K:
             # the ftab start (last K chars), then LF steps right to left
             tail = seeds[:, seed_len - K:]
-            w = 4 ** torch.arange(K - 1, -1, -1, dtype=i32,
+            w = 4 ** torch.arange(K - 1, -1, -1, dtype=torch.int32,
                                   device=seeds.device)
             key = (torch.clamp(tail, 0, 3) * w).sum(dim=1)
             top0, bot0 = fm.ftab_lookup_batch(half, key)
@@ -668,25 +720,33 @@ def fm_work(fm, name, args):
             top = torch.where(ok, top0, 1)
             bot = torch.where(ok, bot0, 0)
         else:
-            top = torch.zeros(B, dtype=i32, device=seeds.device)
-            bot = torch.where(valid, half.nrows, 0).to(i32)
+            top = torch.zeros(B, dtype=rdt, device=seeds.device)
+            bot = torch.where(valid, half.nrows, 0).to(rdt)
         cols = [seeds[:, q] for q in range(seed_len - K - 1, -1, -1)]
         slots = B * len(cols)
-        io = nbytes(seeds, valid) + 2 * B * 4
+        io = nbytes(seeds, valid) + 2 * B * rsize
     nb = half.fm_blocks.shape[0]
     live_n = same_n = 0
     blocks = []
     for c in cols:
-        live = (c < 4) & (top < bot)
+        if name == "fm_sweep":
+            live = c < 4
+        else:
+            live = (c < 4) & (top < bot)
         bt, bb = top[live] // 128, bot[live] // 128
         live_n += int(live.sum())
         same_n += int((bt == bb).sum())
         blocks.append(torch.unique(torch.cat([bt, bb]).clamp(max=nb - 1)))
         ntop, nbot = fm._lf2(half, top, bot, torch.clamp(c, 0, 3))
-        dead = (c >= 4) | ~(top < bot)
-        ntop = torch.where(dead, 1, ntop)
-        nbot = torch.where(dead, 0, nbot)
-        act = c < 5 if name == "fm_substring" else torch.ones_like(dead)
+        if name == "fm_sweep":       # restart on an empty range or an N
+            empty = (ntop >= nbot) | (c == 4)
+            ntop = torch.where(empty, 0, ntop)
+            nbot = torch.where(empty, half.nrows, nbot)
+        else:
+            dead = (c >= 4) | ~(top < bot)
+            ntop = torch.where(dead, 1, ntop)
+            nbot = torch.where(dead, 0, nbot)
+        act = c < 5 if name != "fm_seed" else torch.ones_like(live)
         top = torch.where(act, ntop, top)
         bot = torch.where(act, nbot, bot)
     rows = torch.unique(torch.cat(blocks)).numel() if blocks else 0
@@ -695,8 +755,9 @@ def fm_work(fm, name, args):
                  live_steps=live_n, rows_touched=rows, ftab_keys=keys,
                  l2_sectors=2 * live_n + 2 * (live_n - same_n) + lookups
                  + -(-io // 32))
-    return (48 * rows + 8 * keys + nbytes(half.fchr) + io, 2 * live_n,
-            facts)
+    return (48 * rows + 2 * half.ftab.element_size() * keys
+            + nbytes(half.fchr) + io,
+            2 * live_n, facts)
 
 
 def resolve_work(fm, args):
@@ -746,9 +807,7 @@ def resolve_work(fm, args):
         steps += step.long()
         frows = fm._rows(half, block)
         c = fm._crumbs(frows[:, :8]).gather(1, pos.long())[:, 0]
-        nrow = half.fchr.index_select(0, c.long()) + \
-            fm._occ_rows(half, row, c, frows)
-        row = torch.where(done, row, nrow.to(torch.int32))
+        row = torch.where(done, row, fm.lf_row(half, row, c, frows))
     total = int(steps.sum())
     pad = torch.zeros((-B) % 32, dtype=torch.int64, device=rows.device)
     wmax = torch.cat([steps, pad]).view(-1, 32).max(dim=1).values
@@ -757,10 +816,11 @@ def resolve_work(fm, args):
         lane_idle_share=1 - total / max(1, 32 * int(wmax.sum())),
         sectors=SECTORS_STEP * total + SECTORS_ROW * B,
         sectors_warp=sectors_warp + 2 * B)
+    rsize = rows.element_size()         # rows and offsets: the row type
     byt = (20 * torch.unique(torch.cat(mark_blocks)).numel()
            + 48 * torch.unique(torch.cat(lf_blocks)).numel()
            + 4 * torch.unique(row).numel() + nbytes(half.fchr, rows)
-           + B * 4)
+           + B * rsize)
     return byt, total * OPS_RESOLVE_STEP + B * OPS_RESOLVE_ROW, facts
 
 
@@ -996,7 +1056,8 @@ def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
 def long_phase(a, m, egenome, edata, pol, lpol, rec):
     """Phase 12, the long-read path on the card (see the module's
     docstring). m: the port's modules and classes. Returns the `kernels`
-    entries of sw_diag and bt_diag."""
+    entries of sw_diag and bt_diag, and the first LONG_CPU reads with
+    their end-to-end SAM groups on the card."""
     t_phase = time.time()
     sw, build = m.sw, m._build
     rng = np.random.default_rng(a.seed)
@@ -1085,20 +1146,22 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
         f"(problems, Lmax), bt_diag by (walks, Lmax, S))")
 
     # the card's SAM against the CPU's: the first reads, e2e and --local
-    first = recs[:LONG_CPU]
+    first_recs = recs[:LONG_CPU]
     for label, policy in (("end to end", pol), ("--local", lpol)):
         t1 = time.time()
         card = m.UnpairedAligner(edata, policy)
         rec.take()
-        cg = card.collect_raw(card.submit(first))
+        cg = card.collect_raw(card.submit(first_recs))
         torch.cuda.synchronize()
         if policy is lpol:
             local_args = rec.take()
+        else:
+            first_groups = cg
         cpu = m.UnpairedAligner(edata, policy, device="cpu")
-        pg = cpu.collect_raw(cpu.submit(first))
+        pg = cpu.collect_raw(cpu.submit(first_recs))
         nd = sum(1 for x, y in zip(cg, pg) if x != y)
-        log(f"long-read SAM check ({label}): {len(first)} reads, card vs "
-            f"CPU plain versions: {nd} groups differ "
+        log(f"long-read SAM check ({label}): {len(first_recs)} reads, card "
+            f"vs CPU plain versions: {nd} groups differ "
             f"({time.time() - t1:.1f} s)")
         if nd or len(cg) != len(pg):
             fail(f"long reads {label}: card and CPU SAM differ in {nd} reads")
@@ -1296,6 +1359,307 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
             + "".join(f" {k}={v}" for k, v in extra.items())
             + f" shape {entry['shape']} ptxas {entry['ptxas']}")
     log(f"long-read phase: {time.time() - t_phase:.1f} s")
+    return entries, first_recs, first_groups
+
+
+def large_phase(a, m, ctx):
+    """Phase 13, the large index mode on the card (see the module's
+    docstring). m: the port's modules and classes; ctx: what earlier
+    phases made (genomes, indexes, batches and their SAM). Returns the
+    `kernels` entries of the four `_u32` entries."""
+    t_phase = time.time()
+    fm, build, rec = m.fm, m._build, ctx["rec"]
+    dev = torch.device("cuda")
+    pol = ctx["pol"]
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def launched(label, fn):
+        """fn() with the counts set to 0 just before and read just after;
+        every large-mode run must launch only `_u32` FM entries."""
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t1 = time.time()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"{label}: {type(e).__name__}: {e}")
+        wall = time.time() - t1
+        ln, pl = dict(build.LAUNCHES), dict(build.PLAIN_CALLS)
+        if pl:
+            fail(f"{label}: plain versions ran on the card: {pl}")
+        small = [k for k in LARGE_KERNELS.values() if ln.get(k[0], 0)]
+        if small:
+            fail(f"{label}: small-mode FM entries launched: {small}")
+        for k in LARGE_KERNELS:
+            large_launch[k] = large_launch.get(k, 0) + ln.get(k, 0)
+        return out, wall, ln
+
+    large_launch = {}
+    kerns = {k: getattr(rec, "orig_" + w) for k, (w, _s, _r) in
+             LARGE_KERNELS.items()}
+    plains = {"fm_sweep_u32": fm._sweep_plain,
+              "fm_substring_u32": fm._substring_plain,
+              "fm_seed_u32": fm._seed_plain,
+              "sa_resolve_u32": fm._resolve_plain}
+
+    # (a) the kernels past 2^31 rows, on ops/cases.py large_fm_case
+    t1 = time.time()
+    c = m.cases.large_fm_case(seed=a.seed)
+    t_case = time.time() - t1
+    half = m.half_from_tables(c.n, c.z_off, c.fm_blocks, c.fchr, c.ftab,
+                              c.mark_rows, c.offs, True, dev)
+    big_args = {
+        "fm_sweep_u32": (half, put(c.sweep_rr)),
+        "fm_substring_u32": (half, put(c.substring_rr)),
+        "fm_seed_u32": (half, put(c.seeds), put(c.seed_valid), c.seed_len,
+                        c.ftab_chars),
+        "sa_resolve_u32": (half, put(c.resolve_rows), 32)}
+    log(f"large table: {c.n + 1} rows ({half.fm_blocks.shape[0]} blocks; "
+        f"fm_blocks {nbytes(half.fm_blocks) / 1e9:.3f} GB, mark_rows "
+        f"{nbytes(half.mark_rows) / 1e9:.3f} GB, offs "
+        f"{nbytes(half.offs) / 1e9:.3f} GB on the card), fchr "
+        f"{c.fchr.tolist()}, made in {t_case:.1f} s")
+    del c
+    big = {}
+    for name, args in big_args.items():
+        got, err = max_err(kerns[name], plains[name], args)
+        out0 = got[0] if isinstance(got, tuple) else got
+        past = int((out0 >= PAST_ROW).sum())
+        if name == "sa_resolve_u32":
+            past = int((args[1] >= PAST_ROW).sum())
+        if past == 0:
+            fail(f"{name}: no state reached a row past 2^31")
+        ms = time_cuda(lambda: kerns[name](*args), a.reps)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plains[name](*args)
+        e1.record()
+        torch.cuda.synchronize()
+        if name == "sa_resolve_u32":
+            byt, ops, _facts = resolve_work(fm, args)
+        else:
+            byt, lf, _facts = fm_work(fm, name.replace("_u32", ""), args)
+            ops = lf * OPS_LF
+        big[name] = dict(err=err, ms=ms, plain_ms=e0.elapsed_time(e1),
+                         bytes_ms=byt / PEAK_BYTES_S * 1e3,
+                         ops_ms=ops / PEAK_OPS_S * 1e3, past=past,
+                         shape=[list(t.shape) for t in args
+                                if isinstance(t, torch.Tensor)][:1])
+        log(f"large kernel {name} on the large table: max_abs_err={err}; "
+            f"{past} of {out0.numel()} results (SA walk: rows) past 2^31; "
+            f"ms={ms:.4f} plain_ms={big[name]['plain_ms']:.3f} bound_ms="
+            f"{max(big[name]['bytes_ms'], big[name]['ops_ms']):.5f} (bytes "
+            f"{big[name]['bytes_ms']:.5f}, operations "
+            f"{big[name]['ops_ms']:.5f}) shape {big[name]['shape']}")
+    del big_args, half
+    torch.cuda.empty_cache()
+
+    # (b) global coordinates past 2^31 on the alignment path: an all-N
+    # reference of PAD_BP, then the E. coli-sim genome in two references
+    t1 = time.time()
+    eg = ctx["egenome"].astype(np.uint8)
+    half_g = eg.size // 2
+    ra, rb = eg[:half_g].copy(), eg[half_g:].copy()
+    ra[N_RUN[0]:N_RUN[1]] = 4
+    rb[:N_ENDS] = 4
+    rb[-N_ENDS:] = 4
+    refs = [("ecoli_a", ra), ("ecoli_b", rb)]
+    d_small = m.build_index_from_refs(refs)
+    d_big = m.build_index_from_refs(
+        [("pad", np.full(PAD_BP, 4, np.uint8))] + refs)
+    log(f"padded genome: references {d_big.ref_names} of "
+        f"{d_big.ref_lens.tolist()} bp, global coordinates to "
+        f"{int(d_big.ref_cum[-1])}, joined text {d_big.fw.n} bp (host "
+        f"tables {d_big.fw.occ_cp.dtype}); built in {time.time() - t1:.1f} "
+        f"s")
+    se_recs = [m.SeqRecord(name=f"e{i}", seq=ctx["se_codes"][i].astype(
+        np.uint8), qual=ctx["se_quals"][i]) for i in range(a.batch)]
+    pe_batch = ctx["pairs"][:PE_BATCH]
+    checks = {}
+
+    def se_run(data, recs, device=None):
+        al = m.UnpairedAligner(data, pol, device=device)
+        return al.collect_raw(al.submit(recs)), al
+
+    def pe_run(data, pairs, device=None, policy=None):
+        al = m.PairedAligner(data, policy or pol, device=device)
+        fb = al.submit(pairs)
+        return al.collect_raw(fb), al, fb
+
+    (g_big, al_big), w_big, ln_big = launched(
+        "padded genome, SE", lambda: se_run(d_big, se_recs))
+    if not al_big.idx.fw.large or al_big.idx.ref_cum.dtype != torch.int64:
+        fail("the padded genome's index is not in the large mode")
+    g_small, _al = se_run(d_small, se_recs)
+    nd = sum(1 for x, y in zip(g_big, g_small) if x != y)
+    aligned = sum(1 for g in g_big if not g[0][0] & 4)
+    checks["padded SE vs small index"] = nd
+    log(f"padded genome SE: {len(se_recs)} reads ({aligned} aligned) in "
+        f"{w_big:.2f} s on the card; launches {ln_big}; vs the two "
+        f"references alone: {nd} groups differ")
+    if nd or len(g_big) != len(g_small):
+        fail(f"padded genome SE: {nd} groups differ from the small index")
+    (pg_big, pal_big, fb), pw_big, pln_big = launched(
+        "padded genome, PE", lambda: pe_run(d_big, pe_batch))
+    if isinstance(fb, tuple):
+        fail(f"padded genome PE took the {fb[0]} path, not the fused one")
+    pg_small, _pal, _fb = pe_run(d_small, pe_batch)
+    nd = sum(1 for x, y in zip(pg_big, pg_small) if x != y)
+    checks["padded PE vs small index"] = nd
+    log(f"padded genome PE: {len(pe_batch)} pairs in {pw_big:.2f} s on the "
+        f"card ({pal_big.stats.conc_one + pal_big.stats.conc_multi} "
+        f"concordant, {pal_big.stats.disc} discordant; host-path batches "
+        f"{pal_big.metrics.counters.get('host_batches', 0)}); launches "
+        f"{pln_big}; vs the two references alone: {nd} groups differ")
+    if nd or len(pg_big) != len(pg_small):
+        fail(f"padded genome PE: {nd} pairs differ from the small index")
+    t1 = time.time()
+    cpu_se, _al = se_run(d_big, se_recs[:LARGE_CPU_SE], "cpu")
+    card_se, _al = se_run(d_big, se_recs[:LARGE_CPU_SE])
+    cpu_pe, _al, _fb = pe_run(d_big, pe_batch[:LARGE_CPU_PE], "cpu")
+    card_pe, _al, _fb = pe_run(d_big, pe_batch[:LARGE_CPU_PE])
+    nds = sum(1 for x, y in zip(cpu_se, card_se) if x != y)
+    ndp = sum(1 for x, y in zip(cpu_pe, card_pe) if x != y)
+    checks["padded SE card vs CPU"] = nds
+    checks["padded PE card vs CPU"] = ndp
+    log(f"padded genome, card vs CPU plain versions: {LARGE_CPU_SE} reads "
+        f"{nds} groups differ, {LARGE_CPU_PE} pairs {ndp} differ "
+        f"({time.time() - t1:.1f} s)")
+    if nds or ndp or len(cpu_se) != len(card_se) or \
+            len(cpu_pe) != len(card_pe):
+        fail("padded genome: the card's SAM differs from the CPU's")
+    del d_big, al_big, pal_big, fb
+    torch.cuda.empty_cache()
+
+    # (c) forced large on the earlier cells' genomes: the first SE batch,
+    # the first PE batch (fused path) and the first long reads, each
+    # against its small-index run of the earlier phases; the forced-large
+    # main-path calls hold the `_u32` kernels to their plain versions and
+    # time them beside the small-mode kernels on the same inputs
+    t1 = time.time()
+    rep_l = m.build_index_from_refs([("rep", ctx["genome"].astype(np.uint8))],
+                                    large=True)
+    eco_l = m.build_index_from_refs([("ecoli_sim", eg)], large=True)
+    log(f"forced-large indexes of the repcorpus and E. coli-sim genomes "
+        f"built in {time.time() - t1:.1f} s")
+    # each batch four times, small and large index in turns (small, large,
+    # large, small): one batch's wall time varies by more than the modes
+    # differ; the host timers say where the time went
+    rates = {}
+    replay = host_timers([(m.traj_replay, "run_replays")])
+    for label, data, run, batch, want, unit in (
+            ("repcorpus SE", ctx["data"], se_run, ctx["chunk0"],
+             ctx["groups0"], "reads"),
+            ("E. coli-sim PE", ctx["edata"], pe_run, ctx["pe_batch0"],
+             ctx["pe_groups0"], "pairs")):
+        big_data = rep_l if data is ctx["data"] else eco_l
+        walls = {"small": [], "large": []}
+        spent = {"small": {}, "large": {}}
+        for turn, tag in enumerate(("small", "large", "large", "small")):
+            r0 = replay.get("run_replays", 0.0)
+            rec.take()
+            if tag == "large":
+                out, w, ln = launched(f"forced large {label}",
+                                      lambda: run(big_data, batch))
+            else:
+                t0 = time.time()
+                out = run(data, batch)
+                torch.cuda.synchronize()
+                w = time.time() - t0
+            if turn == 1:            # the first large run: the checks
+                nd = sum(1 for x, y in zip(out[0], want) if x != y)
+                checks[f"forced large {label}"] = nd
+                if nd or len(out[0]) != len(want):
+                    fail(f"forced large {label}: {nd} groups differ")
+                if unit == "reads":
+                    main_args = rec.take()
+                launches = ln
+            walls[tag].append(w)
+            acc = spent[tag]
+            for k, v in out[1].metrics.counters.items():
+                if k.startswith("t_"):
+                    acc[k] = acc.get(k, 0.0) + v / 2
+            acc["run_replays"] = acc.get("run_replays", 0.0) + (
+                replay.get("run_replays", 0.0) - r0) / 2
+        rates[label] = tuple(len(batch) * 2 / sum(walls[t])
+                             for t in ("small", "large"))
+        log(f"forced large {label}: {len(batch)} {unit} a run, "
+            f"{rates[label][1]:.1f} {unit}/s over two runs (small index, "
+            f"same batch, in turns: {rates[label][0]:.1f}); wall s small "
+            f"{[round(x, 3) for x in walls['small']]}, large "
+            f"{[round(x, 3) for x in walls['large']]}; host s a run small "
+            f"{({k: round(v, 3) for k, v in sorted(spent['small'].items())})}"
+            f", large "
+            f"{({k: round(v, 3) for k, v in sorted(spent['large'].items())})}"
+            f"; launches {launches}; vs the small index's run: "
+            f"{checks[f'forced large {label}']} groups differ")
+    lrecs, lwant = ctx["long_first"], ctx["long_groups"]
+    (lg, _al), lw, lln = launched(
+        "forced large long reads", lambda: se_run(eco_l, lrecs))
+    nd = sum(1 for x, y in zip(lg, lwant) if x != y)
+    checks["forced large long reads"] = nd
+    log(f"forced large long reads: {len(lrecs)} reads in {lw:.2f} s; "
+        f"launches {lln}; vs the small index's run: {nd} groups differ")
+    if nd or len(lg) != len(lwant):
+        fail(f"forced large long reads: {nd} groups differ")
+
+    # each `_u32` kernel against its plain version on the forced-large
+    # main path's first call, and timed there beside the small-mode
+    # kernel on the same inputs (phase 6's arguments over the small index
+    # of the same genome)
+    entries = []
+    small_args = ctx["e2e_args"]
+    for name, (wrapper, src, repl) in LARGE_KERNELS.items():
+        if wrapper not in main_args:
+            fail(f"the forced-large SE batch recorded no {wrapper} call")
+        margs = main_args[wrapper]
+        _got, merr = max_err(kerns[name], plains[name], margs)
+        m_ms = time_cuda(lambda: kerns[name](*margs), a.reps)
+        sargs = small_args[wrapper]
+        same = (margs[0],) + tuple(
+            x.long() if wrapper == "sa_resolve" and i == 0 else x
+            for i, x in enumerate(sargs[1:]))
+        _got, serr = max_err(kerns[name], plains[name], same)
+        u_ms = time_cuda(lambda: kerns[name](*same), a.reps)
+        s_ms = time_cuda(lambda: getattr(rec, "orig_" + wrapper)(*sargs),
+                         a.reps)
+        b = big[name]
+        e = max(b["err"], merr, serr)
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=repl,
+            launches=large_launch.get(name, 0), max_abs_err=e,
+            equal=e == 0, ms=round(b["ms"], 4),
+            plain_ms=round(b["plain_ms"], 3),
+            bound_ms=round(max(b["bytes_ms"], b["ops_ms"]), 5),
+            bytes_ms=round(b["bytes_ms"], 5), ops_ms=round(b["ops_ms"], 5),
+            bound_by="bytes" if b["bytes_ms"] >= b["ops_ms"]
+            else "operations",
+            library_ms=None, shape=b["shape"], past_2_31=b["past"],
+            forced_large_first_call_ms=round(m_ms, 4),
+            same_inputs_ms=round(u_ms, 4), small_mode_ms=round(s_ms, 4),
+            ptxas=ptxas_of(build, name, os.path.splitext(
+                os.path.basename(src))[0]))
+        entries.append(entry)
+        log(f"kernel {name}: equal={e == 0} max_abs_err on the large table "
+            f"{b['err']}, the forced-large first call {merr}, phase 6's "
+            f"inputs {serr}; launches on the large-mode runs "
+            f"{entry['launches']}; large table ms={b['ms']:.4f} "
+            f"plain_ms={b['plain_ms']:.3f} bound_ms={entry['bound_ms']}; "
+            f"forced-large first call ms={m_ms:.4f}; on phase 6's first-call "
+            f"inputs ms={u_ms:.4f} against the small-mode kernel's "
+            f"{s_ms:.4f} (x{u_ms / s_ms:.3f}); ptxas {entry['ptxas']}")
+    missing = [k for k in LARGE_KERNELS if not large_launch.get(k)]
+    if missing:
+        fail(f"large-mode entries never launched: {missing}")
+    log(f"large-mode checks (groups differing): {json.dumps(checks)}; "
+        f"rates (small, large): "
+        f"{json.dumps({k: [round(x, 1) for x in v] for k, v in rates.items()})}"
+        f"; large-mode launches {large_launch}; phase 13: "
+        f"{time.time() - t_phase:.1f} s")
     return entries
 
 
@@ -1319,7 +1683,7 @@ def main() -> None:
     sys.path.insert(0, HERE)
     try:
         from bowtie2_tpu_torch.index.build import build_index_from_refs
-        from bowtie2_tpu_torch.index.fmindex import FMIndex
+        from bowtie2_tpu_torch.index.fmindex import FMIndex, half_from_tables
         from bowtie2_tpu_torch.io.fastx import SeqRecord
         from bowtie2_tpu_torch.ops import _build, cases, fm, fused, sw
         from bowtie2_tpu_torch.pipeline import align as align_mod
@@ -1972,9 +2336,23 @@ def main() -> None:
         traj_replay=traj_replay, SeqRecord=SeqRecord,
         UnpairedAligner=UnpairedAligner,
         PairedAligner=PairedAligner, bucket_groups=bucket_groups)
-    long_entries = long_phase(a, port_mods, egenome, edata, pol, lpol, rec)
+    long_entries, long_first, long_groups = long_phase(
+        a, port_mods, egenome, edata, pol, lpol, rec)
     kernels_out.extend(long_entries)
     ok &= all(e["equal"] for e in long_entries)
+
+    # ---------------- phase 13: the large index mode ----------------
+    port_mods.fm = fm
+    port_mods.half_from_tables = half_from_tables
+    port_mods.build_index_from_refs = build_index_from_refs
+    large_entries = large_phase(a, port_mods, dict(
+        rec=rec, pol=pol, egenome=egenome, se_codes=se_codes,
+        se_quals=se_quals, pairs=pairs, genome=genome, data=data,
+        edata=edata, chunk0=chunks[0], groups0=groups[0],
+        pe_batch0=batch0, pe_groups0=first_groups[0], long_first=long_first,
+        long_groups=long_groups, e2e_args=e2e_args))
+    kernels_out.extend(large_entries)
+    ok &= all(e["equal"] for e in large_entries)
 
     print(json.dumps({"kernels": kernels_out}), flush=True)
     if not ok:

@@ -69,6 +69,113 @@ def n_refs_with_ns(seed: int = 3):
     return [("chrA", a), ("chrB", b)]
 
 
+def refs_with_all_n(seed: int = 9):
+    """Three references for the multi-reference checks: one entirely N,
+    one with leading and trailing N runs (and one inside), one shorter
+    than a pair (150 bp)."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, 4, 8000).astype(np.uint8)
+    b[:40] = 4
+    b[3000:3100] = 4
+    b[-60:] = 4
+    return [("allN", np.full(700, 4, np.uint8)), ("chrB", b),
+            ("tiny", rng.integers(0, 4, 150).astype(np.uint8))]
+
+
+def _substitute(rng, codes, rate):
+    c = codes.astype(np.int64).copy()
+    err = rng.random(c.size) < rate
+    c[err] = (np.minimum(c[err], 3) + rng.integers(1, 4, int(err.sum()))) % 4
+    return c.astype(np.uint8)
+
+
+def _revcomp(c):
+    return np.where(c < 4, 3 - c, 4)[::-1].astype(np.uint8)
+
+
+def multiref_reads(refs, n: int, seed: int = 10):
+    """[(name, codes, quals)] over refs_with_all_n: 100-bp reads of chrB
+    (anywhere, so some cross its N runs and ends), its inner N run's edges
+    and the tiny reference (all of it, or the first 60-149 bp), and random
+    reads; 1 % substitutions, every other read reverse-complemented."""
+    rng = np.random.default_rng(seed)
+    b, tiny = refs[1][1], refs[2][1]
+    out = []
+    for i in range(n):
+        kind = i % 5
+        if kind == 3:
+            c = tiny[:int(rng.integers(60, tiny.size + 1))]
+        elif kind == 4:
+            c = rng.integers(0, 4, 100).astype(np.uint8)
+        else:
+            p = int(rng.integers(2950, 3060)) if kind == 2 else \
+                int(rng.integers(0, b.size - 100))
+            c = b[p:p + 100]
+        c = _substitute(rng, c, 0.01)
+        if i % 2:
+            c = _revcomp(c)
+        out.append((f"m{i}", c, rng.integers(25, 41, c.size).astype(
+            np.uint8)))
+    return out
+
+
+def multiref_pairs(refs, n: int, seed: int = 11):
+    """[(name, mate 1, mate 2, quals 1, quals 2)] over refs_with_all_n:
+    FR pairs of 100-bp mates in chrB (inserts 150-500, some across its
+    inner N run), pairs with one mate on the tiny reference (mates on
+    different references), and pairs with a random mate."""
+    rng = np.random.default_rng(seed)
+    b, tiny = refs[1][1], refs[2][1]
+    out = []
+    for i in range(n):
+        kind = i % 4
+        ins = int(rng.integers(150, 501))
+        p = int(rng.integers(2700, 2900)) if kind == 1 else \
+            int(rng.integers(0, b.size - ins))
+        c1 = b[p:p + 100]
+        c2 = _revcomp(b[p + ins - 100:p + ins])
+        if kind == 2:
+            c2 = _revcomp(tiny[20:120])
+        elif kind == 3:
+            c2 = rng.integers(0, 4, 100).astype(np.uint8)
+        c1, c2 = _substitute(rng, c1, 0.01), _substitute(rng, c2, 0.01)
+        out.append((f"q{i}", c1, c2, np.full(100, 35, np.uint8),
+                    rng.integers(25, 41, 100).astype(np.uint8)))
+    return out
+
+
+def port_sam(data, kind: str, batch, entries=("collect", "collect_raw")):
+    """The port's SAM (device="cpu") for one batch of numpy records, run in
+    a process of its own by the tests that hold it beside the JAX
+    package's run: kind "se" (reads (name, codes, quals)) or "pe" (pairs
+    (name, codes 1, codes 2, quals 1, quals 2)). Returns {entry: output}
+    of one submitted batch (`collect`: record lines, `collect_raw`:
+    groups), "path": the kind of batch `submit` returned, and "counters":
+    the host-path batches and the reads the trajectory replay overrode."""
+    import torch
+    torch.set_num_threads(1)
+    from bowtie2_tpu_torch.io.fastx import SeqRecord
+    from bowtie2_tpu_torch.pipeline.align import UnpairedAligner
+    from bowtie2_tpu_torch.pipeline.paired import PairedAligner
+    from bowtie2_tpu_torch.pipeline.policy import make_policy
+    pol = make_policy("sensitive")
+    if kind == "se":
+        al = UnpairedAligner(data, pol, device="cpu")
+        h = al.submit([SeqRecord(name=n, seq=c, qual=q) for n, c, q in batch])
+    else:
+        al = PairedAligner(data, pol, device="cpu")
+        h = al.submit([(SeqRecord(name=n, seq=a, qual=qa),
+                        SeqRecord(name=n, seq=b, qual=qb))
+                       for n, a, b, qa, qb in batch])
+    out = {"path": h[0] if isinstance(h, tuple) else type(h).__name__}
+    for e in entries:
+        out[e] = [r.line() for r in al.collect(h)] if e == "collect" \
+            else al.collect_raw(h)
+    out["counters"] = {k: al.metrics.counters.get(k, 0)
+                       for k in ("host_batches", "traj_overridden")}
+    return out
+
+
 def test_corpus_is_deterministic():
     g1, r1 = corpus(64)
     g2, r2 = corpus(64)

@@ -90,6 +90,11 @@ def test_fmindex_tables_equal(kind):
 
 
 def test_large_index_mode_raises():
+    """The uint32 large mode loads (tests/test_torch_zlarge.py holds it to
+    the JAX package); the int64 row mode past 2^32 rows still raises,
+    naming its ROADMAP.md item (the row count is checked first)."""
     data = pbuild.build_index_from_refs(n_refs_with_ns(), large=True)
+    assert PFMIndex.from_host(data, device="cpu").fw.large
+    data.fw.n = (1 << 32) - 1
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PFMIndex.from_host(data, device="cpu")
