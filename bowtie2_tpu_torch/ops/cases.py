@@ -533,6 +533,18 @@ def resolve_cases(half, period: int, seed: int = 0, scale: int = 1
 DIAG_SHAPES = ((2, 37, 100), (3, 100, 1), (10, 300, 37), (15, 129, 300),
                (30, 100, 64))
 DIAG_GBARS = (4, 0, 10)
+# (name, kind, G, Lmax, local, gap barrier) of the cases at the edges of
+# the kernels' designs (see diag_cases)
+DIAG_EDGES = (("short", "short", 10, 200, False, 4),
+              ("short", "short", 10, 200, True, 0),
+              ("odd", "embed", 15, 90, False, 4),
+              ("odd", "embed", 15, 90, True, 0),
+              ("long", "embed", 30, 700, False, 0),
+              ("long", "embed", 30, 650, True, 4),
+              ("longgap", "longgap", 30, 300, False, 0),
+              ("longgap", "longgap", 30, 300, True, 10),
+              ("g0", "embed", 0, 120, False, 4),
+              ("g0", "embed", 0, 90, True, 0))
 
 
 def _diag_case(rng, name, B, Lmax, G, local, gbar, kind="embed"):
@@ -545,7 +557,12 @@ def _diag_case(rng, name, B, Lmax, G, local, gbar, kind="embed"):
     - frun: a deletion inside a homopolymer run (F runs of equal score
       from several columns);
     - clamp: a quarter of the read's codes random (local: the clamp
-      restarts paths many times a row).
+      restarts paths many times a row);
+    - short: every read 1-3 codes long, so nearly every row lies past its
+      read's end;
+    - longgap: a deletion or an insertion of 33 .. 2G - 5 codes (G = 30),
+      a gap run longer than one 32-lane window of the walk;
+    and at G = 0 (BW = 1) only the no-indel embedding.
     Every case has N codes in reads and windows, out-of-reference codes
     (5) at both ends of every other window, and reads shorter than Lmax
     (padded with N), whose rows past the end are part of the output."""
@@ -555,6 +572,8 @@ def _diag_case(rng, name, B, Lmax, G, local, gbar, kind="embed"):
     lens[0] = Lmax
     if B > 2:
         lens[1] = max(1, Lmax // 3)
+    if kind == "short":
+        lens = rng.integers(1, 4, B).astype(np.int32)
     reads = rng.integers(0, 4, (B, Lmax)).astype(np.int32)
     wins = rng.integers(0, 4, (B, W)).astype(np.int32)
     for b in range(B):
@@ -580,7 +599,18 @@ def _diag_case(rng, name, B, Lmax, G, local, gbar, kind="embed"):
             _embed_indel(rng, seg, wins[b], s, pos, "del", n)
             wins[b, s + pos:s + pos + n] = c
             continue
-        ev = b % 5
+        if kind == "longgap":
+            n = int(rng.integers(33, 2 * G - 4))
+            if L >= 2 * n + 6:
+                pos = int(rng.integers(3, L - n - 2))
+                gap = "del" if b % 2 else "ins"
+                s = (int(rng.integers(0, BW - n)) if gap == "del" else
+                     int(rng.integers(n, BW)))
+                _embed_indel(rng, seg, wins[b], s, pos, gap, n)
+            else:
+                _embed_indel(rng, seg, wins[b], G, L, "del", 0)
+            continue
+        ev = b % 5 if G > 0 else 0
         n = int(rng.integers(1, G + 1)) if ev in (1, 2) else G
         if L < 2 * n + 6 or ev == 0:
             _embed_indel(rng, seg, wins[b], int(rng.integers(0, BW)), L,
@@ -606,8 +636,13 @@ def _diag_case(rng, name, B, Lmax, G, local, gbar, kind="embed"):
 def diag_cases(seed: int = 0, scale: int = 1) -> List[DPCase]:
     """Band-DP cases (sw_banded_diag; `band` is G): an end-to-end and a
     local case at each DIAG_SHAPES band, gap barriers 0, 4 and 10 in turn,
-    and the tie, F-run and clamp cases. Every case holds 5 * scale + 1
-    problems, never a multiple of the kernel's four warps a block."""
+    the tie, F-run and clamp cases, and the edges of the kernels' designs
+    (DIAG_EDGES): reads of 1-3 codes in a 200-row bucket (rows past the
+    read's end), an odd problem count (4 * scale + 3: a pair a block, the
+    last one alone), 600-700 rows (direction words leave the DP's 64-row
+    ring many times; the walk crosses its 256-row stages), gap runs longer
+    than 32 at G = 30 and a band of one cell (G = 0). Every other case
+    holds 5 * scale + 1 problems."""
     rng = np.random.default_rng(seed + 400)
     B = 5 * scale + 1
     out = []
@@ -625,6 +660,11 @@ def diag_cases(seed: int = 0, scale: int = 1) -> List[DPCase]:
         out.append(_diag_case(
             rng, f"d_{kind}_G{G}_L{Lmax}_{'local' if local else 'e2e'}",
             B, Lmax, G, local, gbar, kind))
+    for name, kind, G, Lmax, local, gbar in DIAG_EDGES:
+        n = 4 * scale + 3 if name == "odd" else B
+        out.append(_diag_case(
+            rng, f"d_{name}_G{G}_L{Lmax}_{'local' if local else 'e2e'}",
+            n, Lmax, G, local, gbar, kind))
     return out
 
 
@@ -693,6 +733,56 @@ def bt_diag_random_cases(seed: int = 0, scale: int = 1) -> List[BTCase]:
     return out
 
 
+def bt_diag_edge_cases(seed: int = 0, scale: int = 1) -> List[BTCase]:
+    """Walks over made-up direction words whose runs end in mid-window:
+    problem 0 all H_DIAG (random extension bits; local: H_START at one
+    row), problem 1 all E from E-extension, problem 2 all F from
+    F-extension. From each: the last row at the middle band column (an M
+    run reaches row -1; an I run leaves the band at BW - 1), row Lmax +
+    100 there (an M run meets the step limit S, the first 101 steps on
+    the clamped last row), band column 0 of the last row and of row 20 (an
+    I run from the band's left edge; one reaches row -1), band column BW - 1
+    of the last and the middle row (a D run leaves the band at 0), and two
+    more cells. Lmax 700 / 650 at G = 30 cross the walk's 256-row stages;
+    G = 0 leaves a band of one cell. `scale` repeats each problem."""
+    rng = np.random.default_rng(seed + 600)
+    out = []
+    for local, Lmax, G in ((False, 700, 30), (True, 650, 30), (False, 300, 0)):
+        BW = 2 * G + 1
+        W = Lmax + BW
+        B = 3 * scale
+        cells = np.zeros((Lmax, B, BW), np.int64)
+        kind = np.arange(B) % 3
+        cells[:, kind == 0, :] = rng.integers(0, 4, (Lmax, int(
+            (kind == 0).sum()), BW)) << 2
+        if local:
+            cells[Lmax // 4, kind == 0, :] = 3
+        cells[:, kind == 1, :] = 1 | 4
+        cells[:, kind == 2, :] = 2 | 8
+        Wp = (BW + 7) // 8
+        pad = np.zeros((Lmax, B, 8 * Wp), np.int64)
+        pad[:, :, :BW] = cells
+        words = (pad.reshape(Lmax, B, Wp, 8)
+                 << (4 * np.arange(8))).sum(axis=3)
+        dirs = words.astype(np.uint32).view(np.int32)
+        starts = [(Lmax - 1, G), (Lmax + 100, G), (Lmax - 1, 0), (20, 0),
+                  (Lmax - 1, BW - 1), (Lmax // 2, BW - 1), (Lmax // 3, 5 % BW),
+                  (0, G)]
+        sel = np.repeat(np.arange(B), len(starts))
+        rows = np.tile([r for r, _ in starts], B)
+        lanes = np.tile([d for _, d in starts], B)
+        Bc = sel.size
+        reads = rng.integers(0, 5, (Bc, Lmax)).astype(np.int32)
+        quals = rng.integers(0, 42, (Bc, Lmax)).astype(np.int32)
+        wins = rng.integers(0, 6, (Bc, W)).astype(np.int32)
+        out.append(BTCase(f"btd_edge_{'local' if local else 'e2e'}_L{Lmax}"
+                          f"_G{G}", np.ascontiguousarray(dirs),
+                          sel.astype(np.int32), rows.astype(np.int32),
+                          lanes.astype(np.int32), reads, quals, wins, G,
+                          local, 4))
+    return out
+
+
 def bt_diag_cases(dp: Callable[[DPCase], tuple], seed: int = 0,
                   scale: int = 1) -> List[BTCase]:
     """Every band-walk case: `dp(case)` gives (row, lane, dirs) numpy
@@ -700,7 +790,8 @@ def bt_diag_cases(dp: Callable[[DPCase], tuple], seed: int = 0,
     equal)."""
     return ([bt_diag_case(c, *dp(c))
              for c in diag_cases(seed=seed, scale=scale)]
-            + bt_diag_random_cases(seed=seed, scale=scale))
+            + bt_diag_random_cases(seed=seed, scale=scale)
+            + bt_diag_edge_cases(seed=seed, scale=scale))
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--reads 50000] [--batch 8192] [--seed 7]
                           [--pairs 50000] [--mixed 1024] [--long-reads 1024]
+                          [--compare-diag FILE]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -117,7 +118,15 @@ Phases, each of which exits non-zero when it fails:
    ops/cases.py `diag_cases` / `bt_diag_cases` at scale 1 and 8, and
    timed as in phase 6 (`chain_ms`: one problem or one walk alone); its
    bound counts each problem's len rows of BW cells and what they move,
-   and each walk's steps, as the data needs them.
+   and each walk's steps, as the data needs them. The first call of each
+   length bucket (16,384 and 32,768 rows) of both kernels is held to the
+   plain version and timed back to back over a window of about
+   WINDOW_MS, with nvidia-smi's clocks.sm sampled beside it (cycles a DP
+   row of the bucket, or a step of the longest walk), and after IDLE_S
+   idle (the `kernel sw_diag @ L rows` lines, `buckets` in the JSON
+   entries). --compare-diag FILE builds another design's sw_diag.cu with
+   the same flags, holds it to this one's output on those calls and
+   times the two in turns (other, this, this, other; the `cmp_` keys).
 13. The large index mode (uint32 rows, int64 positions): (a) the four FM
    kernels' `_u32` entries on ops/cases.py `large_fm_case` (2^31 + 2^27 -
    1 rows: fm_blocks 0.86 GB, mark_rows 0.36 GB, offs 0.27 GB on the
@@ -147,8 +156,11 @@ card's name and power limit; the last line is
 """
 
 import argparse
+import ctypes
+import datetime
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -217,6 +229,8 @@ SPIN_REP = 1_000_000
 
 # the host's sleep before each launch that `idle_ms` times
 IDLE_S = 0.05
+# the least span of a timing window beside which clocks.sm is sampled
+WINDOW_MS = 800.0
 
 # positions in the C call's arguments of the sizes that pick a kernel's
 # launch shape: backtrace (walks, Lmax, W, S), sa_resolve (rows); and of
@@ -856,6 +870,63 @@ def diag_work(args):
     return byt, rows * BW * OPS_DP_CELL, rows * BW
 
 
+def clock_window(fn, reps):
+    """time_cuda(fn, reps) with nvidia-smi's clocks.sm sampled every 50 ms
+    beside it: (ms, mean MHz of the samples taken inside the window, or
+    None, sample count)."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)                  # nvidia-smi's own start
+        t0 = datetime.datetime.now()
+        ms = time_cuda(fn, reps)
+        t1 = datetime.datetime.now()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    mhz = []
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        try:
+            ts = datetime.datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f")
+            if t0 <= ts <= t1:
+                mhz.append(float(parts[1]))
+        except (ValueError, IndexError):
+            continue
+    return ms, (sum(mhz) / len(mhz) if mhz else None), len(mhz)
+
+
+def window_reps(fn, least):
+    """Launches for a timing window of about WINDOW_MS (at least `least`)."""
+    est = time_cuda(fn, 1)
+    return max(least, min(4000, int(math.ceil(WINDOW_MS / max(est, 1e-3)))))
+
+
+def compare_lib(_build, path):
+    """csrc/sw_diag.cu of another design (`--compare-diag`), built by nvcc
+    with the port's flags into a temporary directory: (library, ptxas)."""
+    tdir = tempfile.mkdtemp(prefix="cmp_diag_")
+    so = os.path.join(tdir, "sw_diag_cmp.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", so,
+           path]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"--compare-diag build: {r.stdout}{r.stderr}")
+    return ctypes.CDLL(so), _build.ptxas_usage(r.stdout + r.stderr)
+
+
+def with_lib(build, lib, fn):
+    """fn() with `sw_diag`'s C entries taken from `lib`."""
+    saved = build._LIBS.get("sw_diag")
+    build._LIBS["sw_diag"] = lib
+    try:
+        return fn()
+    finally:
+        build._LIBS["sw_diag"] = saved
+
+
 def mutate(rng, codes, sub, indel=0.0):
     """codes with substitutions at rate sub and a 1-3-bp insertion or
     deletion at rate indel a base (none within 100 bp of either end)."""
@@ -1053,6 +1124,59 @@ def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
 
 
 
+def bucket_times(a, m, name, kern, plain_fn, firsts, first_args, first_got,
+                 cmp_lib):
+    """K11 `name` on the first call of each length bucket of the long-read
+    path: held to its plain version (the path's first call already was),
+    timed back to back over a window of about WINDOW_MS with clocks.sm
+    sampled beside it, and after IDLE_S idle; with cmp_lib (another
+    design's build) the two in turns (other, this, this, other), the other
+    held to this one's output. Cycles a row (sw_diag: the bucket's Lmax)
+    or a step (bt_diag: the longest walk's steps) are ms x MHz."""
+    out = []
+    for L in sorted(firsts):
+        args = firsts[L]
+        got = first_got if args is first_args else kern(*args)
+        torch.cuda.synchronize()
+        err = 0 if args is first_args else result_err(got, plain_fn(*args))
+        if name == "sw_diag":
+            unit, n_unit = "row", L
+            size = dict(problems=args[0].shape[0],
+                        longest=int(args[2].max()))
+        else:
+            steps = ((got.ops & 3) != 3).sum(dim=0)
+            unit, n_unit = "step", max(int(steps.max()), 1)
+            size = dict(walks=args[1].shape[0], steps=args[9],
+                        longest_walk=n_unit)
+
+        def run():
+            return kern(*args)
+        reps = window_reps(run, a.reps)
+        turns = [("new", run)]
+        if cmp_lib is not None:
+            def other():
+                return with_lib(m._build, cmp_lib, run)
+            turns = [("cmp", other), ("new", run), ("new", run),
+                     ("cmp", other)]
+        res = {"rows": L, **size, "reps": reps, "max_abs_err": err}
+        for tag, fn in turns:
+            ms, mhz, n = clock_window(fn, reps)
+            res.setdefault(f"{tag}_ms", []).append(round(ms, 4))
+            res.setdefault(f"{tag}_mhz", []).append(
+                None if mhz is None else round(mhz, 1))
+            res.setdefault(f"{tag}_clk_{unit}", []).append(
+                None if mhz is None else round(ms * mhz * 1e3 / n_unit, 1))
+            res.setdefault(f"{tag}_clk_samples", []).append(n)
+        res["new_idle_ms"] = round(time_after_idle(run, 5), 4)
+        if cmp_lib is not None:
+            res["cmp_idle_ms"] = round(time_after_idle(other, 5), 4)
+            res["cmp_vs_new_err"] = result_err(other(), got)
+            res["max_abs_err"] = max(err, res["cmp_vs_new_err"])
+        out.append(res)
+        log(f"kernel {name} @ {L} rows: {json.dumps(res)}")
+    return out
+
+
 def long_phase(a, m, egenome, edata, pol, lpol, rec):
     """Phase 12, the long-read path on the card (see the module's
     docstring). m: the port's modules and classes. Returns the `kernels`
@@ -1060,6 +1184,11 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
     their end-to-end SAM groups on the card."""
     t_phase = time.time()
     sw, build = m.sw, m._build
+    cmp_lib = None
+    if a.compare_diag:
+        cmp_lib, cmp_ptxas = compare_lib(build, a.compare_diag)
+        log(f"--compare-diag {a.compare_diag}: built; ptxas "
+            f"{json.dumps(cmp_ptxas, sort_keys=True)}")
     rng = np.random.default_rng(a.seed)
     reads = long_corpus(egenome, rng, a.long_reads, LONG_LEN, LONG_SUB,
                         LONG_INDEL)
@@ -1077,7 +1206,19 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
         return [g for h in handles for g in al.collect_raw(h)], \
             sorted(by_bucket)
 
-    # the full-size run, timed on the host's clock
+    # the full-size run, timed on the host's clock; the first call of each
+    # length bucket (Lmax) of both kernels is kept for the bucket timings
+    firsts = {k: {} for k in LONG_KERNELS}
+    undo = []
+    for name, attr, lmax in (("sw_diag", "_sw_banded_diag_cuda", 1),
+                             ("bt_diag", "_backtrace_diag_cuda", 0)):
+        inner = getattr(sw, attr)
+
+        def keep(*args, _f=inner, _d=firsts[name], _ax=lmax):
+            _d.setdefault(args[0].shape[_ax], args)
+            return _f(*args)
+        setattr(sw, attr, keep)
+        undo.append((attr, inner))
     rec.take()
     al = m.UnpairedAligner(edata, pol)
     spent = host_timers([(al, n) for n in (
@@ -1097,6 +1238,8 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
     launches = dict(build.LAUNCHES)
     plain = dict(build.PLAIN_CALLS)
     long_args = rec.take()
+    for attr, inner in undo:
+        setattr(sw, attr, inner)
     prim = [g[0][1].split(b"\t") for g in groups]
     aligned = [f for f in prim if not int(f[1]) & 4]
     at_start = sum(1 for f in aligned if int(f[3]) == start[f[0]] + 1)
@@ -1349,6 +1492,10 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
                    if isinstance(t, torch.Tensor)][:2],
             sweep_cases=len(sweep[name]))
         entry.update(extra)
+        entry["buckets"] = bucket_times(a, m, name, kern, plain_fn,
+                                        firsts[name], args, got, cmp_lib)
+        e = max([e] + [b["max_abs_err"] for b in entry["buckets"]])
+        entry.update(max_abs_err=e, equal=e == 0)
         entries.append(entry)
         log(f"kernel {name}: equal={e == 0} max_abs_err={err} (local "
             f"{lerr}, sweep {sweep_err} over {len(sweep[name])} cases) "
@@ -1676,6 +1823,9 @@ def main() -> None:
                     help="pairs of the mixed-outcome batch")
     ap.add_argument("--long-reads", type=int, default=1024,
                     help="reads of 10-25 kbp on the long-read path")
+    ap.add_argument("--compare-diag", default=None,
+                    help="another design's sw_diag.cu: phase 12 builds it "
+                         "and times it in turns with the port's K11")
     a = ap.parse_args()
 
     if not torch.cuda.is_available():

@@ -3,8 +3,11 @@ CPU (device="cpu": the kernels' plain versions). Tolerance: exact.
 
 - The band DP's and band walk's plain versions (`_sw_banded_diag_plain`,
   `_backtrace_diag_plain`) against `sw_banded_diag` and `backtrace_diag` on
-  every case of `ops/cases.py` `diag_cases` / `bt_diag_cases`: score, row,
-  band column and the whole direction words; op bytes and all 7 fields.
+  every case of `ops/cases.py` `diag_cases` / `bt_diag_cases` (with the
+  edges of the kernels' designs: reads of 1-3 codes, an odd problem count,
+  600-700 rows, gap runs over 32 steps, G = 0, and walks whose runs meet a
+  band edge, row -1 or the step limit): score, row, band column and the
+  whole direction words; op bytes and all 7 fields.
 - The port's band DP and walk against its rectangle DP and walk, on
   --dpad-bounded problems (tests/test_sw.py does the same for JAX).
 - SAM: single-end (`collect` and `collect_raw`, end to end and --local),
@@ -50,7 +53,8 @@ from test_torch_cli_lambda import GOLDEN_PE, rebuild_lambda  # noqa: E402
 
 DIAG = cases.diag_cases()
 BT_NAMES = ([f"bt_{c.name}" for c in DIAG]
-            + [c.name for c in cases.bt_diag_random_cases()])
+            + [c.name for c in cases.bt_diag_random_cases()]
+            + [c.name for c in cases.bt_diag_edge_cases()])
 
 
 def _t(a):
