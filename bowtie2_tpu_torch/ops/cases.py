@@ -19,7 +19,9 @@ codes in reads and windows, columns outside the reference, short reads
 padded with N, and tandem repeats whose best cells tie. Origin cases
 (`origin_cases`) aim at each rule of origin tracking: tied F runs, F runs
 from column 0, the local clamp, rows past the read's end, the gap barrier
-and the 533-column mate-rescue windows.
+and the 533-column mate-rescue windows. Padded cases (`padded_origin_cases`)
+lay their lanes out as the fused pipelines do: the live lanes first, then
+length-1 padding lanes that carry real codes (the case's `n_live`).
 
 Seed cases cover seed lengths 1, 10, 11, 22 and 40 (past the 32 codes
 the seed kernel holds at once), ftab starts of fewer codes than the seed,
@@ -77,6 +79,7 @@ class DPCase(NamedTuple):
     col_lo: Optional[np.ndarray]
     local: bool
     gbar: int
+    n_live: Optional[int] = None     # sw_banded's n_live (padded cases)
 
     def params(self) -> dict:
         """Keyword arguments of SWParams (either package's)."""
@@ -275,6 +278,55 @@ def origin_cases(seed: int = 0, scale: int = 1) -> List[DPCase]:
     return out
 
 
+# (Lmax, live lanes, padding lanes) of the padded cases, a unit of scale
+PADDED_SHAPES = ((128, 11, 29), (200, 5, 7))
+
+
+def padded_origin_cases(seed: int = 0, scale: int = 1,
+                        shapes=PADDED_SHAPES, len_lo: int = 60
+                        ) -> List[DPCase]:
+    """DP cases laid out as the fused pipelines lay out their DP lanes
+    (ops/fused.py `_core`): the n_live live lanes first, reads of len_lo
+    to Lmax codes with an indel, in word-aligned windows (`col_lo` 0..31,
+    rect columns len + 2G + 1, the window `gather_windows_aligned`'s
+    width); then padding lanes of length 1 that carry a live lane's whole
+    read and window, as the compacted candidates do, so their rows past
+    the first are real codes. End to end and local, for each (Lmax, live
+    lanes, padding lanes) of `shapes` (by default one and two words a
+    thread, Lmax 128 and 200)."""
+    rng = np.random.default_rng(seed + 500)
+    G = SW_BAND
+    out = []
+    for Lmax, n_live, n_pad in shapes:
+        n_live, n_pad = n_live * scale, n_pad * scale
+        B = n_live + n_pad
+        W = 32 * ((Lmax + 2 * G + 1 + 62) // 32)
+        for local in (False, True):
+            lens = rng.integers(len_lo, Lmax + 1, B).astype(np.int32)
+            reads = rng.integers(0, 4, (B, Lmax)).astype(np.int32)
+            wins = rng.integers(0, 4, (B, W)).astype(np.int32)
+            col_lo = rng.integers(0, 32, B).astype(np.int32)
+            for b in range(n_live):
+                L = int(lens[b])
+                reads[b, L:] = 4
+                _embed_indel(rng, reads[b, :L], wins[b],
+                             int(col_lo[b]) + G + int(rng.integers(-3, 4)),
+                             int(rng.integers(10, L - 10)),
+                             "ins" if b % 2 else "del", int(rng.integers(1, 4)))
+            src = rng.integers(0, n_live, n_pad)
+            reads[n_live:] = reads[src]
+            wins[n_live:] = wins[src]
+            col_lo[n_live:] = col_lo[src]
+            lens[n_live:] = 1
+            reads[rng.random((B, Lmax)) < 0.01] = 4
+            quals = rng.integers(0, 42, (B, Lmax)).astype(np.int32)
+            rect_cols = (lens + 2 * G + 1).astype(np.int32)
+            out.append(DPCase(
+                f"padded_L{Lmax}_{'local' if local else 'e2e'}", reads, quals,
+                lens, wins, G, rect_cols, col_lo, local, 4, n_live))
+    return out
+
+
 def sweep_cases(genome: np.ndarray, seed: int = 0, scale: int = 1
                 ) -> List[tuple]:
     """(name, rr) pairs: (B, L) int32 reversed patterns (rr[:, p] is the
@@ -378,6 +430,7 @@ class BTCase(NamedTuple):
     band: int
     local: bool
     gbar: int
+    n_live: Optional[int] = None     # sw_banded's n_live (padded cases)
 
     def params(self) -> dict:
         """Keyword arguments of SWParams (either package's)."""

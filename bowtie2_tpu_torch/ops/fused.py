@@ -393,8 +393,24 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
     bypass_mm = 0 if (params.local or params.match_bonus > 0) \
         else max((min_gap_cost - 1) // max_pos_pen, 0)
     if ncdp >= NC or bypass_mm == 0:
+        # the live candidates come first (perm), and every padding lane
+        # after them is one problem (read 0 of the first slot's strand at
+        # window 0, length 1): the DP runs the live lanes and the first
+        # padding lane, whose result the other padding lanes take, as the
+        # JAX program's export holds it for every lane
+        n_cand = live_c.sum()
         res = sw_banded(jreads_c, jquals_c, lens_c, wins, params, G,
-                        rect_cols, col_shift, track_origin=track_origin)
+                        rect_cols, col_shift, track_origin=track_origin,
+                        n_live=torch.clamp(n_cand + 1, max=NC))
+        pad_k = torch.clamp(n_cand, max=NC - 1).reshape(1)
+        pad = _ar(NC, dev) > n_cand
+
+        def first_pad(f):
+            return torch.where(pad, _take(f, pad_k), f)
+        res = res._replace(
+            score=first_pad(res.score), row=first_pad(res.row),
+            lane=first_pad(res.lane),
+            origin=None if res.origin is None else first_pad(res.origin))
         dplane = _ar(NC, dev)
         n_dpdrop = torch.zeros((), dtype=i32, device=dev)
     else:
@@ -402,11 +418,13 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
         dpk = torch.where(needs_dp, _ar(NC, dev), BIGKEY)
         dperm = torch.argsort(dpk, stable=True)[:ncdp].to(i32)
         dlive = _take(dpk, dperm) < BIGKEY
+        # dperm puts the lanes that need the DP first: only those run
         res_dp = sw_banded(_take(jreads_c, dperm), _take(jquals_c, dperm),
                            torch.where(dlive, _take(lens_c, dperm), 1),
                            _take(wins, dperm), params, G,
                            _take(rect_cols, dperm), _take(col_shift, dperm),
-                           track_origin=track_origin)
+                           track_origin=track_origin,
+                           n_live=torch.clamp(needs_dp.sum(), max=ncdp))
         dpos = torch.where(dlive, dperm, NC)
         res = SWResult(
             _set_drop(d_score, dpos, res_dp.score),

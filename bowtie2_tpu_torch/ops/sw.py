@@ -64,6 +64,14 @@ def bt_steps(Lmax: int, W: int, local: bool) -> int:
 
 
 class SWResult(NamedTuple):
+    """The rectangle DP's result. With `n_live` (sw_banded), lanes below
+    it hold the DP of their problem: score, row, lane, origin, and dirs
+    rows below the lane's read length (rows the walk from any cell of the
+    read can reach). Lanes at or past `n_live` hold the fill of a lane
+    without a cell, score NEG_INF and row, lane and origin 0 (DEAD_FILL).
+    Everything else of dirs, the rows at or past a lane's length and the
+    whole of a dead lane, is unspecified. The band DP (`sw_banded_diag`)
+    specifies every row."""
     score: torch.Tensor   # (B,) int32 best alignment score
     row: torch.Tensor     # (B,) int32 row of the best end
     lane: torch.Tensor    # (B,) int32 rect column of the best end
@@ -71,6 +79,11 @@ class SWResult(NamedTuple):
     origin: Optional[torch.Tensor] = None  # (B,) int32 rect column of the
                           # first ref char the best path consumes (= the
                           # walk's ref_start_win), with track_origin=True
+
+
+# what a lane at or past n_live holds: (score, row, lane, origin), the
+# values of a problem without a cell
+DEAD_FILL = (NEG_INF, 0, 0, 0)
 
 
 class BTResult(NamedTuple):
@@ -139,8 +152,32 @@ def _col_ok(refwins, rect_cols, col_lo):
 
 
 def _sw_banded_plain(reads, mmpen, read_lens, refwins, p: SWParams,
-                     rect_cols, col_lo, track_origin: bool = False
-                     ) -> SWResult:
+                     rect_cols, col_lo, n_live=None,
+                     track_origin: bool = False) -> SWResult:
+    B = reads.shape[0]
+    n = B if n_live is None else min(max(int(n_live), 0), B)
+    if n == B:
+        return _sw_rect_plain(reads, mmpen, read_lens, refwins, p,
+                              rect_cols, col_lo, track_origin)
+    # the live lanes' DP, and the dead lanes' fill (their dirs are zero)
+    dirs = reads.new_zeros((reads.shape[1], B, (refwins.shape[1] + 7) // 8))
+    fields = [reads.new_full((B,), fill) for fill in DEAD_FILL]
+    if n:
+        live = _sw_rect_plain(
+            reads[:n], mmpen[:n], read_lens[:n], refwins[:n], p,
+            rect_cols[:n], None if col_lo is None else col_lo[:n],
+            track_origin)
+        dirs[:, :n] = live.dirs
+        for f, v in zip(fields, (live.score, live.row, live.lane,
+                                 live.origin)):
+            if v is not None:
+                f[:n] = v
+    return SWResult(fields[0], fields[1], fields[2], dirs,
+                    fields[3] if track_origin else None)
+
+
+def _sw_rect_plain(reads, mmpen, read_lens, refwins, p: SWParams,
+                   rect_cols, col_lo, track_origin: bool) -> SWResult:
     B, Lmax = reads.shape
     W = refwins.shape[1]
     dev = reads.device
@@ -249,12 +286,13 @@ def _sw_banded_plain(reads, mmpen, read_lens, refwins, p: SWParams,
                     best_origin if track_origin else None)
 
 
-_SW_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P, P, P, P]
+_SW_ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P, P,
+            P, P]
 
 
 def _sw_banded_cuda(reads, mmpen, read_lens, refwins, p: SWParams,
-                    rect_cols, col_lo, track_origin: bool = False
-                    ) -> SWResult:
+                    rect_cols, col_lo, n_live=None,
+                    track_origin: bool = False) -> SWResult:
     B, Lmax = reads.shape
     W = refwins.shape[1]
     dev = reads.device
@@ -264,6 +302,14 @@ def _sw_banded_cuda(reads, mmpen, read_lens, refwins, p: SWParams,
         check(t, n, shape=shp, device=dev)
     if col_lo is not None:
         check(col_lo, "col_lo", shape=(B,), device=dev)
+    # the kernel reads a tensor's count on the card (no host sync) and
+    # launches for every lane; a host count shrinks the grid to it
+    n_ptr, n_run = None, B
+    if isinstance(n_live, torch.Tensor):
+        check(n_live, "n_live", shape=(), device=dev)
+        n_ptr = ptr(n_live)
+    elif n_live is not None:
+        n_run = min(max(int(n_live), 0), B)
     if refwins.shape[0] != B or (W + 7) // 8 > 2048 or Lmax > 32767:
         raise ValueError(f"sw_rect: unsupported shape B={B} Lmax={Lmax} W={W}")
     if not -(1 << 24) < p.n_pen < (1 << 24):
@@ -273,8 +319,8 @@ def _sw_banded_cuda(reads, mmpen, read_lens, refwins, p: SWParams,
     lane = torch.empty(B, dtype=torch.int32, device=dev)
     dirs = torch.empty((Lmax, B, (W + 7) // 8), dtype=torch.int32, device=dev)
     args = [ptr(reads), ptr(mmpen), ptr(read_lens), ptr(refwins),
-            ptr(rect_cols), None if col_lo is None else ptr(col_lo),
-            B, Lmax, W, p.match_bonus, p.n_pen, p.read_gap_open,
+            ptr(rect_cols), None if col_lo is None else ptr(col_lo), n_ptr,
+            B, n_run, Lmax, W, p.match_bonus, p.n_pen, p.read_gap_open,
             p.read_gap_extend, p.ref_gap_open, p.ref_gap_extend,
             p.gap_barrier, int(p.local),
             ptr(score), ptr(row), ptr(lane), ptr(dirs)]
@@ -296,7 +342,7 @@ def sw_banded(reads: torch.Tensor, quals: torch.Tensor,
               params: SWParams, band: int,
               rect_cols: Optional[torch.Tensor] = None,
               col_lo: Optional[torch.Tensor] = None,
-              track_origin: bool = False) -> SWResult:
+              track_origin: bool = False, n_live=None) -> SWResult:
     """Batched rectangle DP (bowtie2_tpu/ops/sw.py sw_banded).
 
     reads: (B, Lmax) int32 codes 0..4 (4=N); quals: (B, Lmax) int32;
@@ -305,30 +351,36 @@ def sw_banded(reads: torch.Tensor, quals: torch.Tensor,
     per problem (default read_len + 2*band + 1); col_lo (B,) = first rect
     column of word-aligned windows (default 0). track_origin=True also
     returns SWResult.origin, the rect column of the first ref char of each
-    best path (the fused PE path's reference extents). CPU tensors take
-    the plain version, CUDA tensors the sw_rect kernel (sw_rect_origin
-    with track_origin)."""
+    best path (the fused PE path's reference extents). n_live: the lanes
+    to compute, the first n_live (None: all B); a 0-d int32 tensor on the
+    batch's device (read there, without a host sync) or a Python int.
+    SWResult says which outputs are specified. CPU tensors take the plain
+    version, CUDA tensors the sw_rect kernel (sw_rect_origin with
+    track_origin)."""
     args = sw_args(reads, quals, read_lens, refwins, params, band,
-                   rect_cols, col_lo)
+                   rect_cols, col_lo, n_live)
     if on_cpu(args[0], "sw_rect_origin" if track_origin else "sw_rect"):
         return _sw_banded_plain(*args, track_origin=track_origin)
     return _sw_banded_cuda(*args, track_origin=track_origin)
 
 
 def sw_args(reads, quals, read_lens, refwins, params: SWParams, band: int,
-            rect_cols=None, col_lo=None) -> tuple:
+            rect_cols=None, col_lo=None, n_live=None) -> tuple:
     """sw_banded's arguments as the kernel and its plain version take them:
-    (reads, mmpen, read_lens, refwins, params, rect_cols, col_lo), int32
-    and contiguous, with the default rect_cols filled in."""
+    (reads, mmpen, read_lens, refwins, params, rect_cols, col_lo, n_live),
+    int32 and contiguous, with the default rect_cols filled in; n_live
+    stays None, a Python int or a 0-d int32 tensor."""
     i32 = torch.int32
     read_lens = read_lens.to(i32).contiguous()
     if rect_cols is None:
         rect_cols = read_lens + 2 * band + 1
+    if isinstance(n_live, torch.Tensor):
+        n_live = n_live.to(i32).reshape(())
     return (reads.to(i32).contiguous(),
             mm_penalty_from_qual(quals, params).contiguous(), read_lens,
             refwins.to(i32).contiguous(), params,
             rect_cols.to(i32).contiguous(),
-            None if col_lo is None else col_lo.to(i32).contiguous())
+            None if col_lo is None else col_lo.to(i32).contiguous(), n_live)
 
 
 # ---------------------------------------------------------------------------

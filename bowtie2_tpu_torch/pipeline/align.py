@@ -418,8 +418,10 @@ class BatchAligner:
             res = sw_banded_diag(jreads_c, jquals_c, jlens_c, wins,
                                  pol.sw_params(), G)
         else:
+            # the lanes past n pad to the power of two: not computed
             res = sw_banded(jreads_c, jquals_c, jlens_c, wins,
-                            pol.sw_params(), G, self._put(rect_cols))
+                            pol.sw_params(), G, self._put(rect_cols),
+                            n_live=n)
         # ungapped mismatch count at the anchor diagonal (half-candidate
         # 1mm admission gate)
         diag = wins[:, G:G + Lmax]

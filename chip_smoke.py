@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--reads 50000] [--batch 8192] [--seed 7]
                           [--pairs 50000] [--mixed 1024] [--long-reads 1024]
-                          [--compare-diag FILE]
+                          [--compare-diag FILE] [--compare-rect FILE]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -35,7 +35,10 @@ Phases, each of which exits non-zero when it fails:
    its own counts and the same two checks.
 6. The kernels: each kernel is run again on the inputs the end-to-end
    path gave it first and held to its plain version on the same card
-   tensors (exact equality: every contract is integer), and so are the
+   tensors (exact equality: every contract is integer; the rectangle DP
+   over what its n_live contract specifies, ops/sw.py SWResult: the live
+   lanes' fields and dirs rows below each read's length, and the dead
+   lanes' fill; the SE host path's first DP call too), and so are the
    inputs the --local path gave it and, for the walk and the SA walk, the
    first end-to-end call large enough to take another launch shape, and
    for the seed and half-read searches the first end-to-end call of
@@ -64,7 +67,16 @@ Phases, each of which exits non-zero when it fails:
    asks for, over the kernel's time. The SE gapless
    readout (ops/sw.py diag_readout, torch ops) is timed as the window
    gather is. The DP's sweep runs the origin-tracking variant
-   (`sw_rect_origin`) on the same cases and on `origin_cases`.
+   (`sw_rect_origin`) on the same cases and on `origin_cases`, and both
+   on `padded_origin_cases` at their n_live, as a host int and as a 0-d
+   tensor on the card. Each DP entry gives the cells its data needs
+   (`cells`) and those its kernel computes (`cells_launched`: the live
+   lanes' rows up to their lengths, over the whole window). With
+   --compare-rect FILE (the parent's sw_rect.cu, e.g. copied under the
+   gitignored build/), the fused SE path's first DP call and the host
+   path's first are timed in turns with that design (parent, this, this,
+   parent; clocks.sm sampled beside each window), which is held to this
+   one's output (the `turns` of the `sw_rect` entry).
 7. The E. coli-sim corpus: bench.py's gen_ecoli_corpus recipe (a 4.6-Mbp
    random genome, 100-bp reads and FR pairs at 0.5 % substitutions),
    --pairs of its 50,000 pairs; the genome, 8,192 of its SE reads and
@@ -92,8 +104,18 @@ Phases, each of which exits non-zero when it fails:
    inputs (and the --local batch's first) and `sw_rect@rescue` on the
    first call that launched the block kernel (and the --local batch's, if
    it made one), each held to its plain version and timed as in
-   phase 6 (both go into the `kernels` line); K10's paired-end half, the
-   device pairing (`_pe_pairing`, torch ops), timed as the gathers are.
+   phase 6 (both go into the `kernels` line); the block origin kernel
+   (`sw_rect_origin@block`, not on the main path) on a 533-column origin
+   case, with its `ptxas` (the `block` of the `sw_rect_origin` entry),
+   and at the longer length buckets (`buckets`, BLOCK_ORIGIN_CALLS: at
+   768 bp 8,192 lanes of which 384 live, laid out as fused_pe lays out
+   its DP lanes, and 512 lanes all live; one call at 1,536 and at 3,072
+   bp), end to end and --local held to the plain version, end to end
+   timed; with --compare-rect, the first fused_pe call's origin DP (end
+   to end and --local) and those calls in turns with the parent's design
+   (parent, this, this, parent);
+   K10's paired-end half, the device pairing (`_pe_pairing`, torch ops),
+   timed as the gathers are.
 11. The CLI: `align -U` (8,192 reads) and `align -1/-2` (3,125 pairs) on
    the card and with `--device cpu`: the SAM files must be identical
    apart from the @PG line's CL: field.
@@ -245,7 +267,10 @@ SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,),
 BT_WARP_WALKS_PER_SM = 4 * 2 * 8
 
 # the kernels of each entry in `ptxas -v`'s report of its source: a
-# prefix, and for the DP the ORIGIN template flag (`<WPT,LOCAL,ORIGIN>`)
+# prefix, or (prefix, suffix) pairs; the DP's warp kernel by its ORIGIN
+# template flag (`sw_warp_kernel<WPT,LOCAL,ORIGIN>`), and the block
+# kernels by name (`sw_block_kernel<WPT,LOCAL>`; the origin block kernels
+# `sw_block_origin_reg_kernel<S,LOCAL>` and `sw_block_origin_kernel<LOCAL>`)
 PTXAS_FUNCS = {"fm_sweep": ("sweep_kernel", "<int>"),
                "fm_seed": ("seed_kernel", "<int>"),
                "fm_substring": ("substring_kernel", "<int>"),
@@ -254,11 +279,24 @@ PTXAS_FUNCS = {"fm_sweep": ("sweep_kernel", "<int>"),
                "fm_seed_u32": ("seed_kernel", "<uint32>"),
                "fm_substring_u32": ("substring_kernel", "<uint32>"),
                "sa_resolve_u32": ("resolve_kernel", "<uint32>"),
-               "sw_rect": ("sw_", ",0>"),
-               "sw_rect_origin": ("sw_", ",1>"),
-               "sw_rect@rescue": ("sw_block_kernel", ",0>"),
+               "sw_rect": [("sw_warp_kernel", ",0>"),
+                           ("sw_block_kernel", "")],
+               "sw_rect_origin": [("sw_warp_kernel", ",1>"),
+                                  ("sw_block_origin", "")],
+               "sw_rect_origin@block": ("sw_block_origin", ""),
+               "sw_rect@rescue": ("sw_block_kernel", ""),
                "backtrace": "bt_", "sw_diag": "sw_diag_kernel",
                "bt_diag": "bt_diag_kernel"}
+
+# the block origin kernel's calls at the PE length buckets past 512
+# columns, each an ops/cases.py padded_origin_cases shape (Lmax, live
+# lanes, padding lanes) and its shortest read: at 768 bp fused_pe's NCDP
+# of 8,192 lanes with 384 live, and 512 lanes all live (128 threads a
+# block); at 1,536 and 3,072 bp (256 and 512 threads) a few lanes
+BLOCK_ORIGIN_CALLS = {"768 fused": ((768, 384, 7808), 700),
+                      "768 all live": ((768, 512, 0), 700),
+                      "1536": ((1536, 64, 0), 1400),
+                      "3072": ((3072, 32, 0), 2900)}
 
 # the paired-end path's DP entries: the origin-tracking DP of fused_pe and
 # the DP of the mate-rescue windows, whose width takes the block kernel
@@ -393,13 +431,18 @@ class Recorder:
         """The DP: `sw_rect` and `sw_rect_origin` (track_origin) by the
         entry they launch, and `sw_rect@rescue`, the first call of the
         plain DP that launched the block kernel (counted by the entry as
-        `sw_rect@block`)."""
+        `sw_rect@block`); `<entry>@host`, the first call whose n_live is
+        a host count (the host path's). The arguments hold n_live."""
         orig = sw._sw_banded_cuda
         launches = sw._build.LAUNCHES
 
         def wrapped(*a, track_origin=False):
             name = "sw_rect_origin" if track_origin else "sw_rect"
             self.args.setdefault(name, a)
+            if isinstance(a[7], int):
+                # a host count: the host path's call (the fused
+                # pipelines give a tensor)
+                self.args.setdefault(name + "@host", a)
             n_block = launches["sw_rect@block"]
             out = orig(*a, track_origin=track_origin)
             if launches["sw_rect@block"] > n_block:
@@ -562,14 +605,74 @@ def time_after_idle(fn, reps: int) -> float:
     return total / reps
 
 
-def max_err(kern, plain, args):
+def max_err(kern, plain, args, err=None):
     """(kernel's result, max abs difference from the plain version's on
-    the same inputs); a differing shape or arity counts as 2^31."""
+    the same inputs, by `err(got, want, args)` or result_err); a differing
+    shape or arity counts as 2^31."""
     got = kern(*args)
     want = plain(*args)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return got, result_err(got, want)
+    return got, (result_err(got, want) if err is None
+                 else err(got, want, args))
+
+
+def live_count(args):
+    """The live lanes of a rectangle-DP call (sw_args' n_live)."""
+    B = args[2].shape[0]
+    n = args[7]
+    return B if n is None else min(max(int(n), 0), B)
+
+
+def rect_err(got, want, args, fills=True):
+    """result_err of two rectangle-DP results over what sw_banded's n_live
+    contract specifies (ops/sw.py SWResult): score, row, lane and origin of
+    the live lanes and their dirs rows below each read's length; with
+    `fills`, a dead lane of `got` off the fill (sw.DEAD_FILL) counts as
+    2^31."""
+    from bowtie2_tpu_torch.ops.sw import DEAD_FILL
+    lens = args[2]
+    n = live_count(args)
+    err = 0
+    for f, fill in zip(("score", "row", "lane", "origin"), DEAD_FILL):
+        g, w = getattr(got, f), getattr(want, f)
+        if g is None or w is None:
+            if g is not None or w is not None:
+                return 1 << 31
+            continue
+        if g.shape != w.shape or (fills and bool((g[n:] != fill).any())):
+            return 1 << 31
+        err = max(err, result_err(g[:n], w[:n]))
+    if got.dirs.shape != want.dirs.shape:
+        return 1 << 31
+    Lmax = got.dirs.shape[0]
+    rows = torch.arange(Lmax, device=lens.device)[:, None] < lens[None, :n]
+    diff = (got.dirs[:, :n].long() - want.dirs[:, :n].long()).abs()
+    if diff.numel():
+        err = max(err, int(torch.where(rows[:, :, None], diff, 0).max()))
+    return err
+
+
+def first_lanes(args, n):
+    """A rectangle-DP call's arguments cut to its first n lanes (n_live
+    cut to n, in its own form)."""
+    out = [x[:n].contiguous() if isinstance(x, torch.Tensor) and x.dim()
+           else x for x in args]
+    nl = out[7]
+    out[7] = None if nl is None else (
+        torch.clamp(nl, max=n) if isinstance(nl, torch.Tensor) else min(nl, n))
+    return tuple(out)
+
+
+def rect_cells(args):
+    """(cells, cells_launched) of a rectangle-DP call: what its data needs
+    (dp_work), and what the kernel computes, each live lane's rows up to
+    its length over every window column."""
+    _bytes, cells = dp_work(args, False)
+    n = live_count(args)
+    W = args[3].shape[1]
+    rows = int(args[2][:n].long().clamp(0, args[0].shape[1]).sum())
+    return cells, rows * 8 * ((W + 7) // 8)
 
 
 def result_err(got, want):
@@ -607,14 +710,22 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
     sw = port.sw
     out = {k: [] for k in kerns}
     for seed, scale in ((0, 1), (1, 8)):
-        for c in (port.cases.dp_cases(seed=seed, scale=scale)
-                  + port.cases.origin_cases(seed=seed, scale=scale)):
+        padded = port.cases.padded_origin_cases(seed=seed, scale=scale)
+        for c, n_live in (
+                [(c, None) for c in port.cases.dp_cases(seed=seed, scale=scale)
+                 + port.cases.origin_cases(seed=seed, scale=scale)]
+                + [(c, c.n_live) for c in padded]
+                + [(c, torch.tensor(c.n_live, dtype=torch.int32,
+                                    device=device)) for c in padded]):
             args = sw.sw_args(put(c.reads), put(c.quals), put(c.lens),
                               put(c.wins), sw.SWParams(**c.params()),
-                              c.band, put(c.rect_cols), put(c.col_lo))
+                              c.band, put(c.rect_cols), put(c.col_lo), n_live)
+            form = "" if n_live is None else (
+                "@n_live_tensor" if isinstance(n_live, torch.Tensor)
+                else "@n_live_int")
             for k in ("sw_rect", "sw_rect_origin"):
-                out[k].append((f"{c.name}@x{scale}", max_err(
-                    kerns[k], plains[k], args)[1]))
+                out[k].append((f"{c.name}{form}@x{scale}", max_err(
+                    kerns[k], plains[k], args, rect_err)[1]))
 
         def dp(c):
             res = plains["sw_rect"](*sw.sw_args(
@@ -670,10 +781,11 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
 
 def ptxas_of(build_mod, name, src_name):
     """ptxas's report of the kernels behind entry `name`."""
-    pre = PTXAS_FUNCS[name]
-    pre, suf = pre if isinstance(pre, tuple) else (pre, "")
+    pats = PTXAS_FUNCS[name]
+    pats = pats if isinstance(pats, list) else [
+        pats if isinstance(pats, tuple) else (pats, "")]
     return {k: v for k, v in build_mod.PTXAS.get(src_name, {}).items()
-            if k.startswith(pre) and k.endswith(suf)}
+            if any(k.startswith(p) and k.endswith(s) for p, s in pats)}
 
 
 def nbytes(*ts) -> int:
@@ -904,16 +1016,17 @@ def window_reps(fn, least):
     return max(least, min(4000, int(math.ceil(WINDOW_MS / max(est, 1e-3)))))
 
 
-def compare_lib(_build, path):
-    """csrc/sw_diag.cu of another design (`--compare-diag`), built by nvcc
-    with the port's flags into a temporary directory: (library, ptxas)."""
-    tdir = tempfile.mkdtemp(prefix="cmp_diag_")
-    so = os.path.join(tdir, "sw_diag_cmp.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", so,
-           path]
+def compare_lib(_build, path, flag="--compare-diag"):
+    """A CUDA source of another design (`--compare-diag`, `--compare-rect`),
+    built by nvcc with the port's flags into a temporary directory:
+    (library, ptxas)."""
+    tdir = tempfile.mkdtemp(prefix="cmp_")
+    so = os.path.join(tdir, "cmp.so")
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
+           "-o", so, path]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
-        fail(f"--compare-diag build: {r.stdout}{r.stderr}")
+        fail(f"{flag} build: {r.stdout}{r.stderr}")
     return ctypes.CDLL(so), _build.ptxas_usage(r.stdout + r.stderr)
 
 
@@ -925,6 +1038,75 @@ def with_lib(build, lib, fn):
         return fn()
     finally:
         build._LIBS["sw_diag"] = saved
+
+
+# the C arguments of the rectangle DP's entries before the n_live count
+# (the parent's sw_rect.cu, for --compare-rect): six pointers, eleven
+# ints, the four outputs (and origin), the kernel it launched, the stream
+PARENT_RECT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
+    + [ctypes.c_void_p] * 4
+
+
+def parent_rect(lib, sw, args, origin):
+    """The parent's sw_rect[_origin] on sw_args-form arguments: every lane,
+    every row up to Lmax (it has no n_live)."""
+    reads, mmpen, lens, refwins, p, rect_cols, col_lo, _n = args
+    B, Lmax = reads.shape
+    W = refwins.shape[1]
+    out = [torch.empty(B, dtype=torch.int32, device=reads.device)
+           for _ in range(3 + origin)]
+    dirs = torch.empty((Lmax, B, (W + 7) // 8), dtype=torch.int32,
+                       device=reads.device)
+    fn = getattr(lib, "sw_rect_origin" if origin else "sw_rect")
+    fn.argtypes = PARENT_RECT_ARGS + [ctypes.c_void_p] * (origin + 2)
+    fn.restype = ctypes.c_int
+    kind = ctypes.c_int(0)
+    err = fn(reads.data_ptr(), mmpen.data_ptr(), lens.data_ptr(),
+             refwins.data_ptr(), rect_cols.data_ptr(),
+             None if col_lo is None else col_lo.data_ptr(), B, Lmax, W,
+             p.match_bonus, p.n_pen, p.read_gap_open, p.read_gap_extend,
+             p.ref_gap_open, p.ref_gap_extend, p.gap_barrier, int(p.local),
+             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+             dirs.data_ptr(), *[o.data_ptr() for o in out[3:]],
+             ctypes.addressof(kind), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"--compare-rect: the parent's sw_rect: CUDA error {err}")
+    return sw.SWResult(out[0], out[1], out[2], dirs,
+                       out[3] if origin else None)
+
+
+def rect_turns(a, m, label, kern, args, origin, parent_lib):
+    """--compare-rect: the DP call `args` timed in turns with the parent's
+    design (`parent_lib`): parent, this, this, parent, over windows of
+    about WINDOW_MS with clocks.sm sampled; clocks a row over the longest
+    live read's rows. The parent is held to this design's output over the
+    specified region (rect_err; the parent has no n_live, so its dead
+    lanes are not held to the fill)."""
+    sw = m.sw
+    want = kern(*args)
+    torch.cuda.synchronize()
+    n = live_count(args)
+    rows = max(int(args[2][:n].max()) if n else 1, 1)
+    designs = {"this": lambda: kern(*args),
+               "parent": lambda: parent_rect(parent_lib, sw, args, origin)}
+    reps = window_reps(designs["this"], a.reps)
+    res = {"call": label, "lanes": args[0].shape[0], "n_live": n,
+           "rows": rows, "Lmax": args[0].shape[1], "W": args[3].shape[1],
+           "reps": reps,
+           "parent_vs_this_err": rect_err(designs["parent"](), want, args,
+                                          fills=False)}
+    for tag in ("parent", "this", "this", "parent"):
+        ms, mhz, ns = clock_window(designs[tag], reps)
+        res.setdefault(f"{tag}_ms", []).append(round(ms, 4))
+        res.setdefault(f"{tag}_mhz", []).append(
+            None if mhz is None else round(mhz, 1))
+        res.setdefault(f"{tag}_clk_row", []).append(
+            None if mhz is None else round(ms * mhz * 1e3 / rows, 1))
+    for tag in ("this", "parent"):
+        res[f"{tag}_idle_ms"] = round(time_after_idle(designs[tag], 5), 4)
+    res["max_abs_err"] = res["parent_vs_this_err"]
+    log(f"compare-rect {label}: {json.dumps(res)}")
+    return res
 
 
 def mutate(rng, codes, sub, indel=0.0):
@@ -1070,7 +1252,7 @@ def dp_work(args, origin):
     words of its rows over its rect columns; the best cell's fields (and
     origin) written. Padding problems count with their own (short) lengths.
     Returns (bytes, cells)."""
-    _r, _m, lens, _w, _p, rect_cols, col_lo = args
+    _r, _m, lens, _w, _p, rect_cols, col_lo, _n = args
     ln = lens.long().clamp(min=0)
     rc = rect_cols.long().clamp(min=0)
     cells = int((ln * rc).sum())
@@ -1084,15 +1266,17 @@ def dp_work(args, origin):
 def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
              chain_ms, sweep, build_mod, origin):
     """A DP kernel's entry of the `kernels` line (and its log line): exact
-    against the plain version on args and each of more_args, timed back to
-    back and after idle, its bound from what its data needs (dp_work)."""
-    _got, err = max_err(kern, plain, args)
-    errs = [max_err(kern, plain, m)[1] for m in more_args]
+    against the plain version on args and each of more_args (rect_err),
+    timed back to back and after idle, its bound from what its data needs
+    (dp_work)."""
+    _got, err = max_err(kern, plain, args, rect_err)
+    errs = [max_err(kern, plain, m, rect_err)[1] for m in more_args]
     sweep_err = max((e for _, e in sweep), default=0)
     ms = time_cuda(lambda: kern(*args), reps)
     idle_ms = time_after_idle(lambda: kern(*args), 5)
     plain_ms = time_cuda(lambda: plain(*args), 2, spin=0)
     byt, cells = dp_work(args, origin)
+    cells_launched = rect_cells(args)[1]
     ops = cells * (OPS_DP_CELL_ORIGIN if origin else OPS_DP_CELL)
     t_bytes = byt / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_OPS_S * 1e3
@@ -1107,7 +1291,8 @@ def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
         library_ms=None, total_ms=round(total[0], 4), total_spans=total[1],
         ptxas=ptxas_of(build_mod, name, "sw_rect"),
         shape=[list(t.shape) for t in args
-               if isinstance(t, torch.Tensor)][:4], cells=cells)
+               if isinstance(t, torch.Tensor)][:4], cells=cells,
+        cells_launched=cells_launched, n_live=live_count(args))
     if chain_ms is not None:
         entry["chain_ms"] = round(chain_ms, 4)
     if sweep:
@@ -1117,7 +1302,8 @@ def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
         f"idle_ms={idle_ms:.4f} plain_ms={plain_ms:.3f} "
         f"bound_ms={max(t_bytes, t_ops):.5f} (bytes {t_bytes:.5f}, "
         f"operations {t_ops:.5f}) total_ms={total[0]:.4f} over {total[1]} "
-        f"launches; launches on the PE path {launches}; cells={cells}"
+        f"launches; launches on the PE path {launches}; cells={cells} "
+        f"cells_launched={cells_launched} n_live={live_count(args)}"
         + (f" chain_ms={chain_ms:.4f}" if chain_ms is not None else "")
         + f" shape {entry['shape']} ptxas {entry['ptxas']}")
     return entry
@@ -1826,6 +2012,9 @@ def main() -> None:
     ap.add_argument("--compare-diag", default=None,
                     help="another design's sw_diag.cu: phase 12 builds it "
                          "and times it in turns with the port's K11")
+    ap.add_argument("--compare-rect", default=None,
+                    help="the parent's sw_rect.cu: phases 6 and 10 build "
+                         "it and time it in turns with the port's DP")
     a = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2060,7 +2249,7 @@ def main() -> None:
     rs_args = e2e_args["sa_resolve"]
     chain_ms = {
         "sw_rect": time_cuda(lambda: rec.orig_sw_rect(
-            *first(e2e_args["sw_rect"], 4)), a.reps),
+            *first_lanes(e2e_args["sw_rect"], 4)), a.reps),
         "fm_sweep": time_cuda(lambda: rec.orig_fm_sweep(
             e2e_args["fm_sweep"][0], e2e_args["fm_sweep"][1][:64]), a.reps),
         "backtrace": time_cuda(lambda: rec.orig_backtrace(
@@ -2082,12 +2271,32 @@ def main() -> None:
 
     kernels_out = []
     ok = all(e == 0 for errs in sweep_errs.values() for _, e in errs)
+    port_mods = types.SimpleNamespace(
+        sw=sw, _build=_build, cases=cases, align_mod=align_mod,
+        traj_replay=traj_replay, SeqRecord=SeqRecord,
+        UnpairedAligner=UnpairedAligner,
+        PairedAligner=PairedAligner, bucket_groups=bucket_groups)
+    rect_lib = None
+    if a.compare_rect:
+        rect_lib, cmp_ptxas = compare_lib(_build, a.compare_rect,
+                                          "--compare-rect")
+        log(f"--compare-rect {a.compare_rect}: built; ptxas "
+            f"{json.dumps(cmp_ptxas, sort_keys=True)}")
     for name, (src, repl) in KERNELS.items():
         args = e2e_args[name]
         kern = getattr(rec, "orig_" + name)
-        got, err = max_err(kern, plains[name], args)
-        lerr = max_err(kern, plains[name], local_args[name])[1] \
+        # the DP over the region its n_live contract specifies
+        err_fn = rect_err if name == "sw_rect" else None
+        got, err = max_err(kern, plains[name], args, err_fn)
+        lerr = max_err(kern, plains[name], local_args[name], err_fn)[1] \
             if name in local_args else 0
+        if name == "sw_rect":
+            # the host path's first call (a host count of live lanes)
+            host_args = e2e_args.get("sw_rect@host")
+            if host_args is None:
+                fail("the SE host path recorded no DP call")
+            lerr = max(lerr, max_err(kern, plains[name], host_args,
+                                     err_fn)[1])
         # the main path's first call past Recorder's bulk size, whose
         # launch shape differs from the first call's
         bulk_args = e2e_args.get(name + "@bulk")
@@ -2127,6 +2336,8 @@ def main() -> None:
             # cells the data needs: each problem's rows x its rect columns
             byt, cells = dp_work(args, False)
             ops = cells * OPS_DP_CELL
+            extra = dict(cells=cells, cells_launched=rect_cells(args)[1],
+                         n_live=live_count(args))
             # derived, not measured: those cells at OPS_DP_CELL
             # instructions each, one instruction a lane a clock on every
             # SM at the maximum SM clock
@@ -2164,6 +2375,13 @@ def main() -> None:
                                        bulk["max_abs_err"])
         entry.update(extra)
         kernels_out.append(entry)
+        if name == "sw_rect" and rect_lib is not None:
+            entry["turns"] = [
+                rect_turns(a, port_mods, label, kern, targs, False, rect_lib)
+                for label, targs in (("fused SE, first call", args),
+                                     ("SE host path, first call",
+                                      host_args))]
+            ok &= all(t["max_abs_err"] == 0 for t in entry["turns"])
         log(f"kernel {name}: equal={equal} max_abs_err={err} "
             f"(local {lerr}, sweep {sweep_err}) "
             f"ms={ms:.4f} idle_ms={idle_ms:.4f} plain_ms={plain_ms:.3f} "
@@ -2428,8 +2646,8 @@ def main() -> None:
     if "sw_rect_origin" not in pe_args or "sw_rect@rescue" not in pe_args:
         fail("the paired-end path recorded no origin DP or rescue DP call")
     oargs = pe_args["sw_rect_origin"]
-    chain_o = time_cuda(lambda: rec.orig_sw_rect_origin(*first(oargs, 4)),
-                        a.reps)
+    chain_o = time_cuda(lambda: rec.orig_sw_rect_origin(
+        *first_lanes(oargs, 4)), a.reps)
     kernels_out.append(dp_entry(
         "sw_rect_origin", rec.orig_sw_rect_origin, plains["sw_rect_origin"],
         oargs, [pe_local_args[k] for k in ("sw_rect_origin",)
@@ -2437,6 +2655,75 @@ def main() -> None:
         pdev_ms.get("sw_rect_origin", [0.0, 0]),
         plaunches.get("sw_rect_origin", 0), chain_o,
         sweep_errs["sw_rect_origin"], _build, True))
+    oentry = kernels_out[-1]
+    # the block origin kernel (Wp > 64, not on the main path): the
+    # 533-column mate-rescue-shaped origin cases of the sweep, and one of
+    # them at scale 8 timed
+    blk = next(c for c in cases.origin_cases(seed=1, scale=8)
+               if c.name == "o_W533_e2e")
+    bargs = sw.sw_args(*[torch.from_numpy(x).cuda() for x in (
+        blk.reads, blk.quals, blk.lens, blk.wins)], sw.SWParams(
+        **blk.params()), blk.band, torch.from_numpy(blk.rect_cols).cuda(),
+        None)
+    n_blk = _build.LAUNCHES["sw_rect_origin@block"]
+    _got, berr = max_err(rec.orig_sw_rect_origin, plains["sw_rect_origin"],
+                         bargs, rect_err)
+    if _build.LAUNCHES["sw_rect_origin@block"] == n_blk:
+        fail("the 533-column origin case did not take the block kernel")
+    oentry["block"] = dict(
+        case=f"{blk.name}@x8", shape=list(blk.wins.shape),
+        max_abs_err=berr, ms=round(time_cuda(
+            lambda: rec.orig_sw_rect_origin(*bargs), a.reps), 4),
+        sweep_cases={c: e for c, e in sweep_errs["sw_rect_origin"]
+                     if "W533" in c},
+        ptxas=ptxas_of(_build, "sw_rect_origin@block", "sw_rect"))
+    # the block origin kernel at the longer length buckets (every PE
+    # bucket past 512 columns takes it), end to end and local
+    buckets = {}
+    for tag, (shape, len_lo) in BLOCK_ORIGIN_CALLS.items():
+        errs = []
+        for c in cases.padded_origin_cases(seed=2, shapes=(shape,),
+                                           len_lo=len_lo):
+            cargs = sw.sw_args(*[torch.from_numpy(x).cuda() for x in (
+                c.reads, c.quals, c.lens, c.wins)], sw.SWParams(
+                **c.params()), c.band, torch.from_numpy(c.rect_cols).cuda(),
+                torch.from_numpy(c.col_lo).cuda(),
+                torch.tensor(c.n_live, dtype=torch.int32, device="cuda"))
+            n_blk = _build.LAUNCHES["sw_rect_origin@block"]
+            errs.append(max_err(rec.orig_sw_rect_origin,
+                                plains["sw_rect_origin"], cargs, rect_err)[1])
+            if _build.LAUNCHES["sw_rect_origin@block"] == n_blk:
+                fail(f"the origin case {c.name} did not take the block "
+                     "kernel")
+            if not c.local:
+                timed = c, cargs
+        c, cargs = timed
+        buckets[tag] = dict(
+            case=c.name, shape=list(c.wins.shape), n_live=c.n_live,
+            Lmax=c.reads.shape[1], max_abs_err=max(errs),
+            ms=round(time_cuda(lambda: rec.orig_sw_rect_origin(*cargs),
+                               a.reps), 4),
+            idle_ms=round(time_after_idle(
+                lambda: rec.orig_sw_rect_origin(*cargs), 5), 4),
+            cells_launched=rect_cells(cargs)[1])
+        if rect_lib is not None:
+            buckets[tag]["turns"] = rect_turns(
+                a, port_mods, f"block origin, {tag}",
+                rec.orig_sw_rect_origin, cargs, True, rect_lib)
+            ok &= buckets[tag]["turns"]["max_abs_err"] == 0
+        berr = max(berr, max(errs))
+    oentry["block"]["buckets"] = buckets
+    oentry["max_abs_err"] = max(oentry["max_abs_err"], berr)
+    oentry["equal"] = oentry["max_abs_err"] == 0
+    log(f"kernel sw_rect_origin@block: {json.dumps(oentry['block'])}")
+    if rect_lib is not None:
+        oentry["turns"] = [
+            rect_turns(a, port_mods, label, rec.orig_sw_rect_origin, targs,
+                       True, rect_lib)
+            for label, targs in (("fused_pe, first call", oargs),
+                                 ("fused_pe --local, first call",
+                                  pe_local_args["sw_rect_origin"]))]
+        ok &= all(t["max_abs_err"] == 0 for t in oentry["turns"])
     rargs = pe_args["sw_rect@rescue"]
     kernels_out.append(dp_entry(
         "sw_rect@rescue", rec.orig_sw_rect, plains["sw_rect@rescue"], rargs,
@@ -2481,11 +2768,6 @@ def main() -> None:
     tmp.cleanup()
 
     # ---------------- phase 12: long reads ----------------
-    port_mods = types.SimpleNamespace(
-        sw=sw, _build=_build, cases=cases, align_mod=align_mod,
-        traj_replay=traj_replay, SeqRecord=SeqRecord,
-        UnpairedAligner=UnpairedAligner,
-        PairedAligner=PairedAligner, bucket_groups=bucket_groups)
     long_entries, long_first, long_groups = long_phase(
         a, port_mods, egenome, edata, pol, lpol, rec)
     kernels_out.extend(long_entries)

@@ -176,6 +176,39 @@ def port_sam(data, kind: str, batch, entries=("collect", "collect_raw")):
     return out
 
 
+N_LIVE_KINDS = ("zero", "one", "half", "all")
+
+
+def n_live_of(kind: str, B: int):
+    """sw_banded's n_live for a kind: 0 and B // 2 as Python ints, 1 and B
+    as 0-d int32 tensors (the fused pipelines' form)."""
+    import torch
+    n = {"zero": 0, "one": 1, "half": B // 2, "all": B}[kind]
+    return torch.tensor(n, dtype=torch.int32) if kind in ("one", "all") \
+        else n
+
+
+def assert_live_region(want, got, lens, n_live, fields):
+    """`got` (the port's SWResult at n_live) equals `want` (a full DP's
+    result, numpy-convertible fields) where sw_banded's contract specifies
+    it: lanes below n_live, their dirs rows below their length; and the
+    dead lanes hold sw.DEAD_FILL."""
+    from bowtie2_tpu_torch.ops.sw import DEAD_FILL
+    n = int(n_live)
+    lens = np.asarray(lens)
+    for f in fields:
+        w = np.asarray(getattr(want, f))
+        g = getattr(got, f).numpy()
+        if f == "dirs":
+            rows = np.arange(w.shape[0])[:, None] < lens[None, :n]
+            np.testing.assert_array_equal(g[:, :n][rows], w[:, :n][rows],
+                                          err_msg=f)
+            continue
+        np.testing.assert_array_equal(g[:n], w[:n], err_msg=f)
+        fill = DEAD_FILL[("score", "row", "lane", "origin").index(f)]
+        assert (g[n:] == fill).all(), f
+
+
 def test_corpus_is_deterministic():
     g1, r1 = corpus(64)
     g2, r2 = corpus(64)

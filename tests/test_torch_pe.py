@@ -46,7 +46,8 @@ from bowtie2_tpu_torch.ops import sw as psw  # noqa: E402
 from bowtie2_tpu_torch.pipeline.paired import PairedAligner as PPaired  # noqa: E402
 from bowtie2_tpu_torch.pipeline.pe import pe_classify_torch  # noqa: E402
 from bowtie2_tpu_torch.pipeline.policy import make_policy as ppolicy  # noqa: E402
-from test_torch_corpus import corpus  # noqa: E402
+from test_torch_corpus import (N_LIVE_KINDS, assert_live_region,  # noqa: E402
+                               corpus, n_live_of)
 
 
 def _t(a):
@@ -78,6 +79,52 @@ def test_sw_origin_plain_matches_jax(case):
                       _t(c.col_lo))
     assert q.origin is None
     np.testing.assert_array_equal(q.dirs.numpy(), p.dirs.numpy())
+
+
+ORIGIN = cases.origin_cases()
+PADDED = cases.padded_origin_cases()
+_JAX_ORIGIN = {}
+
+
+def _jax_origin(c):
+    if c.name not in _JAX_ORIGIN:
+        _JAX_ORIGIN[c.name] = jsw.sw_banded(
+            _j(c.reads), _j(c.quals), _j(c.lens), _j(c.wins),
+            jsw.SWParams(**c.params()), c.band, _j(c.rect_cols),
+            _j(c.col_lo), track_origin=True)
+    return _JAX_ORIGIN[c.name]
+
+
+def _port_origin(c, n_live):
+    return psw.sw_banded(_t(c.reads), _t(c.quals), _t(c.lens), _t(c.wins),
+                         psw.SWParams(**c.params()), c.band, _t(c.rect_cols),
+                         _t(c.col_lo), track_origin=True, n_live=n_live)
+
+
+_FIELDS = ("score", "row", "lane", "origin", "dirs")
+
+
+@pytest.mark.parametrize("kind", N_LIVE_KINDS)
+@pytest.mark.parametrize("case", ORIGIN, ids=[c.name for c in ORIGIN])
+def test_sw_origin_n_live_matches_jax(case, kind):
+    """The plain origin DP with n_live: the JAX DP on the live lanes
+    (dirs rows below each read's length), the fill on the dead ones."""
+    n_live = n_live_of(kind, case.reads.shape[0])
+    assert_live_region(_jax_origin(case), _port_origin(case, n_live),
+                       case.lens, n_live, _FIELDS)
+
+
+@pytest.mark.parametrize("whole", [False, True], ids=["n_live", "all"])
+@pytest.mark.parametrize("case", PADDED, ids=[c.name for c in PADDED])
+def test_sw_origin_padded_matches_jax(case, whole):
+    """ops/cases.py padded_origin_cases, laid out as the fused pipelines'
+    DP lanes: at the case's n_live, and with every lane live (the length-1
+    padding lanes over real codes)."""
+    n_live = case.reads.shape[0] if whole else torch.tensor(
+        case.n_live, dtype=torch.int32)
+    assert 0 < case.n_live < case.reads.shape[0]
+    assert_live_region(_jax_origin(case), _port_origin(case, n_live),
+                       case.lens, n_live, _FIELDS)
 
 
 CLASSIFY_FLAGS = [(True, True, False), (False, True, False),

@@ -21,7 +21,8 @@ from bowtie2_tpu.ops import sw as jsw  # noqa: E402
 from bowtie2_tpu_torch.ops import cases  # noqa: E402
 from bowtie2_tpu_torch.ops import ref as pref  # noqa: E402
 from bowtie2_tpu_torch.ops import sw as psw  # noqa: E402
-from test_torch_corpus import n_refs_with_ns  # noqa: E402
+from test_torch_corpus import (N_LIVE_KINDS, assert_live_region,  # noqa: E402
+                               n_live_of, n_refs_with_ns)
 
 
 def _t(a):
@@ -161,6 +162,43 @@ def test_sw_banded_synthetic_cases(case):
                     case.band, case.rect_cols, case.col_lo)
     for f in ("score", "row", "lane", "dirs"):
         _eq(getattr(j, f), getattr(q, f), f)
+
+
+_JAX_DP = {}
+
+
+def _jax_origin_dp(case):
+    """The JAX sw_banded(track_origin=True) on a case, once per case."""
+    if case.name not in _JAX_DP:
+        _JAX_DP[case.name] = jsw.sw_banded(
+            jnp.asarray(case.reads), jnp.asarray(case.quals),
+            jnp.asarray(case.lens), jnp.asarray(case.wins),
+            jsw.SWParams(**case.params()), case.band,
+            None if case.rect_cols is None else jnp.asarray(case.rect_cols),
+            None if case.col_lo is None else jnp.asarray(case.col_lo),
+            track_origin=True)
+    return _JAX_DP[case.name]
+
+
+@pytest.mark.parametrize("kind", N_LIVE_KINDS)
+@pytest.mark.parametrize("case", _DP_CASES, ids=[c.name for c in _DP_CASES])
+def test_sw_banded_n_live(case, kind):
+    """sw_banded with n_live, both flags: the JAX DP's score, row, lane,
+    origin and dirs rows below each read's length on the live lanes, and
+    the dead lanes' fill."""
+    j = _jax_origin_dp(case)
+    n_live = n_live_of(kind, case.reads.shape[0])
+    for origin in (False, True):
+        q = psw.sw_banded(
+            _t(case.reads), _t(case.quals), _t(case.lens), _t(case.wins),
+            psw.SWParams(**case.params()), case.band,
+            None if case.rect_cols is None else _t(case.rect_cols),
+            None if case.col_lo is None else _t(case.col_lo),
+            track_origin=origin, n_live=n_live)
+        assert (q.origin is not None) == origin
+        assert_live_region(j, q, case.lens, n_live,
+                           ("score", "row", "lane", "dirs")
+                           + (("origin",) if origin else ()))
 
 
 def _plain_dp(case):
