@@ -24,12 +24,55 @@
 // and the checkpoint of a row past the last block, read as -1 in the
 // row type (0xFFFFFFFF). RowOut<R> is the type a kernel writes rows in:
 // int, or int64 holding the uint32 value (the port's tensor API).
+//
+// Row source: where a table's rows come from, a template argument beside
+// R. FlatRows is one table, as above: a row past the end is clamped for
+// the load and reads as 0xFFFFFFFF. ShardRows is the sharded index mode
+// (bowtie2_tpu/ops/fm.py:55 _take_sharded, owner-computes plus a psum
+// over the shard axis): S shards of `per` rows, shard s holding the global
+// rows [s per, (s + 1) per), read through a device array of the shards'
+// addresses (ShardTab); a row no shard holds (negative, or at S per or
+// past it) reads as zeros, the psum of every shard's zeros, and its load
+// goes to shard 0's row 0 (shard_row). The shards' padding rows are zeros
+// too, so a row past the last block reads as zeros in the sharded mode
+// whether a shard holds it or not, and its checkpoint as 0 where the flat
+// table gives -1. The flat code is the one-table code as it was, so the
+// flat kernels compile as before.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
 
 template <typename R> struct RowOut { using T = int; };
 template <> struct RowOut<uint32_t> { using T = long long; };
+
+// the row sources, as template tags
+struct FlatRows {
+    static constexpr bool SHARDED = false;
+    static constexpr uint32_t FILL = 0xFFFFFFFFu;
+};
+
+struct ShardRows {
+    static constexpr bool SHARDED = true;
+    static constexpr uint32_t FILL = 0u;
+};
+
+// A sharded table: the S shards' addresses on the card, `per` rows each.
+struct ShardTab {
+    const unsigned long long* __restrict__ p;
+    int per, S;
+};
+
+// The address of row r of a sharded table of w words, and whether a shard
+// holds it: its owner is r / per (a negative r is past every shard as
+// unsigned); where none does, shard 0's row 0.
+__device__ __forceinline__ const uint32_t* shard_row(const ShardTab& sh,
+                                                     int r, int w,
+                                                     bool& held) {
+    const unsigned s = (unsigned)r / (unsigned)sh.per;
+    held = s < (unsigned)sh.S;
+    return reinterpret_cast<const uint32_t*>(__ldg(sh.p + (held ? s : 0u)))
+           + (size_t)(held ? (unsigned)r - s * (unsigned)sh.per : 0u) * w;
+}
 
 struct FmRow {
     uint32_t w[8];
@@ -73,28 +116,33 @@ __device__ __forceinline__ int fm_count_lean(const FmRow& r, int c, int pos) {
 // lane j = 1 row `bot`, each with the row's eight bwt words in two 16-byte
 // loads and cp[c] in one, and adds fchr[c] (passed in registers) and the
 // sentinel correction. One shuffle swaps the two counts, so both lanes
-// return both results. Rows past the last block read as 0xFFFFFFFF. LEAN
-// counts with fm_count_lean (the half-read search), else with
+// return both results. A row the source does not hold reads as its FILL.
+// LEAN counts with fm_count_lean (the half-read search), else with
 // fm_count_below (the sweep).
-template <bool LEAN = false, typename R = int>
+template <bool LEAN, typename R, typename Src>
 __device__ __forceinline__ void fm_lf2_pair(const uint32_t* __restrict__ fm,
-                                            int nblocks, R fchr_c, R z_off,
-                                            R top, R bot, int c, int j,
-                                            R& ntop, R& nbot) {
+                                            int nblocks, const ShardTab& sh,
+                                            R fchr_c, R z_off, R top, R bot,
+                                            int c, int j, R& ntop, R& nbot) {
     const R i = j == 0 ? top : bot;
     const int block = (int)(i >> 7);
     // load a real row always and fill after it: no branch around the load
-    const uint32_t* row = fm + (size_t)min(block, nblocks - 1) * 12;
+    bool held = true;
+    const uint32_t* row;
+    if constexpr (Src::SHARDED)
+        row = shard_row(sh, block, 12, held);
+    else
+        row = fm + (size_t)min(block, nblocks - 1) * 12;
     const uint4 a = __ldg(reinterpret_cast<const uint4*>(row));
     const uint4 b = __ldg(reinterpret_cast<const uint4*>(row) + 1);
     FmRow r;
     r.w[0] = a.x; r.w[1] = a.y; r.w[2] = a.z; r.w[3] = a.w;
     r.w[4] = b.x; r.w[5] = b.y; r.w[6] = b.z; r.w[7] = b.w;
     R base = (R)__ldg(row + 8 + c);
-    if (block >= nblocks) {
+    if (Src::SHARDED ? !held : block >= nblocks) {
         #pragma unroll
-        for (int k = 0; k < 8; ++k) r.w[k] = 0xFFFFFFFFu;
-        base = (R)-1;
+        for (int k = 0; k < 8; ++k) r.w[k] = Src::FILL;
+        base = (R)Src::FILL;
     }
     const int pos = (int)(i & 127);
     const R cnt = (R)(LEAN ? fm_count_lean(r, c, pos)
@@ -108,20 +156,29 @@ __device__ __forceinline__ void fm_lf2_pair(const uint32_t* __restrict__ fm,
 // LF step of both ends of a range in one thread (the seed search): the top
 // row's bwt words and cp[c], and, only when bot lies in another block, the
 // bot row's, both issued before either count; words 4-7 of a row only for
-// a position past 64 (up to it their crumbs count nothing). A row past the
-// last block is reached only at i = n + 1 = 128 nblocks, position 0, where
-// the words count nothing: only its checkpoint reads as 0xFFFFFFFF.
-template <typename R>
+// a position past 64 (up to it their crumbs count nothing). A row the
+// source does not hold is reached only at i = n + 1 = 128 nblocks,
+// position 0, where the words count nothing: only its checkpoint reads as
+// the source's FILL (0xFFFFFFFF flat, 0 sharded).
+template <typename R, typename Src>
 __device__ __forceinline__ void fm_lf_range(const uint32_t* __restrict__ fm,
-                                            int nblocks, R fchr_c, R z_off,
-                                            int c, R& top, R& bot) {
+                                            int nblocks, const ShardTab& sh,
+                                            R fchr_c, R z_off, int c, R& top,
+                                            R& bot) {
     const int bt = (int)(top >> 7), bb = (int)(bot >> 7);
     const int pt = (int)(top & 127), pb = (int)(bot & 127);
     const bool same = bt == bb;
-    const uint4* rt =
-        reinterpret_cast<const uint4*>(fm + (size_t)min(bt, nblocks - 1) * 12);
-    const uint4* rb =
-        reinterpret_cast<const uint4*>(fm + (size_t)min(bb, nblocks - 1) * 12);
+    bool ht = true, hb = true;
+    const uint4 *rt, *rb;
+    if constexpr (Src::SHARDED) {
+        rt = reinterpret_cast<const uint4*>(shard_row(sh, bt, 12, ht));
+        rb = reinterpret_cast<const uint4*>(shard_row(sh, bb, 12, hb));
+    } else {
+        rt = reinterpret_cast<const uint4*>(
+            fm + (size_t)min(bt, nblocks - 1) * 12);
+        rb = reinterpret_cast<const uint4*>(
+            fm + (size_t)min(bb, nblocks - 1) * 12);
+    }
     uint4 a0 = __ldg(rt), a1 = make_uint4(0, 0, 0, 0);
     if (max(pt, same ? pb : 0) > 64) a1 = __ldg(rt + 1);
     R cpt = (R)__ldg(reinterpret_cast<const uint32_t*>(rt) + 8 + c);
@@ -132,8 +189,8 @@ __device__ __forceinline__ void fm_lf_range(const uint32_t* __restrict__ fm,
         if (pb > 64) b1 = __ldg(rb + 1);
         cpb = (R)__ldg(reinterpret_cast<const uint32_t*>(rb) + 8 + c);
     }
-    if (bt >= nblocks) cpt = (R)-1;
-    if (bb >= nblocks) cpb = (R)-1;
+    if (Src::SHARDED ? !ht : bt >= nblocks) cpt = (R)Src::FILL;
+    if (Src::SHARDED ? !hb : bb >= nblocks) cpb = (R)Src::FILL;
     FmRow r, s;
     r.w[0] = a0.x; r.w[1] = a0.y; r.w[2] = a0.z; r.w[3] = a0.w;
     r.w[4] = a1.x; r.w[5] = a1.y; r.w[6] = a1.z; r.w[7] = a1.w;

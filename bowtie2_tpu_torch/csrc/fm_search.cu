@@ -52,7 +52,10 @@
 // Each kernel is a template on the row type R (fm_common.cuh): int for the
 // small mode (fm_sweep, fm_substring, fm_seed) and uint32_t for the large
 // mode's uint32 row space (the `_u32` entries), which writes its rows as
-// int64. Launch shapes, staging and shared memory are the same in both.
+// int64; and on the row source: one flat fm_blocks table, or the sharded
+// index mode's shards (the `_sh` entries, each LF step finding its row's
+// owner shard by a divide and its address in the shards' address array).
+// Launch shapes, staging and shared memory are the same in all four.
 #include "fm_common.cuh"
 
 namespace {
@@ -63,9 +66,10 @@ constexpr int SWEEP_CHUNK = 128;            // pattern columns staged at once
 // words per staged pattern: +1 so the states of a warp hit distinct banks
 constexpr int SWEEP_STRIDE = SWEEP_CHUNK / 4 + 1;
 
-template <typename R>
+template <typename R, typename Src>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 sweep_kernel(const uint32_t* __restrict__ fm, int nblocks,
+             const ShardTab sh,
              const R* __restrict__ fchr, R z_off, R nrows,
              const int* __restrict__ rr, int B, int L,
              typename RowOut<R>::T* top_out, typename RowOut<R>::T* bot_out,
@@ -105,8 +109,8 @@ sweep_kernel(const uint32_t* __restrict__ fm, int nblocks,
                     const R fc = cc == 0 ? f0 : (cc == 1 ? f1
                                                : (cc == 2 ? f2 : f3));
                     R nt, nb;
-                    fm_lf2_pair<false, R>(fm, nblocks, fc, z_off, top, bot,
-                                          cc, j, nt, nb);
+                    fm_lf2_pair<false, R, Src>(fm, nblocks, sh, fc, z_off,
+                                               top, bot, cc, j, nt, nb);
                     if (c < 4) {
                         const bool empty = nt >= nb;
                         top = empty ? 0 : nt;
@@ -186,9 +190,10 @@ __device__ __forceinline__ uint32_t codes4(const uint32_t* pat, int off) {
     return __funnelshift_r(w[0], w[1], 8 * (off & 3));
 }
 
-template <typename R>
+template <typename R, typename Src>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
+                 const ShardTab sh,
                  const R* __restrict__ fchr, R z_off, R nrows,
                  const int* __restrict__ rr, int B, int L,
                  typename RowOut<R>::T* top_out,
@@ -222,9 +227,10 @@ substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
                     // a state that does not step loads row 0 (a dead
                     // range's bot may be -1)
                     R nt, nb;
-                    fm_lf2_pair<true, R>(fm, nblocks, fc, z_off,
-                                         step ? top : (R)0,
-                                         step ? bot : (R)0, cc, j, nt, nb);
+                    fm_lf2_pair<true, R, Src>(fm, nblocks, sh, fc, z_off,
+                                              step ? top : (R)0,
+                                              step ? bot : (R)0, cc, j, nt,
+                                              nb);
                     if (step) {
                         top = nt;
                         bot = nb;
@@ -249,9 +255,10 @@ constexpr int SEED_CHUNK = 32;              // codes a 64-bit word holds
 // path's 1,024 blocks of seeds run in one wave on 132 SMs
 constexpr int SEED_MIN_BLOCKS = 8;
 
-template <typename R>
+template <typename R, typename Src>
 __global__ void __launch_bounds__(SEED_THREADS, SEED_MIN_BLOCKS)
 seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
+            const ShardTab sh,
             const R* __restrict__ fchr, R z_off, R nrows,
             const R* __restrict__ ftab, const int* __restrict__ seeds,
             const unsigned char* __restrict__ valid, int B, int L, int K,
@@ -312,7 +319,7 @@ seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
             } else {
                 const int c = (int)(w >> (2 * q)) & 3;
                 const R fc = c == 0 ? f0 : (c == 1 ? f1 : (c == 2 ? f2 : f3));
-                fm_lf_range<R>(fm, nblocks, fc, z_off, c, top, bot);
+                fm_lf_range<R, Src>(fm, nblocks, sh, fc, z_off, c, top, bot);
             }
         }
     }
@@ -322,36 +329,44 @@ seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
     }
 }
 
-// the launches, one per kernel and row type
-template <typename R>
-int launch_sweep(const void* fm, int nblocks, const void* fchr, R z_off,
-                 R nrows, const void* rr, int B, int L, void* top, void* bot,
-                 void* nedit, void* stream) {
+// the launches, one per kernel, row type and row source: (fm, nblocks) a
+// flat table, or (shard addresses, rows a shard) and S shards, which the
+// kernels take as a ShardTab (unused by the flat kernels)
+ShardTab tab(const void* shards, int per, int S) {
+    return ShardTab{(const unsigned long long*)shards, per, S};
+}
+
+template <typename R, typename Src>
+int launch_sweep(const void* fm, int nblocks, int S, const void* fchr,
+                 R z_off, R nrows, const void* rr, int B, int L, void* top,
+                 void* bot, void* nedit, void* stream) {
     using O = typename RowOut<R>::T;
     if (B > 0)
-        sweep_kernel<R><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
-                          SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)fm, nblocks, (const R*)fchr, z_off, nrows,
-            (const int*)rr, B, L, (O*)top, (O*)bot, (int*)nedit);
+        sweep_kernel<R, Src><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
+                               SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)fm, nblocks, tab(fm, nblocks, S),
+            (const R*)fchr, z_off, nrows, (const int*)rr, B, L, (O*)top,
+            (O*)bot, (int*)nedit);
     return (int)cudaGetLastError();
 }
 
-template <typename R>
-int launch_substring(const void* fm, int nblocks, const void* fchr, R z_off,
-                     R nrows, const void* rr, int B, int L, void* top,
-                     void* bot, void* stream) {
+template <typename R, typename Src>
+int launch_substring(const void* fm, int nblocks, int S, const void* fchr,
+                     R z_off, R nrows, const void* rr, int B, int L,
+                     void* top, void* bot, void* stream) {
     using O = typename RowOut<R>::T;
     if (B > 0)
-        substring_kernel<R><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
-                              SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)fm, nblocks, (const R*)fchr, z_off, nrows,
-            (const int*)rr, B, L, (O*)top, (O*)bot);
+        substring_kernel<R, Src><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
+                                   SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)fm, nblocks, tab(fm, nblocks, S),
+            (const R*)fchr, z_off, nrows, (const int*)rr, B, L, (O*)top,
+            (O*)bot);
     return (int)cudaGetLastError();
 }
 
-template <typename R>
-int launch_seed(const void* fm, int nblocks, const void* fchr, R z_off,
-                R nrows, const void* ftab, const void* seeds,
+template <typename R, typename Src>
+int launch_seed(const void* fm, int nblocks, int S, const void* fchr,
+                R z_off, R nrows, const void* ftab, const void* seeds,
                 const void* valid, int B, int L, int K, void* top, void* bot,
                 void* stream) {
     using O = typename RowOut<R>::T;
@@ -359,58 +374,123 @@ int launch_seed(const void* fm, int nblocks, const void* fchr, R z_off,
     // (and no ftab has one: keys are 4^K entries with K <= 15)
     if (K > SEED_CHUNK && K <= L) return (int)cudaErrorInvalidValue;
     if (B > 0)
-        seed_kernel<R><<<(B + SEED_THREADS - 1) / SEED_THREADS, SEED_THREADS,
-                         0, (cudaStream_t)stream>>>(
-            (const uint32_t*)fm, nblocks, (const R*)fchr, z_off, nrows,
-            (const R*)ftab, (const int*)seeds, (const unsigned char*)valid,
-            B, L, K, (O*)top, (O*)bot);
+        seed_kernel<R, Src><<<(B + SEED_THREADS - 1) / SEED_THREADS,
+                              SEED_THREADS, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)fm, nblocks, tab(fm, nblocks, S),
+            (const R*)fchr, z_off, nrows, (const R*)ftab, (const int*)seeds,
+            (const unsigned char*)valid, B, L, K, (O*)top, (O*)bot);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The C entries: fm_<search> over one flat table (fm, nblocks), and
+// fm_<search>_sh over a sharded one (shards: S device addresses of `per`
+// fm_blocks rows each); each with a `_u32` twin in the large row mode.
 extern "C" int fm_sweep(const void* fm, int nblocks, const void* fchr,
                         int z_off, int nrows, const void* rr, int B, int L,
                         void* top, void* bot, void* nedit, void* stream) {
-    return launch_sweep<int>(fm, nblocks, fchr, z_off, nrows, rr, B, L, top,
-                             bot, nedit, stream);
+    return launch_sweep<int, FlatRows>(fm, nblocks, 1, fchr, z_off, nrows,
+                                       rr, B, L, top, bot, nedit, stream);
 }
 
 extern "C" int fm_sweep_u32(const void* fm, int nblocks, const void* fchr,
                             unsigned z_off, unsigned nrows, const void* rr,
                             int B, int L, void* top, void* bot, void* nedit,
                             void* stream) {
-    return launch_sweep<uint32_t>(fm, nblocks, fchr, z_off, nrows, rr, B, L,
-                                  top, bot, nedit, stream);
+    return launch_sweep<uint32_t, FlatRows>(fm, nblocks, 1, fchr, z_off,
+                                            nrows, rr, B, L, top, bot, nedit,
+                                            stream);
+}
+
+extern "C" int fm_sweep_sh(const void* shards, int per, int S,
+                           const void* fchr, int z_off, int nrows,
+                           const void* rr, int B, int L, void* top, void* bot,
+                           void* nedit, void* stream) {
+    return launch_sweep<int, ShardRows>(shards, per, S, fchr, z_off, nrows,
+                                        rr, B, L, top, bot, nedit, stream);
+}
+
+extern "C" int fm_sweep_sh_u32(const void* shards, int per, int S,
+                               const void* fchr, unsigned z_off,
+                               unsigned nrows, const void* rr, int B, int L,
+                               void* top, void* bot, void* nedit,
+                               void* stream) {
+    return launch_sweep<uint32_t, ShardRows>(shards, per, S, fchr, z_off,
+                                             nrows, rr, B, L, top, bot, nedit,
+                                             stream);
 }
 
 extern "C" int fm_substring(const void* fm, int nblocks, const void* fchr,
                             int z_off, int nrows, const void* rr, int B, int L,
                             void* top, void* bot, void* stream) {
-    return launch_substring<int>(fm, nblocks, fchr, z_off, nrows, rr, B, L,
-                                 top, bot, stream);
+    return launch_substring<int, FlatRows>(fm, nblocks, 1, fchr, z_off,
+                                           nrows, rr, B, L, top, bot, stream);
 }
 
 extern "C" int fm_substring_u32(const void* fm, int nblocks, const void* fchr,
                                 unsigned z_off, unsigned nrows,
                                 const void* rr, int B, int L, void* top,
                                 void* bot, void* stream) {
-    return launch_substring<uint32_t>(fm, nblocks, fchr, z_off, nrows, rr, B,
-                                      L, top, bot, stream);
+    return launch_substring<uint32_t, FlatRows>(fm, nblocks, 1, fchr, z_off,
+                                                nrows, rr, B, L, top, bot,
+                                                stream);
+}
+
+extern "C" int fm_substring_sh(const void* shards, int per, int S,
+                               const void* fchr, int z_off, int nrows,
+                               const void* rr, int B, int L, void* top,
+                               void* bot, void* stream) {
+    return launch_substring<int, ShardRows>(shards, per, S, fchr, z_off,
+                                            nrows, rr, B, L, top, bot,
+                                            stream);
+}
+
+extern "C" int fm_substring_sh_u32(const void* shards, int per, int S,
+                                   const void* fchr, unsigned z_off,
+                                   unsigned nrows, const void* rr, int B,
+                                   int L, void* top, void* bot,
+                                   void* stream) {
+    return launch_substring<uint32_t, ShardRows>(shards, per, S, fchr, z_off,
+                                                 nrows, rr, B, L, top, bot,
+                                                 stream);
 }
 
 extern "C" int fm_seed(const void* fm, int nblocks, const void* fchr,
                        int z_off, int nrows, const void* ftab,
                        const void* seeds, const void* valid, int B, int L,
                        int K, void* top, void* bot, void* stream) {
-    return launch_seed<int>(fm, nblocks, fchr, z_off, nrows, ftab, seeds,
-                            valid, B, L, K, top, bot, stream);
+    return launch_seed<int, FlatRows>(fm, nblocks, 1, fchr, z_off, nrows,
+                                      ftab, seeds, valid, B, L, K, top, bot,
+                                      stream);
 }
 
 extern "C" int fm_seed_u32(const void* fm, int nblocks, const void* fchr,
                            unsigned z_off, unsigned nrows, const void* ftab,
                            const void* seeds, const void* valid, int B,
                            int L, int K, void* top, void* bot, void* stream) {
-    return launch_seed<uint32_t>(fm, nblocks, fchr, z_off, nrows, ftab,
-                                 seeds, valid, B, L, K, top, bot, stream);
+    return launch_seed<uint32_t, FlatRows>(fm, nblocks, 1, fchr, z_off,
+                                           nrows, ftab, seeds, valid, B, L,
+                                           K, top, bot, stream);
+}
+
+extern "C" int fm_seed_sh(const void* shards, int per, int S,
+                          const void* fchr, int z_off, int nrows,
+                          const void* ftab, const void* seeds,
+                          const void* valid, int B, int L, int K, void* top,
+                          void* bot, void* stream) {
+    return launch_seed<int, ShardRows>(shards, per, S, fchr, z_off, nrows,
+                                       ftab, seeds, valid, B, L, K, top, bot,
+                                       stream);
+}
+
+extern "C" int fm_seed_sh_u32(const void* shards, int per, int S,
+                              const void* fchr, unsigned z_off,
+                              unsigned nrows, const void* ftab,
+                              const void* seeds, const void* valid, int B,
+                              int L, int K, void* top, void* bot,
+                              void* stream) {
+    return launch_seed<uint32_t, ShardRows>(shards, per, S, fchr, z_off,
+                                            nrows, ftab, seeds, valid, B, L,
+                                            K, top, bot, stream);
 }

@@ -27,6 +27,11 @@
 // checkpoint stays int in both modes, as the builder and the JAX op keep
 // it (int32: up to 2^31 - 1 marked rows, any table at the default
 // off_rate).
+//
+// And a template on the row source (fm_common.cuh): flat tables
+// (sa_resolve, sa_resolve_u32), or the sharded index mode's shards of the
+// FM rows, the mark rows and offs (sa_resolve_sh, sa_resolve_sh_u32),
+// where a row or rank no shard holds reads as zeros.
 #include "fm_common.cuh"
 
 namespace {
@@ -57,12 +62,13 @@ __device__ __forceinline__ R lf_step(const uint4& a, const uint4& b,
            - (R)((c == 0 && row > z_off) ? 1 : 0);
 }
 
-template <typename R>
+template <typename R, typename Src>
 __global__ void __launch_bounds__(THREADS)
 resolve_kernel(const uint32_t* __restrict__ fm, int nblocks,
                const R* __restrict__ fchr, R z_off,
                const uint32_t* __restrict__ marks,
-               const R* __restrict__ offs, int n_offs,
+               const R* __restrict__ offs, int n_offs, const ShardTab fsh,
+               const ShardTab msh, const ShardTab osh,
                const typename RowOut<R>::T* __restrict__ rows, int B,
                int period, typename RowOut<R>::T* out) {
     const int t = blockIdx.x * THREADS + threadIdx.x;
@@ -71,64 +77,135 @@ resolve_kernel(const uint32_t* __restrict__ fm, int nblocks,
             f3 = __ldg(fchr + 3);
     R row = (R)__ldg(rows + t);
     int steps = 0;
-    int block = min((int)(row >> 7), nblocks - 1), pos = (int)(row & 127);
+    int block, pos = (int)(row & 127);
+    // the mark rows lie as the FM rows do (one a block; sharded, over the
+    // same shards): one owner serves both tables
+    bool held = true;
+    if constexpr (Src::SHARDED)
+        block = (int)(row >> 7);
+    else
+        block = min((int)(row >> 7), nblocks - 1);
     for (;;) {
-        const uint32_t mw = __ldg(marks + (size_t)block * 5 + (pos >> 5));
+        const uint32_t *mr, *fw;
+        if constexpr (Src::SHARDED) {
+            const unsigned s = (unsigned)block / (unsigned)fsh.per;
+            held = s < (unsigned)fsh.S;
+            const unsigned q = held ? s : 0u;
+            const size_t r = held ? (unsigned)block - s * (unsigned)fsh.per
+                                  : 0u;
+            mr = reinterpret_cast<const uint32_t*>(__ldg(msh.p + q)) + r * 5;
+            fw = reinterpret_cast<const uint32_t*>(__ldg(fsh.p + q)) + r * 12;
+        } else {
+            mr = marks + (size_t)block * 5;
+            fw = fm + (size_t)block * 12;
+        }
+        uint32_t mw = __ldg(mr + (pos >> 5));
         // the FM row: words 0-3, words 4-7 and the checkpoints
-        const uint4* fr =
-            reinterpret_cast<const uint4*>(fm + (size_t)block * 12);
-        const uint4 a = __ldg(fr), b = __ldg(fr + 1), cp = __ldg(fr + 2);
+        const uint4* fr = reinterpret_cast<const uint4*>(fw);
+        uint4 a = __ldg(fr), b = __ldg(fr + 1), cp = __ldg(fr + 2);
+        if (Src::SHARDED && !held) {     // no shard holds it: zeros
+            mw = 0;
+            a = b = cp = make_uint4(0, 0, 0, 0);
+        }
         // the loads stay above the test that would use neither
         asm volatile("" : "+r"(steps) : : "memory");
         if (((mw >> (pos & 31)) & 1u) || steps == period) break;
         row = lf_step<R>(a, b, cp, row, pos, z_off, f0, f1, f2, f3);
         ++steps;
-        block = min((int)(row >> 7), nblocks - 1);
+        if constexpr (Src::SHARDED)
+            block = (int)(row >> 7);
+        else
+            block = min((int)(row >> 7), nblocks - 1);
         pos = (int)(row & 127);
     }
     // rank: the marked rows of the block before pos
-    const uint32_t* m = marks + (size_t)block * 5;
-    int rank = (int)__ldg(m + 4);
+    const uint32_t* m;
+    if constexpr (Src::SHARDED)
+        m = shard_row(msh, block, 5, held);
+    else
+        m = marks + (size_t)block * 5;
+    int rank = held ? (int)__ldg(m + 4) : 0;
     #pragma unroll
     for (int k = 0; k < 4; ++k) {
         int n = pos - 32 * k;
         n = n < 0 ? 0 : (n > 32 ? 32 : n);
         const uint32_t mask = n >= 32 ? FULL : ((1u << n) - 1u);
-        rank += __popc(__ldg(m + k) & mask);
+        rank += held ? __popc(__ldg(m + k) & mask) : 0;
     }
-    rank = rank < 0 ? 0 : (rank >= n_offs ? n_offs - 1 : rank);
-    out[t] = (R)(__ldg(offs + rank) + (R)steps);
+    // offs[rank]: flat, clamped to the table; sharded, 0 where no shard
+    // holds the rank
+    R off;
+    if constexpr (Src::SHARDED) {
+        const uint32_t* o = shard_row(osh, rank, 1, held);
+        off = held ? (R)__ldg(o) : (R)0;
+    } else {
+        rank = rank < 0 ? 0 : (rank >= n_offs ? n_offs - 1 : rank);
+        off = __ldg(offs + rank);
+    }
+    out[t] = (R)(off + (R)steps);
 }
 
-template <typename R>
-int launch_resolve(const void* fm, int nblocks, const void* fchr, R z_off,
-                   const void* marks, const void* offs, int n_offs,
-                   const void* rows, int B, int period, void* out,
+// the sharded tables of a launch (unused by the flat kernel)
+ShardTab tab(const void* shards, int per, int S) {
+    return ShardTab{(const unsigned long long*)shards, per, S};
+}
+
+template <typename R, typename Src>
+int launch_resolve(const void* fm, int nblocks, int S, const void* fchr,
+                   R z_off, const void* marks, const void* offs, int n_offs,
+                   int S_off, const void* rows, int B, int period, void* out,
                    void* stream) {
     using O = typename RowOut<R>::T;
     if (B > 0)
-        resolve_kernel<R><<<(B + THREADS - 1) / THREADS, THREADS, 0,
-                            (cudaStream_t)stream>>>(
+        resolve_kernel<R, Src><<<(B + THREADS - 1) / THREADS, THREADS, 0,
+                                 (cudaStream_t)stream>>>(
             (const uint32_t*)fm, nblocks, (const R*)fchr, z_off,
-            (const uint32_t*)marks, (const R*)offs, n_offs, (const O*)rows,
-            B, period, (O*)out);
+            (const uint32_t*)marks, (const R*)offs, n_offs,
+            tab(fm, nblocks, S), tab(marks, nblocks, S),
+            tab(offs, n_offs, S_off), (const O*)rows, B, period, (O*)out);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The C entries: sa_resolve over flat tables; sa_resolve_sh over the
+// sharded index mode's shards (fm_blocks and mark_rows: S addresses of
+// per_blk rows each; offs: S_off addresses of per_off values each); each
+// with a `_u32` twin in the large row mode.
 extern "C" int sa_resolve(const void* fm, int nblocks, const void* fchr,
                           int z_off, const void* marks, const void* offs,
                           int n_offs, const void* rows, int B, int period,
                           void* out, void* stream) {
-    return launch_resolve<int>(fm, nblocks, fchr, z_off, marks, offs, n_offs,
-                               rows, B, period, out, stream);
+    return launch_resolve<int, FlatRows>(fm, nblocks, 1, fchr, z_off, marks,
+                                         offs, n_offs, 1, rows, B, period,
+                                         out, stream);
 }
 
 extern "C" int sa_resolve_u32(const void* fm, int nblocks, const void* fchr,
                               unsigned z_off, const void* marks,
                               const void* offs, int n_offs, const void* rows,
                               int B, int period, void* out, void* stream) {
-    return launch_resolve<uint32_t>(fm, nblocks, fchr, z_off, marks, offs,
-                                    n_offs, rows, B, period, out, stream);
+    return launch_resolve<uint32_t, FlatRows>(fm, nblocks, 1, fchr, z_off,
+                                              marks, offs, n_offs, 1, rows, B,
+                                              period, out, stream);
+}
+
+extern "C" int sa_resolve_sh(const void* fm, int per_blk, int S,
+                             const void* fchr, int z_off, const void* marks,
+                             const void* offs, int per_off, int S_off,
+                             const void* rows, int B, int period, void* out,
+                             void* stream) {
+    return launch_resolve<int, ShardRows>(fm, per_blk, S, fchr, z_off, marks,
+                                          offs, per_off, S_off, rows, B,
+                                          period, out, stream);
+}
+
+extern "C" int sa_resolve_sh_u32(const void* fm, int per_blk, int S,
+                                 const void* fchr, unsigned z_off,
+                                 const void* marks, const void* offs,
+                                 int per_off, int S_off, const void* rows,
+                                 int B, int period, void* out, void* stream) {
+    return launch_resolve<uint32_t, ShardRows>(fm, per_blk, S, fchr, z_off,
+                                               marks, offs, per_off, S_off,
+                                               rows, B, period, out, stream);
 }

@@ -61,6 +61,30 @@ class FMHalf(NamedTuple):
         return self.row_dtype == torch.int64
 
 
+class ShardedFMHalf(NamedTuple):
+    """FMHalf's twin in the sharded index mode (dist/sharded.py): the big
+    tables are ops/fm.py ShardedRows (the owner's row, or zeros), the
+    small ones stay whole on the home device. Field names match FMHalf,
+    so ops/fm.py and ops/fused.py take either."""
+    n: int
+    z_off: int
+    fm_blocks: object           # ShardedRows of int32[per, 12]
+    fchr: torch.Tensor          # int32[5], home device
+    ftab: torch.Tensor          # int32[2*4^K + 1], home device
+    mark_rows: object           # ShardedRows of int32[per, 5], sharded as
+                                # fm_blocks is
+    offs: object                # ShardedRows of int32[per_off]
+    row_dtype: torch.dtype = torch.int32
+
+    @property
+    def nrows(self) -> int:
+        return self.n + 1
+
+    @property
+    def large(self) -> bool:
+        return self.row_dtype == torch.int64
+
+
 def _low32(a: np.ndarray) -> np.ndarray:
     """The low 32 bits of each value, as uint32 (int64 tables of the large
     mode wrap; int32 tables keep their bits)."""

@@ -30,7 +30,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
-SOURCES = ("fm_search", "sa_resolve", "sw_rect", "backtrace", "sw_diag")
+SOURCES = ("fm_search", "sa_resolve", "sw_rect", "backtrace", "sw_diag",
+           "take_sharded")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -69,16 +70,50 @@ def _stale(name: str) -> bool:
 
 
 # the template arguments of this repo's kernels that are types: the FM
-# kernels' row type (int, or uint32_t in the large mode)
-_TYPE_ARGS = {"i": "int", "j": "uint32"}
+# kernels' row type (int, or uint32_t in the large mode), K12's index type
+# (int, or long long); and their row sources (csrc/fm_common.cuh), of
+# which the flat table is not shown
+_TYPE_ARGS = {"i": "int", "j": "uint32", "x": "int64"}
+_SOURCE_ARGS = {"FlatRows": None, "ShardRows": "sh"}
+
+
+def _template_args(s: str) -> Optional[list]:
+    """The shown template arguments at the start of a mangled name's rest
+    (`I...E`): integer and bool literals, the types of _TYPE_ARGS and the
+    row sources of _SOURCE_ARGS; [] without arguments, None for any other
+    argument."""
+    if not s.startswith("I"):
+        return []
+    i, out = 1, []
+    while i < len(s) and s[i] != "E":
+        lit = re.match(r"L[a-z](n?\d+)E", s[i:])
+        num = re.match(r"\d+", s[i:])
+        if s[i] in _TYPE_ARGS:
+            out.append(_TYPE_ARGS[s[i]])
+            i += 1
+        elif lit:
+            out.append(lit.group(1))
+            i += lit.end()
+        elif num:
+            k = num.end()
+            name = s[i + k:i + k + int(num.group())]
+            if name not in _SOURCE_ARGS:
+                return None
+            if _SOURCE_ARGS[name]:
+                out.append(_SOURCE_ARGS[name])
+            i += k + len(name)
+        else:
+            return None
+    return out if i < len(s) else None
 
 
 def kernel_name(mangled: str) -> str:
     """`_ZN12_GLOBAL__N_114sw_warp_kernelILi1ELb0EEEvNS_4ArgsENS_8SwParamsE`
     -> `sw_warp_kernel<1,0>`: the innermost name of a (nested) Itanium
-    name and its integer or bool template arguments, or its one int or
-    unsigned type argument (`sweep_kernel<uint32>`), enough to tell this
-    repo's kernels apart; anything else is returned as it is."""
+    name and its integer or bool template arguments, its int, unsigned or
+    int64 type arguments (`sweep_kernel<uint32>`) and its row source
+    (`sweep_kernel<int,sh>`), enough to tell this repo's kernels apart;
+    anything else is returned as it is."""
     if not mangled.startswith("_Z"):
         return mangled
     i = 2
@@ -97,11 +132,7 @@ def kernel_name(mangled: str) -> str:
     names = [n for n in names if not n.startswith("_GLOBAL__N")]
     if not names:
         return mangled
-    targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
-    args = re.findall(r"\d+", targs.group(1)) if targs else []
-    ttype = re.match(r"I([ij])E", mangled[i:])
-    if ttype:
-        args = [_TYPE_ARGS[ttype.group(1)]]
+    args = _template_args(mangled[i:]) or []
     return names[-1] + (f"<{','.join(args)}>" if args else "")
 
 

@@ -19,8 +19,17 @@ small mode, int64 tensors holding uint32 values in the large mode, whose
 plain versions compute in int64 and wrap to 32 bits where the JAX
 package's uint32 ops wrap (`_wrap`), and whose kernels are the `_u32`
 C entries, the same sources computing in uint32.
+
+The sharded index mode (dist/sharded.py, the JAX package's `shard_mesh`):
+an index half whose fm_blocks, mark_rows and offs are `ShardedRows`
+(index/fmindex.py ShardedFMHalf) reads each row from the shard that owns
+it, and zeros where no shard does (`_take_sharded`, K12), inside the
+plain versions and, on the card, inside the searches' own LF loops (the
+`_sh` C entries, with `_sh_u32` twins). `take_sharded` is K12 alone
+(csrc/take_sharded.cu), the reference words' gather (ops/ref.py).
 """
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
@@ -33,11 +42,110 @@ from bowtie2_tpu_torch.ops._build import I, P, U, check, on_cpu, ptr
 i32 = torch.int32
 MASK32 = 0xFFFFFFFF
 
+# the mesh axis of the sharded index mode (dist/mesh.py Mesh.axis)
+SHARD_AXIS = "shard"
+
 
 class SweepResult(NamedTuple):
     top: torch.Tensor
     bot: torch.Tensor
     nedit: torch.Tensor   # lower bound on edits; 0 → [top,bot) are exact hits
+
+
+# ---------------------------------------------------------------------------
+# sharded tables (K12)
+# ---------------------------------------------------------------------------
+
+class ShardedRows(NamedTuple):
+    """A table split by rows over S shards (the sharded index mode): shard
+    s holds the global rows [s per, (s + 1) per) of the table padded with
+    zero rows to S per, as its own tensor (int32 words, any trailing
+    shape), on its own device. `addrs` holds the shards' addresses on the
+    home device, the device whose kernels read the table; it is built
+    once, and the shards live as long as it does."""
+    shards: Tuple[torch.Tensor, ...]
+    per: int
+    addrs: torch.Tensor
+
+    @property
+    def S(self) -> int:
+        return len(self.shards)
+
+    @property
+    def row_words(self) -> int:
+        return self.shards[0][0].numel()
+
+
+def shard_rows(table: torch.Tensor, devices, home) -> ShardedRows:
+    """Split `table` (on any device) into len(devices) shards of its rows,
+    padded with zero rows to a multiple of the count (the JAX package's
+    _pad_to / _ceil_to, dist/sharded.py:71-80), shard s on devices[s] as a
+    separate allocation, and their addresses on `home`."""
+    S = len(devices)
+    n = table.shape[0]
+    per = -(-n // S)
+    shards = []
+    for s, dev in enumerate(devices):
+        part = torch.zeros((per,) + tuple(table.shape[1:]), dtype=table.dtype,
+                           device=dev)
+        lo, hi = min(s * per, n), min((s + 1) * per, n)
+        part[:hi - lo] = table[lo:hi].to(dev)
+        shards.append(part)
+    addrs = torch.tensor([t.data_ptr() for t in shards], dtype=torch.int64,
+                         device=home)
+    return ShardedRows(tuple(shards), per, addrs)
+
+
+def _take_sharded(rows: ShardedRows, idx: torch.Tensor) -> torch.Tensor:
+    """The plain K12, as the JAX op computes it (ops/fm.py:55): each shard
+    gathers the indices it owns (clipped for the take, then masked to
+    zeros) and the results are summed over the shards. The owner's row,
+    or zeros where no shard owns the index; on idx's device, shape
+    idx.shape + a row's shape. (The JAX op takes each shard's offset in
+    int32; no int32 index reaches a wrap there, since the padded table
+    has fewer than 2^31 rows: the offsets here are int64.)"""
+    g = idx.long()
+    out = None
+    for s, t in enumerate(rows.shards):
+        loc = g - s * rows.per
+        inb = (loc >= 0) & (loc < rows.per)
+        got = t.to(idx.device).index_select(
+            0, torch.clamp(loc, 0, rows.per - 1).reshape(-1)).reshape(
+            idx.shape + t.shape[1:])
+        got = torch.where(inb.reshape(inb.shape + (1,) * (got.dim()
+                                                          - inb.dim())),
+                          got, 0)
+        out = got if out is None else out + got
+    return out
+
+
+def take_sharded(rows: ShardedRows, idx: torch.Tensor) -> torch.Tensor:
+    """Owner's row of each global index, or zeros where no shard owns it
+    (K12). idx: int32 or int64, any shape. Returns int32 words of shape
+    idx.shape + a row's shape, on idx's device; a CUDA index launches the
+    kernel over the shards' address array, which must be on its card."""
+    idx = idx.contiguous()
+    if on_cpu(idx, "take_sharded"):
+        return _take_sharded(rows, idx)
+    dev = idx.device
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"take_sharded: int32 or int64 indices, not "
+                        f"{idx.dtype}")
+    check(rows.addrs, "shard addresses", dtype=torch.int64, device=dev)
+    rw = rows.row_words
+    out = torch.empty(tuple(idx.shape) + tuple(rows.shards[0].shape[1:]),
+                      dtype=i32, device=dev)
+    vec = 4 if rw % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                   for t in rows.shards) else 1
+    _build.call("take_sharded", "take_sharded",
+                [P, ctypes.c_longlong, I, I, I, P, I, ctypes.c_longlong, P],
+                ptr(rows.addrs), rows.per, rows.S, rw, vec, ptr(idx),
+                int(idx.dtype == torch.int64), idx.numel(), ptr(out))
+    return out
+
+
+def _sharded(half) -> bool:
+    return isinstance(half.fm_blocks, ShardedRows)
 
 
 # ---------------------------------------------------------------------------
@@ -49,7 +157,10 @@ def _rows(half: FMHalf, block: torch.Tensor) -> torch.Tensor:
     counts from the end, and rows outside the table read as 0xFFFFFFFF
     (the JAX op reaches i = n + 1 when n + 1 is a multiple of 128, and the
     searches that die take a LF step of a dead range, whose bot may be -1,
-    and mask it off)."""
+    and mask it off). A sharded half reads the owner's row, or zeros
+    (_take_sharded)."""
+    if _sharded(half):
+        return _take_sharded(half.fm_blocks, block)
     nb = half.fm_blocks.shape[0]
     block = torch.where(block < 0, block + nb, block)
     rows = half.fm_blocks.index_select(0, torch.clamp(block, 0, nb - 1).long())
@@ -113,15 +224,26 @@ def _lf2(half, top, bot, cc):
 
 
 def _fm_args(half: FMHalf):
-    return (ptr(half.fm_blocks), half.fm_blocks.shape[0], ptr(half.fchr),
-            half.z_off, half.nrows)
+    """The table arguments of a search's C entry: (fm_blocks, nblocks) of
+    a flat half, (shard addresses, per, S) of a sharded one; then fchr,
+    z_off and the row count."""
+    fm = half.fm_blocks
+    tab = (ptr(fm.addrs), fm.per, fm.S) if _sharded(half) else \
+        (ptr(fm), fm.shape[0])
+    return tab + (ptr(half.fchr), half.z_off, half.nrows)
 
 
 def _entry(half: FMHalf, name: str, argtypes, unsigned=(3, 4)):
     """The C entry of a kernel in the index's row mode, and its argument
     types: the `_u32` entry takes its row-valued scalars as unsigned
     (z_off and the row count, the 4th and 5th arguments of the searches;
-    z_off, the 4th, of sa_resolve)."""
+    z_off, the 4th, of sa_resolve). A sharded half's `_sh` entry takes
+    its FM table as three arguments (addresses, per, S) where the flat
+    entry takes two (fm_blocks, nblocks)."""
+    if _sharded(half):
+        name += "_sh"
+        argtypes = [P, I, I] + list(argtypes[2:])
+        unsigned = tuple(k + 1 for k in unsigned)
     if not half.large:
         return name, argtypes
     return name + "_u32", [U if k in unsigned else t
@@ -129,7 +251,12 @@ def _entry(half: FMHalf, name: str, argtypes, unsigned=(3, 4)):
 
 
 def _check_half(half: FMHalf, dev) -> None:
-    check(half.fm_blocks, "fm_blocks", device=dev)
+    if _sharded(half):
+        for name in ("fm_blocks", "mark_rows", "offs"):
+            check(getattr(half, name).addrs, f"{name} shard addresses",
+                  dtype=torch.int64, device=dev)
+    else:
+        check(half.fm_blocks, "fm_blocks", device=dev)
     check(half.fchr, "fchr", shape=(5,), device=dev)
     if half.nrows >= (1 << (32 if half.large else 31)):
         raise ValueError(f"{half.nrows} rows do not fit the row mode")
@@ -315,7 +442,8 @@ def seed_search_offsets(half: FMHalf, reads: torch.Tensor, offs: torch.Tensor,
 
 def _mark_bits(half: FMHalf, block: torch.Tensor):
     """(B,) block ids → ((B, 128) int32 0/1 mark bits, (B,) rank cp)."""
-    rows = half.mark_rows.index_select(0, block.long())
+    rows = _take_sharded(half.mark_rows, block) if _sharded(half) else \
+        half.mark_rows.index_select(0, block.long())
     sh = torch.arange(32, dtype=i32, device=block.device)
     bits = (rows[:, :4, None] >> sh) & 1
     return bits.reshape(-1, OCC_BLOCK), rows[:, 4]
@@ -343,8 +471,14 @@ def _resolve_plain(half: FMHalf, rows: torch.Tensor, period: int):
     pos = row % OCC_BLOCK
     bits, mcp = _mark_bits(half, block)
     rank = mcp + (bits * (lane < pos[:, None])).sum(dim=1)
-    return _wrap(half, _val(half, half.offs.index_select(0, rank.long()))
-                 + steps)
+    return _wrap(half, _val(half, _take_offs(half, rank)) + steps)
+
+
+def _take_offs(half: FMHalf, rank: torch.Tensor) -> torch.Tensor:
+    """offs[rank]: the owner's value, or 0, in the sharded mode."""
+    if _sharded(half):
+        return _take_sharded(half.offs, rank)
+    return half.offs.index_select(0, rank.long())
 
 
 def lf_row(half: FMHalf, row: torch.Tensor, c: torch.Tensor, frows
@@ -366,14 +500,24 @@ def sa_resolve(half: FMHalf, rows: torch.Tensor, period: int = 32
         return _resolve_plain(half, rows, period)
     dev = rows.device
     _check_half(half, dev)
-    check(half.mark_rows, "mark_rows", device=dev)
-    check(half.offs, "offs", device=dev)
     B = rows.shape[0]
     out = torch.empty(B, dtype=half.row_dtype, device=dev)
-    _build.call("sa_resolve", *_entry(half, "sa_resolve",
-                                      [P, I, P, I, P, P, I, P, I, I, P],
-                                      unsigned=(3,)),
-                ptr(half.fm_blocks), half.fm_blocks.shape[0], ptr(half.fchr),
-                half.z_off, ptr(half.mark_rows), ptr(half.offs),
-                half.offs.shape[0], ptr(rows), B, period, ptr(out))
+    if _sharded(half):
+        fmr, mk, of = half.fm_blocks, half.mark_rows, half.offs
+        if (mk.per, mk.S) != (fmr.per, fmr.S):
+            raise ValueError("mark_rows are not sharded as fm_blocks are")
+        tabs = (ptr(fmr.addrs), fmr.per, fmr.S, ptr(half.fchr), half.z_off,
+                ptr(mk.addrs), ptr(of.addrs), of.per, of.S)
+        name = "sa_resolve_sh_u32" if half.large else "sa_resolve_sh"
+        types = [P, I, I, P, U if half.large else I, P, P, I, I, P, I, I, P]
+    else:
+        check(half.mark_rows, "mark_rows", device=dev)
+        check(half.offs, "offs", device=dev)
+        tabs = (ptr(half.fm_blocks), half.fm_blocks.shape[0],
+                ptr(half.fchr), half.z_off, ptr(half.mark_rows),
+                ptr(half.offs), half.offs.shape[0])
+        name, types = _entry(half, "sa_resolve",
+                             [P, I, P, I, P, P, I, P, I, I, P], unsigned=(3,))
+    _build.call("sa_resolve", name, types, *tabs, ptr(rows), B, period,
+                ptr(out))
     return out

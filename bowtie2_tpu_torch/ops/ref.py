@@ -9,11 +9,25 @@ Window positions are in global reference space (index/build.py IndexData):
 int32 in the small index mode, int64 in the large mode, whose global
 coordinates may pass 2^31 (word indices, below 2^28, are the same values
 either way).
+
+In the sharded index mode the word tables are `ShardedWords`, whose
+gather is K12 (ops/fm.py take_sharded): `gather_windows_aligned` takes
+them, `gather_windows` does not, as in the JAX package.
 """
+
+from typing import NamedTuple
 
 import torch
 
+from bowtie2_tpu_torch.ops.fm import ShardedRows, take_sharded
+
 i32 = torch.int32
+
+
+class ShardedWords(NamedTuple):
+    """A word table (ref_words or refn_words) split over the shards of the
+    sharded index mode (dist/sharded.py)."""
+    words: ShardedRows
 
 
 def _positions(starts: torch.Tensor) -> torch.Tensor:
@@ -21,9 +35,13 @@ def _positions(starts: torch.Tensor) -> torch.Tensor:
     return starts if starts.dtype == torch.int64 else starts.to(i32)
 
 
-def _take_words(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _take_words(table, idx: torch.Tensor) -> torch.Tensor:
     """Word gather clipped to the table: windows near reference edges run
-    past either end, and their codes are masked to 5 by the callers."""
+    past either end, and their codes are masked to 5 by the callers. On
+    ShardedWords, not clipped: a word no shard owns is 0 (base A, masked
+    the same way), as the JAX package's sharded gather gives it."""
+    if isinstance(table, ShardedWords):
+        return take_sharded(table.words, idx)
     flat = torch.clamp(idx, 0, table.shape[0] - 1).long().reshape(-1)
     return table.index_select(0, flat).reshape(idx.shape)
 
@@ -40,7 +58,13 @@ def gather_windows(ref_words: torch.Tensor, refn_words: torch.Tensor,
                    starts: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                    width: int) -> torch.Tensor:
     """starts/lo/hi: (B,) global positions (int32, or int64 in the large
-    mode) → (B, width) int32 codes; positions outside [lo, hi) are code 5."""
+    mode) → (B, width) int32 codes; positions outside [lo, hi) are code 5.
+    The word tables are whole (the JAX op's plain take): ShardedWords
+    raise."""
+    if isinstance(ref_words, ShardedWords) or \
+            isinstance(refn_words, ShardedWords):
+        raise TypeError("gather_windows reads whole word tables; sharded "
+                        "ones go through gather_windows_aligned")
     dev = starts.device
     starts = _positions(starts)
     ar_w = torch.arange(width, dtype=i32, device=dev)[None, :]

@@ -38,7 +38,8 @@ from bowtie2_tpu_torch.io.sam import (FLAG_REVERSE, FLAG_UNMAPPED,
                                       SamAlignment, cigar_string,
                                       qual_string)
 from bowtie2_tpu_torch.ops import fm
-from bowtie2_tpu_torch.ops.fused import CHOSEN_FIELDS, SegTables, fused_se
+from bowtie2_tpu_torch.ops.fused import (CHOSEN_FIELDS, SegTables, fused_pe,
+                                         fused_se)
 from bowtie2_tpu_torch.ops.ref import gather_windows
 from bowtie2_tpu_torch.ops.sw import (backtrace, backtrace_diag, bt_steps,
                                       sw_banded, sw_banded_diag)
@@ -296,9 +297,33 @@ class BatchAligner:
     MAX_EXACT_ROWS = 4      # rows resolved per exact-hit range per orientation
     NC_PER_READ = 16        # candidate extension budget per read
 
-    def __init__(self, data: IndexData, policy: Policy, device=None):
+    def __init__(self, data: IndexData, policy: Policy, device=None,
+                 mesh=None, shard_mesh=None):
         """device: None for the CUDA card (raises when there is none), or
-        an explicit torch device such as "cpu"."""
+        an explicit torch device such as "cpu".
+
+        mesh: a dist/mesh.py Mesh on the "data" axis: batches go to its
+        devices in turn, each device with its own copy of the index, and
+        every batch is collected on the device it ran on (the output is a
+        one-device run's). The device is the mesh's first.
+
+        shard_mesh: a Mesh on the "shard" axis: the sharded index mode
+        (dist/sharded.py). The fused pipelines read the index split over
+        the mesh's devices from `device`; the host, overflow, mate-rescue
+        and long-read paths read the whole index, as in the JAX package."""
+        if mesh is not None:
+            from bowtie2_tpu_torch.dist.mesh import device_key
+            if mesh.axis != "data":
+                raise ValueError(f"mesh= takes a 'data' mesh, not "
+                                 f"{mesh.axis!r}")
+            if shard_mesh is not None:
+                raise ValueError("a data mesh over a sharded index is not "
+                                 "supported: pass mesh= or shard_mesh=")
+            if device is not None and \
+                    device_key(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"({mesh.devices[0]})")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.data = data
         self.pol = policy
@@ -318,6 +343,19 @@ class BatchAligner:
             seg_end_joined=self._put(self._seg_end_joined.astype(sdt)),
             ref_cum=self._put(data.ref_cum.astype(sdt)))
         self._row_dtype = sdt
+        self.mesh = mesh
+        self.mesh_batches = [0] * mesh.size if mesh is not None else []
+        self._turn = 0
+        if mesh is not None:
+            from bowtie2_tpu_torch.dist.mesh import replicate_index
+            self._replicas = {
+                d: (ix, self.seg if ix is self.idx else SegTables(
+                    *(t.to(d) for t in self.seg)))
+                for d, ix in replicate_index(self.idx, mesh).items()}
+        self.shard_mesh = shard_mesh
+        if shard_mesh is not None:
+            from bowtie2_tpu_torch.dist.sharded import shard_index
+            self.sidx = shard_index(data, shard_mesh, self.device)
 
     def _put(self, a) -> torch.Tensor:
         """Host → device. On the card the copy goes from pinned memory and
@@ -326,6 +364,44 @@ class BatchAligner:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    def _use(self, device) -> None:
+        """Point the device state (device, index, segment tables) at one
+        device of the data mesh, and make its card the current one."""
+        self.device = device
+        self.idx, self.seg = self._replicas[device]
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+
+    def _take_turn(self) -> None:
+        """With a data mesh, the next mesh entry's device takes the batch
+        being submitted."""
+        if self.mesh is None:
+            return
+        k = self._turn % self.mesh.size
+        self._turn += 1
+        self.mesh_batches[k] += 1
+        self._use(self.mesh.devices[k])
+
+    def _use_batch(self, h) -> None:
+        """With a data mesh, collect a submitted batch (not None) on its
+        own device."""
+        if self.mesh is not None and not isinstance(h, tuple):
+            self._use(h.device)
+
+    def _fused(self, kind: str, batch, statics):
+        """fused_se ("se") or fused_pe ("pe") of one batch's device arrays
+        over the aligner's index: the whole one, or, with shard_mesh, the
+        sharded one."""
+        if self.shard_mesh is None:
+            fn = fused_se if kind == "se" else fused_pe
+            return fn(self.idx.fw, self.idx.ref_words, self.idx.refn_words,
+                      self.seg, *batch, **statics)
+        from bowtie2_tpu_torch.dist.sharded import (make_fused_pe_sharded,
+                                                    make_fused_se_sharded)
+        make = make_fused_se_sharded if kind == "se" else make_fused_pe_sharded
+        return make(self.shard_mesh, large=self.sidx.fw.large, **statics)(
+            self.sidx, self.seg, *batch)
 
     # YF filter-reason codes (= native samemit mode values)
     YF_NS, YF_LN, YF_QC, YF_SC = 2, 3, 4, 5
@@ -1156,6 +1232,10 @@ class FusedBatch:
     yf: np.ndarray               # (Bp,) int8 filter-reason codes (YF_*)
     blob: torch.Tensor           # device (S*Bc + 4*meta,) uint8
 
+    @property
+    def device(self) -> torch.device:
+        return self.blob.device
+
 
 class UnpairedAligner(BatchAligner):
     """Aligns batches of unpaired reads against a loaded index through
@@ -1254,6 +1334,7 @@ class UnpairedAligner(BatchAligner):
         ("long", records): collect runs it on the host path in long mode."""
         if not records:
             return None
+        self._take_turn()
         if max(int(r.seq.size) for r in records) > LEN_BUCKETS[-1]:
             return ("long", records)
         import time as _time
@@ -1297,18 +1378,17 @@ class UnpairedAligner(BatchAligner):
         jboth = self._put(np.concatenate([fw, rc], axis=0)).to(i32)
         jquals = self._put(np.concatenate([qu, qu_r], axis=0)).to(i32)
         live_or = self._live_orient(Bp)
-        res = fused_se(
-            self.idx.fw, self.idx.ref_words, self.idx.refn_words,
-            self.seg, jboth, jquals, self._put(lens),
-            self._put(offs_all), self._put(valid_all),
-            self._put(minsc.astype(np.int32)), self._put(live),
-            None if live_or is None else self._put(live_or),
+        res = self._fused("se", (
+            jboth, jquals, self._put(lens), self._put(offs_all),
+            self._put(valid_all), self._put(minsc.astype(np.int32)),
+            self._put(live),
+            None if live_or is None else self._put(live_or)), dict(
             params=pol.sw_params(), band=G, seed_len=pol.seed_len,
             ftab_chars=self.data.fw.ftab_chars,
             half_ftab=min(self.data.fw.ftab_chars, pol.seed_len // 2),
             period=1 << self.data.off_rate, T=T, kk=kk, kk_bt=kk_bt,
             NC=NC, n1=pol.seed_mms >= 1, no_1mm=getattr(pol, "no_1mm", False),
-            no_exact=getattr(pol, "no_exact", False), NCDP=max(Bp, 512))
+            no_exact=getattr(pol, "no_exact", False), NCDP=max(Bp, 512)))
         self.metrics.add(
             t_search=_time.time() - _t, bases=int(lens[:B].sum()),
             unpaired=B, unf_reads=int((~filtered[:B]).sum()),
@@ -1353,6 +1433,7 @@ class UnpairedAligner(BatchAligner):
         records as objects."""
         if fb is None:
             return []
+        self._use_batch(fb)
         if isinstance(fb, tuple) and fb[0] == "long":
             return self._align_batch_host(fb[1])
         import time as _time
@@ -1516,6 +1597,7 @@ class UnpairedAligner(BatchAligner):
         appended to every line (RG)."""
         if fb is None:
             return []
+        self._use_batch(fb)
         if isinstance(fb, tuple) and fb[0] == "long":
             return self._groups_from_objects(
                 fb[1], self._align_batch_host(fb[1]), suffix)

@@ -31,7 +31,7 @@ from bowtie2_tpu_torch.io.sam import (FLAG_MATE1, FLAG_MATE2,
                                       FLAG_MATE_REVERSE, FLAG_MATE_UNMAPPED,
                                       FLAG_PAIRED, FLAG_PROPER, FLAG_REVERSE,
                                       FLAG_UNMAPPED, SamAlignment)
-from bowtie2_tpu_torch.ops.fused import FusedPEResult, fused_pe
+from bowtie2_tpu_torch.ops.fused import FusedPEResult
 from bowtie2_tpu_torch.pipeline.align import (LEN_BUCKETS,
                                               AlignStats, BatchAligner,
                                               CandSet, DPPool, _bucket, _np,
@@ -71,6 +71,10 @@ class FusedPEBatch:
     pairing: object = None      # static pairing tuple passed to fused_pe
                                 # (None = device pairing disabled)
 
+    @property
+    def device(self) -> torch.device:
+        return self.jboth.device
+
 
 class PairedAligner(BatchAligner):
     """Aligns batches of read pairs: concordant search, mate rescue DP,
@@ -93,6 +97,7 @@ class PairedAligner(BatchAligner):
         whose search is then in long mode (the band DP)."""
         if not pairs:
             return None
+        self._take_turn()
         if max(max(p[0].seq.size, p[1].seq.size) for p in pairs) \
                 > LEN_BUCKETS[-1]:
             return ("host", pairs)
@@ -137,19 +142,18 @@ class PairedAligner(BatchAligner):
         jquals = self._put(np.concatenate([qu, qu_r], axis=0)).to(torch.int32)
         live_or = self._live_orient(B2, paired=True)
         pairing = self._pe_pairing_static(minsc, perfect)
-        res = fused_pe(
-            self.idx.fw, self.idx.ref_words, self.idx.refn_words, self.seg,
+        res = self._fused("pe", (
             jboth, jquals, self._put(lens), self._put(offs_all),
             self._put(valid_all), self._put(minsc.astype(np.int32)),
             self._put(live), None if live_or is None else self._put(live_or),
-            self._put(inst_read.astype(np.int32)), self._put(filtered),
+            self._put(inst_read.astype(np.int32)), self._put(filtered)), dict(
             params=pol.sw_params(), band=G, seed_len=pol.seed_len,
             ftab_chars=self.data.fw.ftab_chars,
             half_ftab=min(self.data.fw.ftab_chars, pol.seed_len // 2),
             period=1 << self.data.off_rate, T=T, NC=NC,
             n1=pol.seed_mms >= 1, no_1mm=getattr(pol, "no_1mm", False),
             no_exact=getattr(pol, "no_exact", False), NCDP=max(B2, 512),
-            pairing=pairing)
+            pairing=pairing))
         self.metrics.add(t_search=_time.time() - _t)
         return FusedPEBatch(
             pairs=pairs, B=B, Bp=Bp, B2=B2, Lmax=Lmax, T=T, NC=NC, G=G,
@@ -179,6 +183,7 @@ class PairedAligner(BatchAligner):
     def collect(self, h: Optional[FusedPEBatch]) -> List[SamAlignment]:
         if h is None:
             return []
+        self._use_batch(h)
         if isinstance(h, tuple) and h[0] == "host":
             return self.align_batch_host(h[1])
         return self._collect_fused(h)
@@ -192,6 +197,7 @@ class PairedAligner(BatchAligner):
         back to object records rendered to lines."""
         if h is None:
             return []
+        self._use_batch(h)
         if isinstance(h, tuple) and h[0] == "host":
             return self._pe_groups_from_objects(
                 len(h[1]), self.align_batch_host(h[1]), suffix)

@@ -171,6 +171,37 @@ Phases, each of which exits non-zero when it fails:
    small-mode kernel. Every large-mode run is counted from 0: only `_u32`
    FM entries may launch, no plain version may run, and each `_u32` entry
    must launch.
+14. The multi-device layer on one card (dist/, the JAX package's
+   `shard_mesh=` and `mesh=`): (c) the repcorpus SE path's first two
+   batches over the sharded index mode at 4 and at 8 shards on the card
+   (each a separate allocation, read through the shards' address array),
+   the first batch over the forced-large index of phase 13 at 4 shards,
+   and the E. coli-sim PE path's first two batches at 4 shards: every
+   batch's SAM equals the replicated card run's, the first batch's the
+   CPU's; counts set to 0 before each run and read after, no plain
+   version may run, and K12 (`take_sharded`) and each `_sh` (and, on the
+   forced-large run, `_sh_u32`) FM entry must launch; the 4-shard, forced-
+   large and PE runs go under CUDA events (`total_ms`), after a warm-up
+   batch of 256 reads over each index outside the counts and events. (d) The data mesh
+   over every card (one on this machine) and over cuda:0 twice: four SE
+   batches of E. coli-sim reads and the two PE batches, SAM equal to the
+   one-device runs, every mesh entry taking a batch. (e) One process
+   against two (torch.distributed over gloo, since NCCL refuses two ranks
+   on one card; each process on cuda:0), each aligning its round-robin
+   share of four windows of E. coli-sim reads: the merged bytes are
+   equal. (a) K12 against its plain version on the repcorpus index's
+   fm_blocks, mark_rows, offs, ref_words and refn_words split into 4 and
+   8 shards, at indices negative, in range, in the padding and past it
+   (int32 and int64), and on phase 13's large table split into 4 shards;
+   timed on the sharded SE path's first call (`ms`, `idle_ms`, bytes
+   bound). (b) The eight `_sh` entries against their plain versions on
+   the sharded paths' first calls, on phase 6's first-call inputs at 4
+   and 8 shards, and on every ops/cases.py FM case of phase 6's indexes
+   at scale 1 and 8 (4 shards); timed on the sharded path's first call
+   and, in turns with their flat twins (flat, sharded, sharded, flat), on
+   phase 6's first-call inputs: the cost of the owner lookup. The
+   multi-card parts of the mode (a shard read over peer access, NCCL
+   between cards) need more than one card and do not run here.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -355,6 +386,33 @@ N_RUN, N_ENDS = (1_000_000, 1_001_000), 100
 LARGE_CPU_SE, LARGE_CPU_PE = 512, 256
 # the row that the large table's states must pass
 PAST_ROW = 1 << 31
+
+# the sharded index mode's C entries (phase 14), by the wrapper that
+# launches each: name -> (wrapper, source, TPU-side function it replaces)
+SHARD_KERNELS = {
+    f"{w}_sh{u}": (w, src, repl)
+    for u in ("", "_u32") for w, src, repl in (
+        ("fm_sweep", "bowtie2_tpu_torch/csrc/fm_search.cu",
+         "bowtie2_tpu/ops/fm.py:215"),
+        ("fm_seed", "bowtie2_tpu_torch/csrc/fm_search.cu",
+         "bowtie2_tpu/ops/fm.py:335"),
+        ("fm_substring", "bowtie2_tpu_torch/csrc/fm_search.cu",
+         "bowtie2_tpu/ops/fm.py:275"),
+        ("sa_resolve", "bowtie2_tpu_torch/csrc/sa_resolve.cu",
+         "bowtie2_tpu/ops/fm.py:408"))}
+K12 = ("take_sharded", "bowtie2_tpu_torch/csrc/take_sharded.cu",
+       "bowtie2_tpu/ops/fm.py:55")
+# their kernels in ptxas's report: the flat twins' with the row source
+PTXAS_FUNCS.update({k: (PTXAS_FUNCS[w][0], "<uint32,sh>" if k.endswith(
+    "_u32") else "<int,sh>") for k, (w, _s, _r) in SHARD_KERNELS.items()})
+PTXAS_FUNCS[K12[0]] = "take_kernel"
+# phase 14's shard counts on one card, the E. coli-sim reads of the data
+# mesh's SE batches and of the process windows
+SHARDS = (4, 8)
+MESH_SE, MESH_SE_BATCHES = 2048, 4
+MH_WINDOW, MH_WINDOWS = 1024, 4
+# the large table's gather: indices in range, and the K12 timing reps
+K12_LARGE_IDX = 1 << 20
 
 KERNELS = {  # name -> (source, TPU-side function it replaces)
     "fm_sweep": ("bowtie2_tpu_torch/csrc/fm_search.cu",
@@ -695,7 +753,7 @@ def result_err(got, want):
     return err
 
 
-def exactness_sweep(port, kerns, plains, data, genome, device):
+def exactness_sweep(port, kerns, plains, data, genome, device, keep=None):
     """{kernel: [(case, max abs err)]} over ops/cases.py: the cases the CPU
     tests hold the plain versions to the JAX package on (seed 0, scale 1)
     and the same generator at eight times the problems (seed 1). The read
@@ -703,7 +761,8 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
     seed search run on `data` (the genome's index) and on a genome whose
     n + 1 = 2048 rows fill whole blocks, where the first LF of bot reads
     the row past the last block; the SA walk on both genomes indexed with
-    marks every 1, 16 and 32 text positions."""
+    marks every 1, 16 and 32 text positions. `keep`, a dict, receives
+    each (genome name, period): (index, genome) the FM cases ran on."""
     def put(x):
         return None if x is None else torch.from_numpy(x).to(device)
 
@@ -752,6 +811,8 @@ def exactness_sweep(port, kerns, plains, data, genome, device):
                     [("g", g.astype(np.uint8))], off_rate=off_rate,
                     **({"ftab_chars": 4} if gname == "fill" else {}))
             h = port.FMIndex.from_host(d, device=device).fw
+            if keep is not None:
+                keep[gname, period] = (d, g)
             if gname == "fill" and h.nrows % 128:
                 fail(f"fill genome: {h.nrows} rows is not a multiple of 128")
             for seed, scale in ((0, 1), (1, 8)):
@@ -1755,6 +1816,7 @@ def large_phase(a, m, ctx):
         f"{nbytes(half.mark_rows) / 1e9:.3f} GB, offs "
         f"{nbytes(half.offs) / 1e9:.3f} GB on the card), fchr "
         f"{c.fchr.tolist()}, made in {t_case:.1f} s")
+    ctx["large_fm_blocks"] = c.fm_blocks      # phase 14's K12 table
     del c
     big = {}
     for name, args in big_args.items():
@@ -1877,6 +1939,7 @@ def large_phase(a, m, ctx):
     rep_l = m.build_index_from_refs([("rep", ctx["genome"].astype(np.uint8))],
                                     large=True)
     eco_l = m.build_index_from_refs([("ecoli_sim", eg)], large=True)
+    ctx["rep_l"] = rep_l                      # phase 14's `_sh_u32` path
     log(f"forced-large indexes of the repcorpus and E. coli-sim genomes "
         f"built in {time.time() - t1:.1f} s")
     # each batch four times, small and large index in turns (small, large,
@@ -1996,6 +2059,509 @@ def large_phase(a, m, ctx):
     return entries
 
 
+MH_WORKER = r"""
+import os, sys
+import numpy as np
+sys.path.insert(0, os.environ["BT2X_REPO"])
+from bowtie2_tpu_torch.dist.multihost import (init_multihost, shard_path,
+                                              shard_windows)
+P = int(os.environ["BT2X_NUM_PROCESSES"])
+pid = int(os.environ["BT2X_PROCESS_ID"])
+if P > 1:
+    # NCCL refuses two ranks on one card: the group is gloo's
+    init_multihost(backend="gloo")
+from bowtie2_tpu_torch.index.build import load_index
+from bowtie2_tpu_torch.io.fastx import SeqRecord
+from bowtie2_tpu_torch.pipeline.align import UnpairedAligner
+from bowtie2_tpu_torch.pipeline.policy import make_policy
+d = os.environ["BT2X_DATA"]
+codes = np.load(os.path.join(d, "codes.npy"))
+quals = np.load(os.path.join(d, "quals.npy"))
+al = UnpairedAligner(load_index(os.path.join(d, "index")),
+                     make_policy("sensitive"))
+reader = (SeqRecord(name=f"w{i}", seq=codes[i], qual=quals[i])
+          for i in range(len(codes)))
+prefix = os.environ["BT2X_OUT"]
+for w, records in shard_windows(reader, pid, P,
+                                window=int(os.environ["BT2X_WINDOW"])):
+    with open(shard_path(prefix, w), "wb") as f:
+        for g in al.collect_raw(al.submit(records)):
+            for _, line in g:
+                f.write(line + b"\n")
+if P > 1:
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def multihost_runs(m, edata, codes, quals):
+    """Phase 14 (e): the E. coli-sim reads in MH_WINDOWS windows of
+    MH_WINDOW, aligned by one process and by two (gloo, both on cuda:0),
+    all three started at once; returns (one process's merged bytes, two
+    processes', seconds)."""
+    from bowtie2_tpu_torch.dist.multihost import merge_shards
+    t1 = time.time()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mh_")
+    d = tmp.name
+    m.save_index(edata, os.path.join(d, "index"))
+    np.save(os.path.join(d, "codes.npy"), codes)
+    np.save(os.path.join(d, "quals.npy"), quals)
+    procs = []
+    for nproc, tag in ((1, "one"), (2, "two")):
+        port = free_port()
+        for pid in range(nproc):
+            env = dict(os.environ, BT2X_REPO=HERE,
+                       BT2X_NUM_PROCESSES=str(nproc),
+                       BT2X_PROCESS_ID=str(pid),
+                       BT2X_COORDINATOR=f"localhost:{port}",
+                       BT2X_OUT=os.path.join(d, tag), BT2X_DATA=d,
+                       BT2X_WINDOW=str(MH_WINDOW))
+            procs.append((tag, subprocess.Popen(
+                [sys.executable, "-c", MH_WORKER], env=env, cwd=d,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+    errs = []
+    try:
+        for tag, p in procs:
+            _out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                errs.append(f"{tag}: exit {p.returncode}: "
+                            f"{err.decode(errors='replace')[-1500:]}")
+    finally:
+        for _tag, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if errs:
+        tmp.cleanup()
+        fail("multi-process run: " + " | ".join(errs))
+    out = []
+    for tag in ("one", "two"):
+        merged = os.path.join(d, f"{tag}.sam")
+        n = merge_shards(os.path.join(d, tag), merged)
+        if n != MH_WINDOWS:
+            fail(f"multi-process run ({tag}): {n} shards merged, not "
+                 f"{MH_WINDOWS}")
+        with open(merged, "rb") as f:
+            out.append(f.read())
+    tmp.cleanup()
+    return out[0], out[1], time.time() - t1
+
+
+def sharded_half(m, h, S, large=False):
+    """An FM half split into S shards on its own card (the tables of
+    index/fmindex.py ShardedFMHalf), in the large row mode or its own."""
+    dev = h.fchr.device
+
+    def split(t):
+        return m.fm.shard_rows(t, [dev] * S, dev)
+    return m.ShardedFMHalf(
+        n=h.n, z_off=h.z_off, fm_blocks=split(h.fm_blocks), fchr=h.fchr,
+        ftab=h.ftab, mark_rows=split(h.mark_rows), offs=split(h.offs),
+        row_dtype=torch.int64 if large else h.row_dtype)
+
+
+def k12_work(rows, idx):
+    """K12's (bytes, rows gathered): each distinct row an index owns read
+    once, the indices read and the output written once."""
+    rb = 4 * rows.row_words
+    g = idx.reshape(-1).long()
+    held = torch.unique(g[(g >= 0) & (g < rows.S * rows.per)]).numel()
+    return held * rb + nbytes(idx) + idx.numel() * rb, held
+
+
+def k12_indices(n, S, per, rng, in_range, dev, dtype=torch.int32):
+    """Every index class of the CPU test (tests/test_torch_shardidx.py):
+    negative, in range (`in_range` of them), in the padding rows, past the
+    padding, and the extremes of int32."""
+    idx = np.concatenate([
+        rng.integers(-300, 0, 64), rng.integers(0, n, in_range),
+        np.arange(n, S * per), rng.integers(S * per, S * per + 300, 64),
+        [-1, 0, n - 1, S * per - 1, S * per, per - 1, per,
+         -(1 << 31), (1 << 31) - 1]])
+    return torch.from_numpy(idx).to(dev, dtype)
+
+
+def shard_phase(a, m, ctx):
+    """Phase 14: the sharded index mode, the data mesh and multi-process
+    runs on one card (see the module's docstring). m: the port's modules;
+    ctx: what earlier phases made. Returns the `kernels` entries of K12
+    (`take_sharded`) and of the eight `_sh` entries."""
+    t_phase = time.time()
+    fm, build, rec, pol = m.fm, m._build, ctx["rec"], ctx["pol"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(a.seed + 14)
+    checks = {}
+    launch = {}
+
+    def shard_mesh(S):
+        return m.make_mesh(devices=[dev] * S, axis="shard")
+
+    def counted(label, fn, need):
+        """fn() with the counts set to 0 just before and read just after;
+        no plain version may run, and each kernel in `need` must launch."""
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t1 = time.time()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"{label}: {type(e).__name__}: {e}")
+        wall = time.time() - t1
+        ln, pl = dict(build.LAUNCHES), dict(build.PLAIN_CALLS)
+        if pl:
+            fail(f"{label}: plain versions ran on the card: {pl}")
+        missing = [k for k in need if not ln.get(k)]
+        if missing:
+            fail(f"{label}: never launched: {missing}")
+        for k in list(SHARD_KERNELS) + [K12[0]]:
+            launch[k] = launch.get(k, 0) + ln.get(k, 0)
+        return out, wall, ln
+
+    def differ(label, got, want):
+        nd = sum(1 for x, y in zip(got, want) if x != y) + abs(
+            len(got) - len(want))
+        checks[label] = nd
+        if nd:
+            fail(f"{label}: {nd} groups differ")
+        return nd
+
+    # ---- (c) the sharded index on the main paths ----
+    sh_int = [k for k in SHARD_KERNELS if not k.endswith("_u32")]
+    sh_u32 = [k for k in SHARD_KERNELS if k.endswith("_u32")]
+    se_batches = ctx["chunks"][:2]
+    if len(se_batches) < 2:
+        fail("phase 14 needs two SE batches of the main path (--reads)")
+
+    def se_run(data, S, batches):
+        al = m.UnpairedAligner(data, pol, shard_mesh=shard_mesh(S))
+        hs = [al.submit(b) for b in batches]
+        return [al.collect_raw(h) for h in hs], al
+
+    # a warm-up batch over each index first, outside the counts and the
+    # events: each kernel's first launch in the process loads its code
+    for data in (ctx["data"], ctx["rep_l"]):
+        se_run(data, 4, [se_batches[0][:256]])
+    torch.cuda.synchronize()
+    k12_first = {}
+    orig_take = m.ref.take_sharded
+
+    def take_rec(rows, idx):
+        k12_first.setdefault("args", (rows, idx))
+        return orig_take(rows, idx)
+    m.ref.take_sharded = take_rec
+    rec.take()
+    # the 4-shard SE, the forced-large and the PE runs under CUDA events
+    # (each kernel's total_ms); the 8-shard SE run without
+    timer = LaunchTimer(build)
+    (g4, al4), w4, ln4 = counted("sharded SE, 4 shards",
+                                 lambda: se_run(ctx["data"], 4, se_batches),
+                                 sh_int + [K12[0]])
+    sh_args = rec.take()
+    m.ref.take_sharded = orig_take
+    for k, (gg, want) in enumerate(zip(g4, ctx["groups"])):
+        differ(f"SE batch {k}, 4 shards vs replicated", gg, want)
+    differ("SE batch 0, 4 shards vs CPU", g4[0], ctx["cpu_groups"])
+    nreads = sum(len(b) for b in se_batches)
+    log(f"sharded SE (4 shards on {dev}): {nreads} reads in {w4:.2f} s "
+        f"(CUDA events around every launch); host-path batches "
+        f"{al4.metrics.counters.get('host_batches', 0)}; launches {ln4}; "
+        f"fm_blocks {al4.sidx.fw.fm_blocks.per} rows a shard")
+    (gl, all_), wl, lnl = counted(
+        "sharded SE, forced large, 4 shards",
+        lambda: se_run(ctx["rep_l"], 4, se_batches[:1]), sh_u32 + [K12[0]])
+    large_args = rec.take()
+    if not all_.sidx.fw.large:
+        fail("the forced-large sharded index is not in the large mode")
+    differ("SE batch 0, forced large, 4 shards vs replicated", gl[0],
+           ctx["groups"][0])
+    log(f"sharded SE, forced large (4 shards): {len(se_batches[0])} reads "
+        f"in {wl:.2f} s (CUDA events); launches {lnl}")
+
+    pairs = ctx["pairs"]
+    pe_batches = [pairs[k:k + PE_BATCH] for k in (0, PE_BATCH)]
+
+    def pe_run(batches, **kw):
+        al = m.PairedAligner(ctx["edata"], pol, **kw)
+        hs = [al.submit(b) for b in batches]
+        return [al.collect_raw(h) for h in hs], al
+    (pg4, _pal4), pw4, pln4 = counted(
+        "sharded PE, 4 shards",
+        lambda: pe_run(pe_batches, shard_mesh=shard_mesh(4)),
+        sh_int + [K12[0]])
+    timer.restore()
+    sh_ms = timer.totals()
+    rec.take()
+    log(f"sharded PE (4 shards): {sum(map(len, pe_batches))} pairs in "
+        f"{pw4:.2f} s (CUDA events); launches {pln4}; device time over the "
+        f"three sharded runs "
+        f"{json.dumps({k: [round(v[0], 4), v[1]] for k, v in sorted(sh_ms.items())})}")
+    pe_rep, _pal = pe_run(pe_batches)
+    differ("PE batch 0, replicated vs phase 8", pe_rep[0],
+           ctx["pe_groups0"])
+    for k, (gg, want) in enumerate(zip(pg4, pe_rep)):
+        differ(f"PE batch {k}, 4 shards vs replicated", gg, want)
+    differ("PE batch 0, 4 shards vs CPU", pg4[0], ctx["pe_cpu0"])
+    (g8, al8), w8, ln8 = counted("sharded SE, 8 shards",
+                                 lambda: se_run(ctx["data"], 8, se_batches),
+                                 sh_int + [K12[0]])
+    rec.take()
+    for k, (gg, want) in enumerate(zip(g8, ctx["groups"])):
+        differ(f"SE batch {k}, 8 shards vs replicated", gg, want)
+    differ("SE batch 0, 8 shards vs CPU", g8[0], ctx["cpu_groups"])
+    log(f"sharded SE (8 shards): {nreads} reads in {w8:.2f} s; launches "
+        f"{ln8}")
+
+    # ---- (d) the data mesh ----
+    t1 = time.time()
+    codes, quals = ctx["se_codes"], ctx["se_quals"]
+    mesh_batches = [
+        [m.SeqRecord(name=f"m{i}", seq=codes[i].astype(np.uint8),
+                     qual=quals[i]) for i in range(k, k + MESH_SE)]
+        for k in range(0, MESH_SE * MESH_SE_BATCHES, MESH_SE)]
+
+    def se_mesh(batches, **kw):
+        al = m.UnpairedAligner(ctx["edata"], pol, **kw)
+        hs = [al.submit(b) for b in batches]
+        return [al.collect_raw(h) for h in hs], al
+    se_rep, _al = se_mesh(mesh_batches)
+    n_cards = torch.cuda.device_count()
+    for label, devs in ((f"{n_cards} card(s)", None),
+                        ("cuda:0 twice", [dev, dev])):
+        mesh = m.make_mesh(devices=devs)
+        gs, al = se_mesh(mesh_batches, mesh=mesh)
+        for k, (gg, want) in enumerate(zip(gs, se_rep)):
+            differ(f"mesh {label}: SE batch {k}", gg, want)
+        if min(al.mesh_batches) == 0:
+            fail(f"mesh {label}: an entry took no batch: {al.mesh_batches}")
+        pgs, pal = pe_run(pe_batches, mesh=mesh)
+        for k, (gg, want) in enumerate(zip(pgs, pe_rep)):
+            differ(f"mesh {label}: PE batch {k}", gg, want)
+        log(f"data mesh over {label} ({[str(d) for d in mesh.devices]}): "
+            f"SE {MESH_SE_BATCHES} batches of {MESH_SE} E. coli-sim reads "
+            f"(batches an entry {al.mesh_batches}), PE {len(pe_batches)} "
+            f"batches (an entry {pal.mesh_batches}): equal to the "
+            f"one-device runs")
+    log(f"data mesh checks: {time.time() - t1:.1f} s")
+
+    # ---- (e) two processes against one ----
+    n_mh = MH_WINDOW * MH_WINDOWS
+    one, two, mh_s = multihost_runs(m, ctx["edata"], np.stack(
+        [codes[i].astype(np.uint8) for i in range(n_mh)]),
+        np.stack([quals[i] for i in range(n_mh)]))
+    checks["2 processes vs 1 (bytes equal)"] = int(one != two)
+    lines = one.count(b"\n")
+    log(f"multi-process run: {MH_WINDOWS} windows of {MH_WINDOW} E. "
+        f"coli-sim reads, 1 process and 2 (gloo, each on cuda:0): "
+        f"{len(one)} and {len(two)} bytes, equal {one == two} ({lines} "
+        f"lines; {mh_s:.1f} s)")
+    if one != two or lines < n_mh:
+        fail("multi-process run: the merged bytes differ from one process")
+
+    # ---- (a) K12 on the index's tables and the large table ----
+    entries = []
+    rep = al4.idx                       # the whole index, for table sizes
+    sizes = dict(fm_blocks=rep.fw.fm_blocks.shape[0],
+                 mark_rows=rep.fw.mark_rows.shape[0],
+                 offs=rep.fw.offs.shape[0], ref_words=rep.ref_words.shape[0],
+                 refn_words=rep.refn_words.shape[0])
+    tables = {}
+    for S, si in ((4, al4.sidx), (8, al8.sidx)):
+        tables.update({(name, S): t for name, t in (
+            ("fm_blocks", si.fw.fm_blocks), ("mark_rows", si.fw.mark_rows),
+            ("offs", si.fw.offs), ("ref_words", si.ref_words.words),
+            ("refn_words", si.refn_words.words))})
+    if "args" not in k12_first:
+        fail("the sharded SE path never gathered its reference words")
+    kern12 = fm.take_sharded
+    k12 = {}
+    for (name, S), rows in tables.items():
+        idx = k12_indices(sizes[name], rows.S, rows.per, rng, 1 << 18, dev)
+        err = max_err(kern12, fm._take_sharded, (rows, idx))[1]
+        err = max(err, max_err(kern12, fm._take_sharded,
+                               (rows, idx.long()))[1])
+        ms = time_cuda(lambda: kern12(rows, idx), a.reps)
+        byt, held = k12_work(rows, idx)
+        k12[name, S] = dict(err=err, ms=round(ms, 4), idx=idx.numel(),
+                            rows_held=held, bytes_ms=round(
+                                byt / PEAK_BYTES_S * 1e3, 5))
+    log(f"kernel take_sharded on the repcorpus index's tables "
+        f"(shards, indices of every class): "
+        f"{json.dumps({f'{n}@{S}': v for (n, S), v in k12.items()})}")
+    t1 = time.time()
+    big = torch.from_numpy(ctx["large_fm_blocks"].view(np.int32))
+    big_rows = fm.shard_rows(big, [dev] * 4, dev)
+    del big
+    nb = big_rows.S * big_rows.per
+    bidx = k12_indices(ctx["large_fm_blocks"].shape[0], 4, big_rows.per,
+                       rng, K12_LARGE_IDX, dev)
+    berr = max_err(kern12, fm._take_sharded, (big_rows, bidx))[1]
+    bms = time_cuda(lambda: kern12(big_rows, bidx), a.reps)
+    bbyt, bheld = k12_work(big_rows, bidx)
+    log(f"kernel take_sharded on the large table's fm_blocks ("
+        f"{nb} rows padded, 4 shards of {big_rows.per} rows, "
+        f"{nbytes(*big_rows.shards) / 1e9:.3f} GB on the card): "
+        f"{bidx.numel()} indices, max_abs_err={berr} ms={bms:.4f} "
+        f"bound_ms={bbyt / PEAK_BYTES_S * 1e3:.5f} (bytes; {bheld} rows "
+        f"held) ({time.time() - t1:.1f} s)")
+    del big_rows, bidx
+    torch.cuda.empty_cache()
+    rows0, idx0 = k12_first["args"]
+    err0 = max_err(kern12, fm._take_sharded, (rows0, idx0))[1]
+    ms0 = time_cuda(lambda: kern12(rows0, idx0), a.reps)
+    idle0 = time_after_idle(lambda: kern12(rows0, idx0), 5)
+    plain0 = time_cuda(lambda: fm._take_sharded(rows0, idx0), 2, spin=0)
+    byt0, held0 = k12_work(rows0, idx0)
+    e12 = max([err0, berr] + [v["err"] for v in k12.values()])
+    tot12 = sh_ms.get(K12[0], [0.0, 0])
+    entries.append(dict(
+        name=K12[0], route="cuda", source=K12[1], replaces=K12[2],
+        launches=launch.get(K12[0], 0), max_abs_err=e12, equal=e12 == 0,
+        ms=round(ms0, 4), idle_ms=round(idle0, 4),
+        plain_ms=round(plain0, 3),
+        bound_ms=round(byt0 / PEAK_BYTES_S * 1e3, 5),
+        bytes_ms=round(byt0 / PEAK_BYTES_S * 1e3, 5), ops_ms=0.0,
+        bound_by="bytes", library_ms=None,
+        total_ms=round(tot12[0], 4), total_spans=tot12[1],
+        shape=[list(idx0.shape), [rows0.S, rows0.per, rows0.row_words]],
+        tables={f"{n}@{S}": v for (n, S), v in k12.items()},
+        large_table=dict(rows=nb, idx=K12_LARGE_IDX, err=berr,
+                         ms=round(bms, 4),
+                         bound_ms=round(bbyt / PEAK_BYTES_S * 1e3, 5)),
+        ptxas=ptxas_of(build, K12[0], "take_sharded")))
+    log(f"kernel take_sharded: equal={e12 == 0} max_abs_err={e12}; main "
+        f"path's first call {entries[-1]['shape']}: ms={ms0:.4f} "
+        f"idle_ms={idle0:.4f} plain_ms={plain0:.3f} bound_ms="
+        f"{entries[-1]['bound_ms']} (bytes, {held0} rows held); launches "
+        f"{entries[-1]['launches']} total_ms={tot12[0]:.4f} over "
+        f"{tot12[1]} launches (4-shard SE); ptxas {entries[-1]['ptxas']}")
+
+    # ---- (b) the `_sh` entries ----
+    t1 = time.time()
+    kerns = {w: getattr(rec, "orig_" + w) for w in
+             ("fm_sweep", "fm_seed", "fm_substring", "sa_resolve")}
+    plains = {"fm_sweep": fm._sweep_plain, "fm_substring": fm._substring_plain,
+              "fm_seed": fm._seed_plain, "sa_resolve": fm._resolve_plain}
+    errs = {k: [] for k in SHARD_KERNELS}
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for (gname, period), (d, g) in ctx["case_indexes"].items():
+        flat = m.FMIndex.from_host(d, device=dev).fw
+        for large in (False, True):
+            h = sharded_half(m, flat, 4, large)
+            sfx = "_sh_u32" if large else "_sh"
+            for seed, scale in ((0, 1), (1, 8)):
+                tag = f"{gname}_p{period}@x{scale}"
+                if period == m.cases.RESOLVE_PERIODS[0]:
+                    for cname, rr in m.cases.sweep_cases(g, seed=seed,
+                                                         scale=scale):
+                        for w in ("fm_sweep", "fm_substring"):
+                            errs[w + sfx].append((f"{tag}_{cname}", max_err(
+                                kerns[w], plains[w], (h, put(rr)))[1]))
+                    for cname, sd, valid, slen, K in m.cases.seed_cases(
+                            g, d.fw.ftab_chars, seed=seed, scale=scale):
+                        errs["fm_seed" + sfx].append((f"{tag}_{cname}", max_err(
+                            kerns["fm_seed"], plains["fm_seed"],
+                            (h, put(sd), put(valid), slen, K))[1]))
+                for kind, rows in m.cases.resolve_cases(d.fw, period,
+                                                        seed=seed,
+                                                        scale=scale):
+                    r = put(rows)
+                    errs["sa_resolve" + sfx].append((f"{tag}_{kind}", max_err(
+                        kerns["sa_resolve"], plains["sa_resolve"],
+                        (h, r.long() if large else r, period))[1]))
+    log(f"exactness sweep of the `_sh` entries (4 shards): "
+        f"{json.dumps({k: [len(v), max(e for _, e in v)] for k, v in errs.items()})}"
+        f" (cases, max abs err; {time.time() - t1:.1f} s)")
+    e2e = ctx["e2e_args"]
+    flat_l = m.FMIndex.from_host(ctx["rep_l"], device=dev).fw
+    sharded = {(S, lg): sharded_half(m, fl, S, lg) for S in SHARDS
+               for lg, fl in ((False, e2e["fm_sweep"][0]), (True, flat_l))}
+    for name, (w, src, repl) in SHARD_KERNELS.items():
+        large = name.endswith("_u32")
+        recd = (large_args if large else sh_args).get(w)
+        if recd is None:
+            fail(f"the sharded path recorded no {w} call for {name}")
+        if _sharded_of(recd[0]) is None:
+            fail(f"{name}: the recorded {w} call was not over shards")
+        rest = tuple(x.long() if large and w == "sa_resolve" and i == 0
+                     else x for i, x in enumerate(e2e[w][1:]))
+        err = max_err(kerns[w], plains[w], recd)[1]
+        for S in SHARDS:
+            err = max(err, max_err(kerns[w], plains[w],
+                                   (sharded[S, large],) + rest)[1])
+        err = max([err] + [e for _, e in errs[name]])
+        # in turns on phase 6's first-call inputs: flat, sharded, sharded,
+        # flat
+        flat_args = ((flat_l if large else e2e[w][0]),) + rest
+        sh_in = (sharded[4, large],) + rest
+        turns = [time_cuda(lambda: kerns[w](*x), a.reps)
+                 for x in (flat_args, sh_in, sh_in, flat_args)]
+        same = result_err(kerns[w](*flat_args), kerns[w](*sh_in))
+        ms = time_cuda(lambda: kerns[w](*recd), a.reps)
+        idle_ms = time_after_idle(lambda: kerns[w](*recd), 5)
+        plain_ms = time_cuda(lambda: plains[w](*recd), 2, spin=0)
+        flat_recd = ((flat_l if large else e2e[w][0]),) + tuple(recd[1:])
+        if w == "sa_resolve":
+            byt, ops, _f = resolve_work(fm, flat_recd)
+        else:
+            byt, lf, _f = fm_work(fm, w, flat_recd)
+            ops = lf * OPS_LF
+        t_bytes, t_ops = byt / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        total = sh_ms.get(name, [0.0, 0])
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=repl,
+            launches=launch.get(name, 0), max_abs_err=err, equal=err == 0,
+            ms=round(ms, 4), idle_ms=round(idle_ms, 4),
+            plain_ms=round(plain_ms, 3),
+            bound_ms=round(max(t_bytes, t_ops), 5),
+            bytes_ms=round(t_bytes, 5), ops_ms=round(t_ops, 5),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, total_ms=round(total[0], 4),
+            total_spans=total[1], sweep_cases=len(errs[name]),
+            turns=dict(flat_ms=[round(turns[0], 4), round(turns[3], 4)],
+                       sharded_ms=[round(turns[1], 4), round(turns[2], 4)],
+                       ratio=round((turns[1] + turns[2])
+                                   / (turns[0] + turns[3]), 4),
+                       flat_vs_sharded_err=same),
+            shape=[list(t.shape) for t in recd
+                   if isinstance(t, torch.Tensor)][:1],
+            ptxas=ptxas_of(build, name, os.path.splitext(
+                os.path.basename(src))[0]))
+        entries.append(entry)
+        log(f"kernel {name}: equal={err == 0} max_abs_err={err} (the "
+            f"sharded path's first call, phase 6's first-call inputs at "
+            f"{SHARDS} shards, {len(errs[name])} cases); ms={ms:.4f} "
+            f"idle_ms={idle_ms:.4f} plain_ms={plain_ms:.3f} bound_ms="
+            f"{entry['bound_ms']} total_ms={total[0]:.4f} over {total[1]} "
+            f"launches (4-shard SE); launches {entry['launches']}; in turns "
+            f"on phase 6's inputs (flat, 4 shards, 4 shards, flat) "
+            f"{[round(x, 4) for x in turns]} (x{entry['turns']['ratio']}); "
+            f"flat vs sharded results differ by {same}; ptxas "
+            f"{entry['ptxas']}")
+    never = [k for k in list(SHARD_KERNELS) + [K12[0]] if not launch.get(k)]
+    if never:
+        fail(f"phase 14: never launched on the sharded paths: {never}")
+    log(f"phase 14 checks (groups differing): {json.dumps(checks)}; "
+        f"launches on the sharded paths {launch}; phase 14: "
+        f"{time.time() - t_phase:.1f} s")
+    return entries
+
+
+def _sharded_of(half):
+    """The half's ShardedRows of fm_blocks, or None for a flat half."""
+    fmb = getattr(half, "fm_blocks", None)
+    return fmb if hasattr(fmb, "addrs") else None
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=50_000)
@@ -2033,6 +2599,10 @@ def main() -> None:
         from bowtie2_tpu_torch.index.build import load_index
         from bowtie2_tpu_torch.cli.main import main as cli_main
         from bowtie2_tpu_torch.pipeline.policy import make_policy
+        from bowtie2_tpu_torch.dist.mesh import make_mesh
+        from bowtie2_tpu_torch.index.build import save_index
+        from bowtie2_tpu_torch.index.fmindex import ShardedFMHalf
+        from bowtie2_tpu_torch.ops import ref as ref_mod
         mrc = load_repcorpus()
     except (ImportError, FileNotFoundError) as e:
         fail(f"the port is not beside this script: {e}")
@@ -2227,10 +2797,11 @@ def main() -> None:
     t0 = time.time()
     port = types.SimpleNamespace(cases=cases, sw=sw, FMIndex=FMIndex,
                                  build_index_from_refs=build_index_from_refs)
+    case_indexes = {}           # phase 14 splits them into shards
     sweep_errs = exactness_sweep(
         port, {k: getattr(rec, "orig_" + k)
                for k in list(KERNELS) + ["sw_rect_origin"]},
-        plains, data, genome, torch.device("cuda"))
+        plains, data, genome, torch.device("cuda"), keep=case_indexes)
     for name, errs in sweep_errs.items():
         bad = [(c, e) for c, e in errs if e]
         log(f"exactness sweep {name}: {len(errs)} cases, "
@@ -2566,9 +3137,11 @@ def main() -> None:
             f"versions: {nd} groups differ ({time.time() - t1:.1f} s)")
         if len(cg) != len(groups) or nd:
             fail(f"PE {label}: card and CPU SAM differ in {nd} pairs")
+        return cg
 
     batch0 = pairs[:PE_BATCH]
-    pe_cpu_check("end to end, first batch", pol, batch0, first_groups[0])
+    pe_cpu0 = pe_cpu_check("end to end, first batch", pol, batch0,
+                           first_groups[0])
     fhal = PairedAligner(edata, pol)
     fhal.force_host_pairing = True
     fhg = fhal.collect_raw(fhal.submit(batch0))
@@ -2777,14 +3350,31 @@ def main() -> None:
     port_mods.fm = fm
     port_mods.half_from_tables = half_from_tables
     port_mods.build_index_from_refs = build_index_from_refs
-    large_entries = large_phase(a, port_mods, dict(
+    large_ctx = dict(
         rec=rec, pol=pol, egenome=egenome, se_codes=se_codes,
         se_quals=se_quals, pairs=pairs, genome=genome, data=data,
         edata=edata, chunk0=chunks[0], groups0=groups[0],
         pe_batch0=batch0, pe_groups0=first_groups[0], long_first=long_first,
-        long_groups=long_groups, e2e_args=e2e_args))
+        long_groups=long_groups, e2e_args=e2e_args)
+    large_entries = large_phase(a, port_mods, large_ctx)
     kernels_out.extend(large_entries)
     ok &= all(e["equal"] for e in large_entries)
+
+    # ---------------- phase 14: sharded index, data mesh, processes -------
+    port_mods.ref = ref_mod
+    port_mods.FMIndex = FMIndex
+    port_mods.ShardedFMHalf = ShardedFMHalf
+    port_mods.make_mesh = make_mesh
+    port_mods.save_index = save_index
+    shard_entries = shard_phase(a, port_mods, dict(
+        rec=rec, pol=pol, data=data, chunks=chunks, groups=groups,
+        cpu_groups=cpu_groups, e2e_args=e2e_args, case_indexes=case_indexes,
+        rep_l=large_ctx["rep_l"],
+        large_fm_blocks=large_ctx["large_fm_blocks"], edata=edata,
+        pairs=pairs, pe_groups0=first_groups[0], pe_cpu0=pe_cpu0,
+        se_codes=se_codes, se_quals=se_quals))
+    kernels_out.extend(shard_entries)
+    ok &= all(e["equal"] for e in shard_entries)
 
     print(json.dumps({"kernels": kernels_out}), flush=True)
     if not ok:

@@ -32,7 +32,10 @@ def test_every_port_module_imports_without_jax():
     for m in ("bowtie2_tpu_torch.pipeline.align",
               "bowtie2_tpu_torch.pipeline.paired",
               "bowtie2_tpu_torch.pipeline.pe",
-              "bowtie2_tpu_torch.cli.main"):
+              "bowtie2_tpu_torch.cli.main",
+              "bowtie2_tpu_torch.dist.mesh",
+              "bowtie2_tpu_torch.dist.sharded",
+              "bowtie2_tpu_torch.dist.multihost"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -97,6 +100,43 @@ def test_aligner_defaults_to_the_card():
     assert al.device.type == "cpu"
     assert PairedAligner(data, make_policy("sensitive"),
                          device="cpu").device.type == "cpu"
+
+
+def test_multi_device_entry_points_default_to_the_card():
+    """shard_mesh= and make_mesh() take the card unless told otherwise;
+    a CPU mesh runs on the CPU."""
+    from bowtie2_tpu_torch.dist.mesh import make_mesh
+    from bowtie2_tpu_torch.pipeline.align import UnpairedAligner
+    from bowtie2_tpu_torch.pipeline.paired import PairedAligner
+    from bowtie2_tpu_torch.pipeline.policy import make_policy
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    data = _tiny_index()
+    pol = make_policy("sensitive")
+    shards = make_mesh(devices=["cpu"] * 2, axis="shard")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        UnpairedAligner(data, pol, shard_mesh=shards)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PairedAligner(data, pol, shard_mesh=shards)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    al = UnpairedAligner(data, pol, device="cpu", shard_mesh=shards)
+    assert al.device.type == "cpu" and al.sidx.fw.fchr.device.type == "cpu"
+    al = PairedAligner(data, pol, mesh=make_mesh(devices=["cpu"] * 2))
+    assert al.device.type == "cpu"
+
+
+def test_take_sharded_refuses_devices_without_a_kernel():
+    from bowtie2_tpu_torch.ops import _build, fm
+    rows = fm.shard_rows(torch.arange(12, dtype=torch.int32),
+                         [torch.device("cpu")] * 3, "cpu")
+    with pytest.raises(ValueError, match="no kernel"):
+        fm.take_sharded(rows, torch.zeros(4, dtype=torch.int32,
+                                          device="meta"))
+    _build.reset_counts()
+    assert fm.take_sharded(rows, torch.tensor([-1, 0, 11, 12])).tolist() \
+        == [0, 0, 11, 0]
+    assert _build.PLAIN_CALLS["take_sharded"] == 1 and not _build.LAUNCHES
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
