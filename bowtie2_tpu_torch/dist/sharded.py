@@ -9,9 +9,9 @@ psum over the axis (ops/fm.py:55 _take_sharded). Here one process runs
 the pipeline once on a home device; each shard is a separate tensor
 (ops/fm.py ShardedRows) on its mesh device, and every row read goes to
 the owner shard through a device array of the shards' addresses: inside
-the searches' and the SA walk's own LF loops (the `_sh` C entries) and,
-for the reference words, through K12 (csrc/take_sharded.cu). No
-collective runs per step. On one card the shards are separate
+the searches' and the SA walk's own LF loops (the `_sh` C entries) and
+the window gather's (K7, `ref_gather_aligned_sh`). No collective runs
+per step. On one card the shards are separate
 allocations there; a shard on another card is read through peer access,
 which `shard_index` turns on (and refuses where the cards cannot).
 
@@ -21,7 +21,9 @@ shard owns (negative, or past the padding) reads as zeros, where the
 replicated mode's take fills or clips. Tiny tables (fchr, ftab, ref_cum)
 stay whole on the home device. As in the JAX package, only the fused
 pipelines read the sharded tables; the host, overflow, mate-rescue and
-long-read paths use the aligner's whole index.
+long-read paths use the aligner's whole index. Under a data mesh as well
+(`BatchAligner(mesh=, shard_mesh=)`) each mesh entry reads the one set of
+shards as its own home (`index_home`).
 
 The JAX package's `sharded_in_specs` (shard_map's partition specs) has no
 meaning without shard_map and is not ported.
@@ -95,6 +97,25 @@ def shard_index(data: IndexData, mesh: Mesh,
         refn_words=ShardedWords(split(rep.refn_words)),
         ref_cum=rep.ref_cum.to(home), n_ref_total=rep.n_ref_total,
         mesh=mesh)
+
+
+def index_home(sidx: ShardedIndex, device) -> ShardedIndex:
+    """The same shards read from another home device (a data mesh's
+    entry): each table's shard addresses and the whole tiny tables copied
+    there, peer access turned on; the shards themselves are shared."""
+    home = device_key(device)
+    _enable_peers(home, sidx.mesh)
+
+    def rows(r):
+        return r._replace(addrs=r.addrs.to(home))
+    fw = sidx.fw._replace(
+        fm_blocks=rows(sidx.fw.fm_blocks), mark_rows=rows(sidx.fw.mark_rows),
+        offs=rows(sidx.fw.offs), fchr=sidx.fw.fchr.to(home),
+        ftab=sidx.fw.ftab.to(home))
+    return sidx._replace(
+        fw=fw, ref_words=ShardedWords(rows(sidx.ref_words.words)),
+        refn_words=ShardedWords(rows(sidx.refn_words.words)),
+        ref_cum=sidx.ref_cum.to(home))
 
 
 def _checked(mesh: Mesh, large: bool, sidx: ShardedIndex) -> None:

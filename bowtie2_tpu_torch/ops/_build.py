@@ -31,7 +31,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
 SOURCES = ("fm_search", "sa_resolve", "sw_rect", "backtrace", "sw_diag",
-           "take_sharded")
+           "take_sharded", "ref_gather", "pe_pairing")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -71,7 +71,8 @@ def _stale(name: str) -> bool:
 
 # the template arguments of this repo's kernels that are types: the FM
 # kernels' row type (int, or uint32_t in the large mode), K12's index type
-# (int, or long long); and their row sources (csrc/fm_common.cuh), of
+# and K7's and K10 PE's position type (int, or long long); and their row
+# sources (csrc/fm_common.cuh), of
 # which the flat table is not shown
 _TYPE_ARGS = {"i": "int", "j": "uint32", "x": "int64"}
 _SOURCE_ARGS = {"FlatRows": None, "ShardRows": "sh"}

@@ -1041,3 +1041,190 @@ def large_fm_case(seed: int = 0, rows: int = LARGE_ROWS,
         offs=offs, sweep_rr=sweep_rr, substring_rr=substring_rr,
         seeds=seeds, seed_valid=valid, seed_len=slen,
         resolve_rows=resolve_rows.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# the window gather (K7)
+# ---------------------------------------------------------------------------
+
+class WindowCase(NamedTuple):
+    """Word tables and windows of gather_windows / gather_windows_aligned:
+    ref_words and refn_words int32 (uint32 bits), starts, lo and hi int32
+    or int64 (the large mode's positions)."""
+    name: str
+    ref_words: np.ndarray
+    refn_words: np.ndarray
+    starts: np.ndarray
+    lo: np.ndarray
+    hi: np.ndarray
+    width: int
+
+
+WINDOW_WORDS = 200          # reference words a table (3,200 bp)
+WINDOW_WIDTHS = (1, 15, 17, 33, 189, 224, 533)
+WINDOW_KINDS = ("edges", "negative", "extremes", "large")
+WINDOW_BATCH = 23           # windows a case, a unit of scale
+# the N runs of the tables' N mask, [start, end) in bases: runs that cross
+# a reference word (16 bases) and an N word (32 bases), a whole N word and
+# a run at the table's end
+WINDOW_N_RUNS = ((28, 40), (250, 251), (500, 533), (1024, 1056),
+                 (1100, 1230), (3190, 3200))
+
+
+def _window_tables(rng):
+    words = rng.integers(0, 1 << 32, WINDOW_WORDS, dtype=np.uint64)
+    n = 16 * WINDOW_WORDS
+    nmask = np.zeros(n + 32, bool)
+    for a, b in WINDOW_N_RUNS:
+        nmask[a:b] = True
+    nmask[rng.integers(0, n, 40)] = True
+    # the N table one word longer than the bases need: the two tables clip
+    # at their own lengths
+    nwords = np.packbits(nmask.reshape(-1, 32), axis=1,
+                         bitorder="little").view("<u4").reshape(-1)
+    return (words.astype(np.uint32).view(np.int32),
+            nwords.astype(np.uint32).view(np.int32))
+
+
+def window_cases(seed: int = 0, scale: int = 1) -> List[WindowCase]:
+    """Every WINDOW_KINDS kind at every WINDOW_WIDTHS width:
+    - edges: windows past either end of the table, in references of
+      random extents [lo, hi) inside it (lo == hi among them);
+    - negative: starts below 0, at and below -2^24 (the unaligned form's
+      clamp) and near -2^31;
+    - extremes: int32 starts near 2^31 - 1, whose positions wrap;
+    - large: int64 starts past 2^31 (the large mode), references there,
+      the words clipped to the table's last."""
+    rng = np.random.default_rng(seed)
+    out = []
+    words, nwords = _window_tables(rng)
+    n = 16 * WINDOW_WORDS
+    B = WINDOW_BATCH * scale
+    for kind in WINDOW_KINDS:
+        for W in WINDOW_WIDTHS:
+            if kind == "edges":
+                starts = rng.integers(-W - 64, n + 64, B)
+                starts[:4] = [-W - 5, -3, n - W // 2 - 1, n + 10]
+                lo = rng.integers(0, n, B)
+                lo[:4] = [0, 0, n - 2 * W, n - 16]
+                hi = np.minimum(lo + rng.integers(0, 2 * W + 200, B), n)
+                hi[:4] = n
+                dtype = np.int32
+            elif kind == "negative":
+                fixed = [-(1 << 24) - 1, -(1 << 24), -(1 << 24) + 1,
+                         -(1 << 25) - 7, -(1 << 31) + 5, -1, -16, -31,
+                         -32, -33]
+                starts = np.concatenate([fixed, rng.integers(
+                    -(3 << 24), 0, B - len(fixed))])
+                lo = np.zeros(B, np.int64)
+                hi = np.full(B, n)
+                dtype = np.int32
+            elif kind == "extremes":
+                top = (1 << 31) - 1
+                starts = top - rng.integers(0, 2 * W + 40, B)
+                lo = np.full(B, top - 3 * W - 64)
+                hi = np.full(B, top)
+                dtype = np.int32
+            else:
+                base = (1 << 31) + (1 << 20)
+                starts = base + rng.integers(-W - 64, 4096, B)
+                lo = base + rng.integers(-2 * W, 2048, B)
+                hi = lo + rng.integers(0, 4096, B)
+                starts[:4] = [(1 << 31) - 3, 1 << 31, (1 << 32) + 17,
+                              -5]
+                dtype = np.int64
+            out.append(WindowCase(
+                f"{kind}_W{W}@x{scale}", words, nwords,
+                np.asarray(starts, np.int64).astype(dtype),
+                np.asarray(lo, np.int64).astype(dtype),
+                np.asarray(hi, np.int64).astype(dtype), W))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the paired-end device pairing (K10 PE)
+# ---------------------------------------------------------------------------
+
+class PairingCase(NamedTuple):
+    """The arguments of ops/fused.py _pe_pairing after `pairing` (B, Bp,
+    T and the slot and read arrays), as numpy arrays."""
+    name: str
+    pairing: tuple
+    B: int
+    Bp: int
+    T: int
+    arrays: tuple     # aok, score, slot_or, rid, lo_p, hi_p, occ, exact,
+                      # half, mmug, cpos, ee_read, seed_nz, inst_read,
+                      # filtered
+
+
+# (policy, minins, maxins, olap_ok, contain_ok, dove_ok, limit): every
+# policy, limit None and an int, each of the three overlap flags off
+PAIRINGS = (("fr", 0, 500, True, True, False, 8),
+            ("ff", 100, 400, False, True, True, None),
+            ("rr", 0, 300, True, False, False, 2),
+            ("rf", 50, 600, True, True, True, 1))
+PAIRING_TS = (16, 32)
+PAIRING_BATCH = 29          # pairs a case, a unit of scale
+
+
+def _pairing_arrays(rng, Bp, T, base, ext):
+    """Slots of 2 Bp reads (mate 1 first): about two thirds valid, scores
+    from a small set (ties), two references, mate-2 extents at inserts
+    around the policies' ranges from a mate-1 slot, repeated (orient, end)
+    keys (the dedupe), and read flags that raise the zero-seed-round
+    suppression, the -D fast flags and need_mm1."""
+    B = 2 * Bp
+    aok = rng.random((B, T)) < 0.7
+    score = np.where(aok, -6 * rng.integers(0, 4, (B, T))
+                     - rng.integers(0, 2, (B, T)), -(1 << 29))
+    orient = rng.integers(0, 2, (B, T))
+    rid = rng.integers(0, 2, (B, T))
+    ln = rng.integers(40, 151, (B, T))
+    lo = base + rng.integers(0, 3000, (B, T))
+    # mate 2: an insert from a mate-1 slot of the same pair
+    src = rng.integers(0, T, (Bp, T))
+    lo1 = np.take_along_axis(lo[:Bp], src, axis=1)
+    ins = rng.integers(-80, 800, (Bp, T))
+    lo[Bp:] = lo1 + ins - ln[Bp:]
+    hi = lo + ln - 1
+    # repeated (orient, end) keys within a read
+    dup = rng.random((B, T)) < 0.2
+    other = rng.integers(0, T, (B, T))
+    hi = np.where(dup, np.take_along_axis(hi, other, axis=1), hi)
+    orient = np.where(dup, np.take_along_axis(orient, other, axis=1),
+                      orient)
+    lo = np.where(aok, lo, 0)
+    hi = np.where(aok, hi, 0)
+    occ = aok & (rng.random((B, T)) < 0.9)
+    exact = rng.random((B, T)) < 0.25
+    half = rng.random((B, T)) < 0.35
+    mmug = rng.integers(0, 4, (B, T))
+    cpos = np.where(aok, rng.integers(0, 1 << 20, (B, T)), -1)
+    ee_read = rng.choice([0, 0, 1, 3, 5], B)
+    seed_nz = rng.choice([0, 1, 1, 4], B)
+    inst_read = rng.choice([0, 1, 2, 6], B)
+    filtered = rng.random(B) < 0.08
+    i32 = np.int32
+    return (aok.astype(i32), score.astype(i32), orient.astype(i32),
+            rid.astype(i32), lo.astype(ext), hi.astype(ext), occ, exact,
+            half, mmug.astype(i32), cpos.astype(i32), ee_read.astype(i32),
+            seed_nz.astype(i32), inst_read.astype(i32), filtered)
+
+
+def pairing_cases(seed: int = 0, scale: int = 1,
+                  large: bool = False) -> List[PairingCase]:
+    """Every PAIRINGS pairing at T = 16 and 32 slots, int32 extents, or
+    with `large` int64 extents past 2^31 (written wrapped to int32)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    Bp = PAIRING_BATCH * scale
+    base, ext = ((1 << 31) + (1 << 24), np.int64) if large \
+        else (1 << 20, np.int32)
+    for pairing in PAIRINGS:
+        for T in PAIRING_TS:
+            out.append(PairingCase(
+                f"{pairing[0]}_lim{pairing[6]}_T{T}"
+                f"{'_large' if large else ''}@x{scale}", pairing,
+                2 * Bp, Bp, T, _pairing_arrays(rng, Bp, T, base, ext)))
+    return out

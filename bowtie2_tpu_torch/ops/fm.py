@@ -26,7 +26,9 @@ an index half whose fm_blocks, mark_rows and offs are `ShardedRows`
 it, and zeros where no shard does (`_take_sharded`, K12), inside the
 plain versions and, on the card, inside the searches' own LF loops (the
 `_sh` C entries, with `_sh_u32` twins). `take_sharded` is K12 alone
-(csrc/take_sharded.cu), the reference words' gather (ops/ref.py).
+(csrc/take_sharded.cu): the plain window gather's word gather over
+sharded tables (ops/ref.py); on the card the window gather's kernel reads
+the shards itself (`ref_gather_aligned_sh`).
 """
 
 import ctypes

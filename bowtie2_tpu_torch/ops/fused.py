@@ -6,7 +6,7 @@ Port of bowtie2_tpu/ops/fused.py (SE half). One call per batch runs
   -> per-read candidate slot assembly               (canonical budget order)
   -> SA resolution of every slot                    (sa_resolve kernel)
   -> straddle filter, anchor dedupe                 (per-read slot masks)
-  -> compaction -> windows -> banded DP             (sw_rect kernel)
+  -> compaction -> windows -> banded DP  (ref_gather and sw_rect kernels)
   -> per-read ranking (dedupe by (orient, end))
   -> backtrace of the reported candidates           (backtrace kernel)
 
@@ -29,7 +29,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from bowtie2_tpu_torch.index.fmindex import FMHalf
-from bowtie2_tpu_torch.ops import fm
+from bowtie2_tpu_torch.ops import _build, fm
+from bowtie2_tpu_torch.ops._build import I, P, check, on_cpu, ptr
 from bowtie2_tpu_torch.ops.ref import gather_windows_aligned
 from bowtie2_tpu_torch.ops.sw import (OP_NONE, SWParams, SWResult, backtrace,
                                       diag_readout, mm_penalty_from_qual,
@@ -627,14 +628,70 @@ class FusedPEResult(NamedTuple):
     wins: torch.Tensor
 
 
+# the pairing policies in the kernel's numbering (csrc/pe_pairing.cu)
+PE_POLICIES = {"ff": 0, "rr": 1, "fr": 2, "rf": 3}
+
+
 def _pe_pairing(pairing, B, Bp, T_, aok, score, slot_or, rid, lo_p, hi_p,
                 occ, exact, half, mmug, cpos, ee_read, seed_nz, inst_read,
                 filtered):
-    """Device half of PairedAligner._collect_fused's pairing, as torch ops
-    (bowtie2_tpu/ops/fused.py _pe_pairing): the same tie-break orders and
+    """Device half of PairedAligner._collect_fused's pairing (K10 PE,
+    bowtie2_tpu/ops/fused.py _pe_pairing): the same tie-break orders and
     first-index argmax/argmin as the host numpy. Pairs that need the
     host's replay paths raise `hostneed`. Returns (read_fields
-    (PE_READ_FIELDS, B), pair_fields (PE_PAIR_FIELDS, Bp)), int32."""
+    (PE_READ_FIELDS, B), pair_fields (PE_PAIR_FIELDS, Bp)), int32. A CUDA
+    tensor launches `pe_pairing` (csrc/pe_pairing.cu, one warp a pair;
+    T <= 32, B = 2 Bp); CPU tensors take the plain version."""
+    args = (pairing, B, Bp, T_, aok, score, slot_or, rid, lo_p, hi_p, occ,
+            exact, half, mmug, cpos, ee_read, seed_nz, inst_read, filtered)
+    if on_cpu(score, "pe_pairing"):
+        return _pe_pairing_plain(*args)
+    (pe_pol, minins, maxins, olap_ok, contain_ok, dove_ok, limit) = pairing
+    if not 1 <= T_ <= 32 or B != 2 * Bp or pe_pol not in PE_POLICIES:
+        raise ValueError(f"pe_pairing: T={T_} (1..32), B={B} = 2 x "
+                         f"Bp={Bp}, policy {pe_pol!r}")
+    if limit is not None and limit < 0:
+        raise ValueError(f"pe_pairing: limit {limit} < 0")
+    dev = score.device
+    ext = lo_p.dtype
+    if ext not in (i32, torch.int64):
+        raise TypeError(f"pe_pairing: int32 or int64 extents, not {ext}")
+
+    def slot(t, dtype=i32, name="slot field"):
+        t = t.view(torch.uint8) if t.dtype == torch.bool else t
+        return check(t.contiguous(), name, dtype=dtype, shape=(B, T_),
+                     device=dev)
+
+    def read(t, dtype=i32, name="read field"):
+        t = t.view(torch.uint8) if t.dtype == torch.bool else t
+        return check(t.contiguous(), name, dtype=dtype, shape=(B,),
+                     device=dev)
+    u8 = torch.uint8
+    ins = ([slot(t) for t in (aok, score, slot_or, rid)]
+           + [slot(lo_p, ext, "lo_p"), slot(hi_p, ext, "hi_p")]
+           + [slot(t, u8) for t in (occ, exact, half)]
+           + [slot(mmug), slot(cpos)]
+           + [read(t) for t in (ee_read, seed_nz, inst_read)]
+           + [read(filtered, u8, "filtered")])
+    read_fields = torch.empty((PE_READ_FIELDS, B), dtype=i32, device=dev)
+    pair_fields = torch.empty((PE_PAIR_FIELDS, Bp), dtype=i32, device=dev)
+    ptrs = [ptr(t) for t in ins]
+    _build.call("pe_pairing", "pe_pairing", [P] * 6 + [I] + [P] * 9
+                + [I] * 10 + [P, P],
+                *ptrs[:6], int(ext == torch.int64), *ptrs[6:], Bp, T_,
+                PE_POLICIES[pe_pol], minins, maxins, int(olap_ok),
+                int(contain_ok), int(dove_ok),
+                -1 if limit is None else limit,
+                max(T_ - 1, 1).bit_length(), ptr(read_fields),
+                ptr(pair_fields))
+    return read_fields, pair_fields
+
+
+def _pe_pairing_plain(pairing, B, Bp, T_, aok, score, slot_or, rid, lo_p,
+                      hi_p, occ, exact, half, mmug, cpos, ee_read, seed_nz,
+                      inst_read, filtered):
+    """The plain K10 PE, as torch ops over (pairs, T, T) masks, as the JAX
+    op computes it."""
     from bowtie2_tpu_torch.pipeline.pe import PE_DISCORD, pe_classify_torch
     (pe_pol, minins, maxins, olap_ok, contain_ok, dove_ok, limit) = pairing
     dev = score.device

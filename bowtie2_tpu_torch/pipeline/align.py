@@ -310,15 +310,15 @@ class BatchAligner:
         shard_mesh: a Mesh on the "shard" axis: the sharded index mode
         (dist/sharded.py). The fused pipelines read the index split over
         the mesh's devices from `device`; the host, overflow, mate-rescue
-        and long-read paths read the whole index, as in the JAX package."""
+        and long-read paths read the whole index, as in the JAX package.
+        With both, every entry of the data mesh reads the one set of
+        shards (the JAX package takes both when the two meshes hold the
+        same devices)."""
         if mesh is not None:
             from bowtie2_tpu_torch.dist.mesh import device_key
             if mesh.axis != "data":
                 raise ValueError(f"mesh= takes a 'data' mesh, not "
                                  f"{mesh.axis!r}")
-            if shard_mesh is not None:
-                raise ValueError("a data mesh over a sharded index is not "
-                                 "supported: pass mesh= or shard_mesh=")
             if device is not None and \
                     device_key(device) != mesh.devices[0]:
                 raise ValueError(f"device {device} is not the mesh's first "
@@ -354,8 +354,13 @@ class BatchAligner:
                 for d, ix in replicate_index(self.idx, mesh).items()}
         self.shard_mesh = shard_mesh
         if shard_mesh is not None:
-            from bowtie2_tpu_torch.dist.sharded import shard_index
+            from bowtie2_tpu_torch.dist.sharded import index_home, shard_index
             self.sidx = shard_index(data, shard_mesh, self.device)
+            if mesh is not None:
+                # every mesh entry reads the one set of shards
+                self._homes = {d: self.sidx if d == self.device
+                               else index_home(self.sidx, d)
+                               for d in self._replicas}
 
     def _put(self, a) -> torch.Tensor:
         """Host → device. On the card the copy goes from pinned memory and
@@ -370,6 +375,8 @@ class BatchAligner:
         device of the data mesh, and make its card the current one."""
         self.device = device
         self.idx, self.seg = self._replicas[device]
+        if self.shard_mesh is not None:
+            self.sidx = self._homes[device]
         if device.type == "cuda":
             torch.cuda.set_device(device)
 

@@ -2,8 +2,9 @@
 
 Port of the paired-end half of bowtie2_tpu/pipeline/align.py
 (`FusedPEBatch`, `PairedAligner`). A batch of pairs runs as one device
-pipeline (`ops/fused.py::fused_pe`: the searches, the origin-tracking DP
-and the device pairing) that `submit` enqueues without synchronising;
+pipeline (`ops/fused.py::fused_pe`: the searches, the window gather, the
+origin-tracking DP and the device pairing, each a CUDA kernel) that
+`submit` enqueues without synchronising;
 `collect_raw` reads its blob back, runs the mate-rescue DP for pairs
 without a concordant combination, backtraces only the reported records
 and builds the SAM lines with the native PE line builder. Output is
@@ -13,7 +14,9 @@ Batches whose fused DP budget overflows take the phase-by-phase host path
 (`align_batch_host`); batches with a pair the device pairing cannot decide
 (`hostneed`), and every batch under `force_host_pairing`, re-run the
 pairing on the host from the per-slot export (`_collect_fused_legacy`).
-Reads over 8192 bp are not ported yet and raise (ROADMAP.md).
+A pair with a mate over 8192 bp takes the host path too: `submit` returns
+("host", pairs), and `collect` / `collect_raw` align it there with the
+long-read band DP (no mate rescue for long mates, as in the JAX package).
 
 Entry points take device=None, meaning the CUDA card; device="cpu" runs the
 kernels' plain PyTorch versions (the tests do).

@@ -22,7 +22,7 @@ Phases, each of which exits non-zero when it fails:
    just before and read just after: every kernel must have launched, and
    no plain PyTorch version may have run. Then the same run once more,
    with a fresh aligner, apart from the timed window: CUDA events around
-   every kernel launch (and around the window gathers, which are torch
+   every kernel launch (and around the SE gapless readout, which is torch
    ops) give each kernel's total device time over the run, printed with
    the sum's share of the main path's wall time (the `device time:`
    line), a lower bound on the card's busy share; the `call shapes:` line
@@ -203,6 +203,33 @@ Phases, each of which exits non-zero when it fails:
    multi-card parts of the mode (a shard read over peer access, NCCL
    between cards) need more than one card and do not run here.
 
+The window gather (K7: `ref_gather_aligned`, `ref_gather_aligned_sh` over
+sharded word tables, `ref_gather`, csrc/ref_gather.cu) and the device
+pairing (K10 PE: `pe_pairing`, csrc/pe_pairing.cu) are held to their
+plain versions at every call the run makes on the card (Holder): the
+first call of each shape (windows, width, position type, shards) of the
+gathers and every call of the pairing, phase by phase after the phase has
+read its counts (the `new kernels held` lines, `checks` in their JSON
+entries): the SE main path and its host path (phase 3), --local (5), the
+PE main path (8), the mixed-outcome batch's hostneed pairs and the
+overflow batch's host path (9), the long reads' wide windows (12), the
+large index mode's int64 positions past 2^31 and int64 extents (13), the
+sharded tables at 4 and 8 shards (14); and on every ops/cases.py
+window_cases case (both forms, and the aligned form over 4 shards) and
+pairing_cases case (int32 and int64 extents), at scale 1 and 8. Each
+must launch on its paths (no plain version may run there): the gathers
+in phases 3, 5, 8 and 12, the pairing in phase 8, `_sh` in phase 14.
+Each is timed as in phase 6 at its main path's first call (phase 3's
+fused and host-path calls, phase 8's pairing, phase 14's sharded call;
+the unaligned form also at the long path's widest call, `wide`), and
+under torch.profiler (CUPTI) with its plain version (`cupti_ms`,
+`plain_cupti_ms`). One whole fused_se batch and one fused_pe batch run
+under CUPTI too (the `CUPTI split` lines: device time by kernel and by
+region: fused `_core`, the gather, the SE readout, the pairing), and so
+does one call of the SE readout (K10, torch ops). Since the aligned gather
+reads sharded words itself, K12 (`take_sharded`) runs on no path; phase 14
+times it on the word indices of the sharded path's first gather.
+
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -267,6 +294,18 @@ OPS_DP_CELL = 12
 #   (select), the F payload (select) and the cell's origin (select): 17.
 OPS_DP_CELL_ORIGIN = 17
 OPS_BT_STEP = 9
+# - one window code (K7): its crumb (shift, AND), its N bit (shift, AND,
+#   select), the reference bounds (two compares, OR, select): 9;
+# - one combination of the device pairing (K10 PE, T^2 a pair): the
+#   concordance test (two lengths and the fragment: subtract-adds, maxes,
+#   a min; the size compares, containment, overlap and dovetail
+#   compares and the policy's selects: 20), the key (add, two shifts, two
+#   subtracts, select: 6) and the argmax compare: 27; and one (slot,
+#   slot) pair of a read (T^2 a read): the dedupe (two compares, the
+#   score order: 5) and the rank (3): 8.
+OPS_GATHER_CODE = 9
+OPS_PAIR_COMBO = 27
+OPS_PAIR_SLOTS = 8
 SECTORS_STEP = 3
 SECTORS_ROW = 3
 
@@ -317,7 +356,22 @@ PTXAS_FUNCS = {"fm_sweep": ("sweep_kernel", "<int>"),
                "sw_rect_origin@block": ("sw_block_origin", ""),
                "sw_rect@rescue": ("sw_block_kernel", ""),
                "backtrace": "bt_", "sw_diag": "sw_diag_kernel",
-               "bt_diag": "bt_diag_kernel"}
+               "bt_diag": "bt_diag_kernel",
+               "ref_gather_aligned": ("aligned_kernel", ",0>"),
+               "ref_gather_aligned_sh": ("aligned_kernel", ",1>"),
+               "ref_gather": "unaligned_kernel",
+               "pe_pairing": "pairing_kernel"}
+
+# the window gather's entries (K7) and the device pairing (K10 PE): name
+# -> (source, TPU-side function it replaces)
+K7 = {"ref_gather_aligned": ("bowtie2_tpu_torch/csrc/ref_gather.cu",
+                             "bowtie2_tpu/ops/ref.py:94"),
+      "ref_gather": ("bowtie2_tpu_torch/csrc/ref_gather.cu",
+                     "bowtie2_tpu/ops/ref.py:42"),
+      "ref_gather_aligned_sh": ("bowtie2_tpu_torch/csrc/ref_gather.cu",
+                                "bowtie2_tpu/ops/ref.py:94")}
+K10PE = ("pe_pairing", "bowtie2_tpu_torch/csrc/pe_pairing.cu",
+         "bowtie2_tpu/ops/fused.py:721")
 
 # the block origin kernel's calls at the PE length buckets past 512
 # columns, each an ops/cases.py padded_origin_cases shape (Lmax, live
@@ -435,8 +489,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.time()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(n: int, what: str) -> None:
+    """A phase's header line, with the seconds since the script began."""
+    log(f"== phase {n}: {what} ({time.time() - T_START:.1f} s)")
 
 
 def load_repcorpus():
@@ -478,11 +540,8 @@ class Recorder:
         self._patch_sw(sw)
         self._patch(sw, "_sw_banded_diag_cuda", "sw_diag", lambda *a: a)
         self._patch(sw, "_backtrace_diag_cuda", "bt_diag", lambda *a: a)
-        self._patch(fused, "_pe_pairing", "pe_pairing", lambda *a: a)
         self._patch(sw, "_backtrace_cuda", "backtrace", lambda *a: a,
                     lambda dirs, sel, *a: sel)
-        self._patch(fused, "gather_windows_aligned", "gather_windows_aligned",
-                    lambda *a: a)
         self._patch(fused, "diag_readout", "diag_readout", lambda *a: a)
 
     def _patch_sw(self, sw):
@@ -541,6 +600,101 @@ class Recorder:
         setattr(mod, attr, wrapped)
         setattr(self, "orig_" + name, orig)
         self._sized[name] = sized
+
+
+class Holder:
+    """Keeps the calls of the window gather's two forms (K7: `ref_gather_
+    aligned`, `_sh` over sharded word tables, and `ref_gather`) and of the
+    device pairing (K10 PE, `pe_pairing`) on the card, under the label of
+    the phase that made them: the first call of each shape (windows,
+    width, position type, word source) of the gathers, every call of the
+    pairing (each PE batch). `check` holds each kept call's kernel result
+    to the plain version on the same inputs, after the phase has read its
+    counts, and starts afresh; `first` keeps each entry's first call."""
+
+    def __init__(self, ref, fused, align_mod):
+        self.plain = {"ref_gather_aligned": ref._gather_windows_aligned_plain,
+                      "ref_gather": ref._gather_windows_plain,
+                      "pe_pairing": fused._pe_pairing_plain}
+        self.kern = {"ref_gather_aligned": ref.gather_windows_aligned,
+                     "ref_gather": ref.gather_windows,
+                     "pe_pairing": fused._pe_pairing}
+        self.calls = {}            # entry -> {key: args}
+        self.first = {}            # entry -> (label, args)
+        self.checks = {}           # entry -> {label: record}
+        self.label = None
+        self._ref = ref
+        for mod, attr, name in ((fused, "gather_windows_aligned",
+                                 "ref_gather_aligned"),
+                                (align_mod, "gather_windows", "ref_gather"),
+                                (fused, "_pe_pairing", "pe_pairing")):
+            self._patch(mod, attr, name)
+
+    def entry(self, name, args):
+        """The C entry a call launches: the aligned gather's `_sh` one over
+        sharded word tables."""
+        if name == "ref_gather_aligned" and isinstance(
+                args[0], self._ref.ShardedWords):
+            return "ref_gather_aligned_sh"
+        return name
+
+    @staticmethod
+    def key(name, args):
+        if name == "pe_pairing":
+            return None                   # every call
+        starts = args[2]
+        return (starts.shape[0], args[5], str(starts.dtype).split(".")[-1],
+                args[0].words.S if hasattr(args[0], "words") else 1)
+
+    def _patch(self, mod, attr, name):
+        orig = getattr(mod, attr)
+
+        def wrapped(*a, **k):
+            t = a[2] if name != "pe_pairing" else a[5]
+            if self.label is not None and t.is_cuda:
+                e = self.entry(name, a)
+                self.first.setdefault(e, (self.label, a))
+                d = self.calls.setdefault(e, {})
+                key = self.key(name, a)
+                d.setdefault(len(d) if key is None else key, a)
+            return orig(*a, **k)
+        setattr(mod, attr, wrapped)
+
+    def plain_of(self, entry):
+        return self.plain["ref_gather_aligned" if entry.startswith(
+            "ref_gather_aligned") else entry]
+
+    def kern_of(self, entry):
+        return self.kern["ref_gather_aligned" if entry.startswith(
+            "ref_gather_aligned") else entry]
+
+    def check(self, label=None):
+        """Each kept call's kernel result against the plain version's, by
+        entry: {entry: (calls, max abs err)}; recording goes on under
+        `label` (None: stops)."""
+        out = {}
+        for e, d in self.calls.items():
+            errs = [max_err(self.kern_of(e), self.plain_of(e), args)[1]
+                    for args in d.values()]
+            rec = self.checks.setdefault(e, {}).setdefault(
+                self.label, dict(calls=0, max_abs_err=0))
+            rec["calls"] += len(errs)
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + errs)
+            keys = [list(k) for k in d if not isinstance(k, int)]
+            if keys:
+                rec["shapes"] = rec.get("shapes", []) + keys
+            out[e] = (len(errs), rec["max_abs_err"])
+        if out:
+            log(f"new kernels held to their plain versions ({self.label}): "
+                f"{json.dumps({e: self.checks[e][self.label] for e in out})}")
+        self.calls = {}
+        self.label = label
+        torch.cuda.synchronize()
+        return out
+
+    def max_err(self, entry):
+        return max((r["max_abs_err"] for r in self.checks.get(
+            entry, {}).values()), default=0)
 
 
 def host_timers(targets):
@@ -619,6 +773,66 @@ class LaunchTimer:
     def restore(self):
         for mod, attr, orig in reversed(self._undo):
             setattr(mod, attr, orig)
+
+
+def _short_kernel(name: str) -> str:
+    """A CUPTI kernel name without its return type and argument list."""
+    name = name[5:] if name.startswith("void ") else name
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0 and i:
+            return name[:i][:90]
+    return name[:90]
+
+
+def cupti(fn, reps: int = 5, regions=()):
+    """Device time of fn() under torch.profiler (CUPTI), after one warm-up
+    call: (ms a call over every kernel, memcpy and memset on the card,
+    {kernel: ms a call}, {region: ms a call}); `regions` are (module,
+    attribute, label) functions run inside a record_function range of
+    that label, whose device time is that of the work launched in it.
+    The total is None where the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    undo = []
+    for mod, attr, label in regions:
+        orig = getattr(mod, attr)
+
+        def ranged(*a, _f=orig, _l=label, **k):
+            with record_function(_l):
+                return _f(*a, **k)
+        setattr(mod, attr, ranged)
+        undo.append((mod, attr, orig))
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, orig in reversed(undo):
+            setattr(mod, attr, orig)
+    by, reg = {}, {}
+    labels = {lb for _m, _a, lb in regions}
+    events = prof.events()
+    for ev in events:
+        if ev.name in labels:
+            # the range on the host; its twin on the card's timeline (the
+            # range's span there, gaps included) is not a kernel
+            if ev.device_type != DeviceType.CUDA:
+                reg[ev.name] = reg.get(ev.name, 0.0) + \
+                    ev.device_time_total / 1e3 / reps
+        elif ev.device_type == DeviceType.CUDA:
+            k = _short_kernel(ev.name)
+            by[k] = by.get(k, 0.0) + ev.time_range.elapsed_us() / 1e3 / reps
+    if not by:
+        log(f"torch.profiler saw no device activity ({len(events)} events: "
+            f"{sorted({e.name for e in events})[:8]})")
+    total = sum(by.values()) if by else None
+    return total, dict(sorted(by.items(), key=lambda kv: -kv[1])), reg
 
 
 def time_cuda(fn, reps: int, spin: int = SPIN_REP) -> float:
@@ -837,6 +1051,49 @@ def exactness_sweep(port, kerns, plains, data, genome, device, keep=None):
                         f"{gname}_p{period}_{kind}@x{scale}", max_err(
                             kerns["sa_resolve"], plains["sa_resolve"],
                             (h, put(rows), period))[1]))
+    return out
+
+
+def split_line(label, total, by, reg, build_mod):
+    """The log line of a CUPTI split: device time by kernel, the
+    hand-written kernels (those ptxas reported for this repo's sources)
+    apart from the torch ops' kernels and the copies, and by region (the
+    torch-op kernels launched inside each range; a ctypes launch is not
+    linked to its range). Returns the hand-written kernels' times."""
+    hand = {n.split("<")[0] for src in build_mod.PTXAS.values() for n in src}
+    ours = {k.split("::")[-1]: round(v, 4) for k, v in by.items()
+            if k.split("<")[0].split("::")[-1] in hand}
+    mem = [v for k, v in by.items() if k.startswith("Mem")]
+    torch_ops = (total or 0.0) - sum(ours.values()) - sum(mem)
+    log(f"CUPTI split of {label}: {total} ms on the card over {len(by)} "
+        f"kernels and copies: hand-written {json.dumps(ours)} (sum "
+        f"{sum(ours.values()):.4f}), torch ops {torch_ops:.4f} over "
+        f"{len(by) - len(ours) - len(mem)} kernels, copies {sum(mem):.4f}; "
+        f"regions "
+        f"{json.dumps({k: round(v, 4) for k, v in reg.items()})}; top "
+        f"{json.dumps({k: round(v, 4) for k, v in list(by.items())[:10]})}")
+    return ours
+
+
+def window_sweep(ref, fm, cases, holder, dev):
+    """{K7 entry: [(case, max abs err)]}: both forms on every ops/cases.py
+    window_cases case at scale 1 and 8 on the card, the aligned form also
+    over the case's word tables split into 4 shards."""
+    out = {k: [] for k in K7}
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    for seed, scale in ((0, 1), (1, 8)):
+        for c in cases.window_cases(seed=seed, scale=scale):
+            w, n = put(c.ref_words), put(c.refn_words)
+            ws = ref.ShardedWords(fm.shard_rows(w, [dev] * 4, dev))
+            ns = ref.ShardedWords(fm.shard_rows(n, [dev] * 4, dev))
+            rest = (put(c.starts), put(c.lo), put(c.hi), c.width)
+            for e, tabs in (("ref_gather_aligned", (w, n)),
+                            ("ref_gather", (w, n)),
+                            ("ref_gather_aligned_sh", (ws, ns))):
+                out[e].append((c.name, max_err(
+                    holder.kern_of(e), holder.plain_of(e), tabs + rest)[1]))
     return out
 
 
@@ -1371,6 +1628,87 @@ def dp_entry(name, kern, plain, args, more_args, reps, total, launches,
 
 
 
+def gather_work(args, aligned):
+    """K7's (bytes, operations) on a call's inputs: the reference and N
+    words each window spans, its start, lo and hi read once, its codes
+    (and, aligned, its shift) written once; OPS_GATHER_CODE a code."""
+    _w, _n, starts, _lo, _hi, width = args
+    B, pb = starts.shape[0], starts.element_size()
+    s = starts.long()
+    if aligned:
+        W = 32 * ((width + 62) // 32)
+        words = B * (W // 16 + W // 32)
+        out = B * (W + 1) * 4
+    else:
+        W = width
+        e = s + max(width, 1) - 1
+        words = int(((e >> 4) - (s >> 4) + 1).sum()
+                    + ((e >> 5) - (s >> 5) + 1).sum())
+        out = B * W * 4
+    return words * 4 + 3 * B * pb + out, B * W * OPS_GATHER_CODE
+
+
+def pairing_work(args, out):
+    """K10 PE's (bytes, operations) on a call's inputs: every slot and read
+    field read once, the fields written once; OPS_PAIR_COMBO a
+    combination, OPS_PAIR_SLOTS a (slot, slot) pair of a read."""
+    B, Bp, T = args[1], args[2], args[3]
+    byt = nbytes(*[t for t in args if isinstance(t, torch.Tensor)]) + \
+        nbytes(*out)
+    return byt, Bp * T * T * OPS_PAIR_COMBO + B * T * T * OPS_PAIR_SLOTS
+
+
+def new_entry(name, src, repl, holder, args, work, reps, launches, total,
+              build_mod, sweep=(), more=None):
+    """The `kernels` entry (and log line) of a kernel of this slice (K7,
+    K10 PE) at one main-path call: exact against its plain version there,
+    on every call the Holder kept (`checks`) and on the ops/cases.py
+    sweep; timed back to back, after idle and under CUPTI (kernel and
+    plain version); its bound from `work(args, result)`."""
+    kern, plain = holder.kern_of(name), holder.plain_of(name)
+    got, err = max_err(kern, plain, args)
+    ms = time_cuda(lambda: kern(*args), reps)
+    idle_ms = time_after_idle(lambda: kern(*args), 5)
+    plain_ms = time_cuda(lambda: plain(*args), 2, spin=0)
+    k_cupti, k_by, _r = cupti(lambda: kern(*args))
+    p_cupti, p_by, _r = cupti(lambda: plain(*args))
+    byt, ops = work(args, got)
+    t_bytes = byt / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S * 1e3
+    sweep_err = max((e for _, e in sweep), default=0)
+    e = max(err, sweep_err, holder.max_err(name))
+    entry = dict(
+        name=name, route="cuda", source=src, replaces=repl,
+        launches=launches, max_abs_err=e, equal=e == 0, ms=round(ms, 4),
+        idle_ms=round(idle_ms, 4), plain_ms=round(plain_ms, 3),
+        bound_ms=round(max(t_bytes, t_ops), 5), bytes_ms=round(t_bytes, 5),
+        ops_ms=round(t_ops, 5),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, total_ms=round(total[0], 4), total_spans=total[1],
+        cupti_ms=None if k_cupti is None else round(k_cupti, 4),
+        plain_cupti_ms=None if p_cupti is None else round(p_cupti, 4),
+        plain_cupti_kernels=len(p_by),
+        ptxas=ptxas_of(build_mod, name, os.path.splitext(
+            os.path.basename(src))[0]),
+        shape=[args[2].shape[0], args[5]] if name in K7 else
+        [args[2], args[3]],
+        checks=holder.checks.get(name, {}))
+    if sweep:
+        entry["sweep_cases"] = len(sweep)
+    entry.update(more or {})
+    log(f"kernel {name}: equal={e == 0} max_abs_err={err} (kept calls "
+        f"{holder.max_err(name)}, sweep {sweep_err} over {len(sweep)} "
+        f"cases) ms={ms:.4f} idle_ms={idle_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={entry['bound_ms']} (bytes {t_bytes:.5f}, operations "
+        f"{t_ops:.5f}) total_ms={total[0]:.4f} over {total[1]} launches; "
+        f"launches {launches}; CUPTI: kernel {entry['cupti_ms']} ms, plain "
+        f"version {entry['plain_cupti_ms']} ms over {len(p_by)} kernels "
+        f"(top {json.dumps({k: round(v, 4) for k, v in list(p_by.items())[:4]})}"
+        f"); shape {entry['shape']} ptxas {entry['ptxas']}"
+        + "".join(f" {k}={v}" for k, v in (more or {}).items()))
+    return entry
+
+
 def bucket_times(a, m, name, kern, plain_fn, firsts, first_args, first_got,
                  cmp_lib):
     """K11 `name` on the first call of each length bucket of the long-read
@@ -1502,9 +1840,11 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if len(groups) != len(recs):
         fail(f"{len(groups)} SAM groups for {len(recs)} long reads")
-    missing = [k for k in LONG_KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in list(LONG_KERNELS) + ["ref_gather"]
+               if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels never launched on the long-read path: {missing}")
+    m.long_launches = launches
     if plain:
         fail(f"plain versions ran on the card's long-read path: {plain}")
     if at_start < 0.95 * len(recs):
@@ -1513,7 +1853,6 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
 
     # the same run again under CUDA events, apart from the timed window
     timer = LaunchTimer(build)
-    timer.wrap(m.align_mod, "gather_windows", "gather_windows")
     t0 = time.time()
     try:
         run(m.UnpairedAligner(edata, pol), recs)
@@ -1523,6 +1862,7 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
     twall = time.time() - t0
     timer.restore()
     dev_ms = timer.totals()
+    m.long_dev_ms = dev_ms
     busy = sum(v[0] for v in dev_ms.values()) / 1e3
     shapes = {k: {str(sh): [round(v[0], 4), v[1]] for sh, v in
                   sorted(d.items())}
@@ -2222,7 +2562,7 @@ def shard_phase(a, m, ctx):
         missing = [k for k in need if not ln.get(k)]
         if missing:
             fail(f"{label}: never launched: {missing}")
-        for k in list(SHARD_KERNELS) + [K12[0]]:
+        for k in list(SHARD_KERNELS) + [K12[0], "ref_gather_aligned_sh"]:
             launch[k] = launch.get(k, 0) + ln.get(k, 0)
         return out, wall, ln
 
@@ -2251,22 +2591,20 @@ def shard_phase(a, m, ctx):
     for data in (ctx["data"], ctx["rep_l"]):
         se_run(data, 4, [se_batches[0][:256]])
     torch.cuda.synchronize()
-    k12_first = {}
-    orig_take = m.ref.take_sharded
-
-    def take_rec(rows, idx):
-        k12_first.setdefault("args", (rows, idx))
-        return orig_take(rows, idx)
-    m.ref.take_sharded = take_rec
+    holder = ctx["holder"]
+    holder.check("sharded index")    # the warm-up's calls, held apart
+    holder.first.pop("ref_gather_aligned_sh", None)
     rec.take()
     # the 4-shard SE, the forced-large and the PE runs under CUDA events
     # (each kernel's total_ms); the 8-shard SE run without
     timer = LaunchTimer(build)
     (g4, al4), w4, ln4 = counted("sharded SE, 4 shards",
                                  lambda: se_run(ctx["data"], 4, se_batches),
-                                 sh_int + [K12[0]])
+                                 sh_int + ["ref_gather_aligned_sh"])
     sh_args = rec.take()
-    m.ref.take_sharded = orig_take
+    if "ref_gather_aligned_sh" not in holder.first:
+        fail("the sharded SE path never gathered its reference words")
+    k7_args = holder.first["ref_gather_aligned_sh"][1]
     for k, (gg, want) in enumerate(zip(g4, ctx["groups"])):
         differ(f"SE batch {k}, 4 shards vs replicated", gg, want)
     differ("SE batch 0, 4 shards vs CPU", g4[0], ctx["cpu_groups"])
@@ -2277,7 +2615,8 @@ def shard_phase(a, m, ctx):
         f"fm_blocks {al4.sidx.fw.fm_blocks.per} rows a shard")
     (gl, all_), wl, lnl = counted(
         "sharded SE, forced large, 4 shards",
-        lambda: se_run(ctx["rep_l"], 4, se_batches[:1]), sh_u32 + [K12[0]])
+        lambda: se_run(ctx["rep_l"], 4, se_batches[:1]),
+        sh_u32 + ["ref_gather_aligned_sh"])
     large_args = rec.take()
     if not all_.sidx.fw.large:
         fail("the forced-large sharded index is not in the large mode")
@@ -2296,7 +2635,7 @@ def shard_phase(a, m, ctx):
     (pg4, _pal4), pw4, pln4 = counted(
         "sharded PE, 4 shards",
         lambda: pe_run(pe_batches, shard_mesh=shard_mesh(4)),
-        sh_int + [K12[0]])
+        sh_int + ["ref_gather_aligned_sh"])
     timer.restore()
     sh_ms = timer.totals()
     rec.take()
@@ -2312,7 +2651,7 @@ def shard_phase(a, m, ctx):
     differ("PE batch 0, 4 shards vs CPU", pg4[0], ctx["pe_cpu0"])
     (g8, al8), w8, ln8 = counted("sharded SE, 8 shards",
                                  lambda: se_run(ctx["data"], 8, se_batches),
-                                 sh_int + [K12[0]])
+                                 sh_int + ["ref_gather_aligned_sh"])
     rec.take()
     for k, (gg, want) in enumerate(zip(g8, ctx["groups"])):
         differ(f"SE batch {k}, 8 shards vs replicated", gg, want)
@@ -2379,8 +2718,6 @@ def shard_phase(a, m, ctx):
             ("fm_blocks", si.fw.fm_blocks), ("mark_rows", si.fw.mark_rows),
             ("offs", si.fw.offs), ("ref_words", si.ref_words.words),
             ("refn_words", si.refn_words.words))})
-    if "args" not in k12_first:
-        fail("the sharded SE path never gathered its reference words")
     kern12 = fm.take_sharded
     k12 = {}
     for (name, S), rows in tables.items():
@@ -2414,7 +2751,12 @@ def shard_phase(a, m, ctx):
         f"held) ({time.time() - t1:.1f} s)")
     del big_rows, bidx
     torch.cuda.empty_cache()
-    rows0, idx0 = k12_first["args"]
+    # K12 on the word indices of the sharded path's first window gather
+    # (the gather K12 made there before K7 read the shards itself)
+    rows0 = k7_args[0].words
+    ast = k7_args[2].long() & ~31
+    idx0 = (ast >> 4)[:, None] + torch.arange(
+        (32 * ((k7_args[5] + 62) // 32)) // 16, device=dev)[None, :]
     err0 = max_err(kern12, fm._take_sharded, (rows0, idx0))[1]
     ms0 = time_cuda(lambda: kern12(rows0, idx0), a.reps)
     idle0 = time_after_idle(lambda: kern12(rows0, idx0), 5)
@@ -2548,9 +2890,18 @@ def shard_phase(a, m, ctx):
             f"{[round(x, 4) for x in turns]} (x{entry['turns']['ratio']}); "
             f"flat vs sharded results differ by {same}; ptxas "
             f"{entry['ptxas']}")
-    never = [k for k in list(SHARD_KERNELS) + [K12[0]] if not launch.get(k)]
+    never = [k for k in list(SHARD_KERNELS) + ["ref_gather_aligned_sh"]
+             if not launch.get(k)]
     if never:
         fail(f"phase 14: never launched on the sharded paths: {never}")
+    # K7 over the shards: the 4-shard SE path's first call
+    entries.append(new_entry(
+        "ref_gather_aligned_sh", *K7["ref_gather_aligned_sh"], holder,
+        k7_args, lambda x, _r: gather_work(x, True), a.reps,
+        launch.get("ref_gather_aligned_sh", 0),
+        sh_ms.get("ref_gather_aligned_sh", [0.0, 0]), build,
+        ctx["win_sweep"]["ref_gather_aligned_sh"],
+        more=dict(shards=k7_args[0].words.S)))
     log(f"phase 14 checks (groups differing): {json.dumps(checks)}; "
         f"launches on the sharded paths {launch}; phase 14: "
         f"{time.time() - t_phase:.1f} s")
@@ -2611,6 +2962,7 @@ def main() -> None:
         fail("the JAX package was imported")
 
     # ---------------- phase 1: card, versions, kernel build ----------------
+    phase(1, "card, versions, kernel build")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2631,6 +2983,7 @@ def main() -> None:
     log(f"ptxas: {json.dumps(_build.PTXAS, sort_keys=True)}")
 
     # ---------------- phase 2: corpus + index ----------------
+    phase(2, "corpus + index")
     t0 = time.time()
     rng = np.random.default_rng(a.seed)
     genome = mrc.make_genome(rng)
@@ -2643,6 +2996,7 @@ def main() -> None:
         f"built in {time.time() - t0:.1f} s")
 
     # ---------------- phase 3: the main path on the card ----------------
+    phase(3, "the main path on the card")
     props = torch.cuda.get_device_properties(0)
     threads = props.multi_processor_count * getattr(
         props, "max_threads_per_multi_processor", 2048)
@@ -2652,6 +3006,8 @@ def main() -> None:
     rec = Recorder(fm, sw, fused, bulk={
         "backtrace": BT_WARP_WALKS_PER_SM * props.multi_processor_count,
         "sa_resolve": threads, "fm_seed": None, "fm_substring": None})
+    holder = Holder(ref_mod, fused, align_mod)
+    holder.label = "SE main path"
     pol = make_policy("sensitive")
     aligner = UnpairedAligner(data, pol)
     spent = host_timers([(aligner, "submit"), (aligner, "collect_raw"),
@@ -2698,7 +3054,9 @@ def main() -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if n_groups != len(records):
         fail(f"{n_groups} SAM groups for {len(records)} reads")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
+    missing = [k for k in list(KERNELS) + ["ref_gather_aligned",
+                                           "ref_gather"]
+               if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     if plain:
@@ -2714,8 +3072,6 @@ def main() -> None:
     # the same run again, with a fresh aligner, under CUDA events: kept
     # apart from the timed window so that reads/s carries no spin or event
     timer = LaunchTimer(_build)
-    timer.wrap(fused, "gather_windows_aligned", "gather_windows_aligned")
-    timer.wrap(align_mod, "gather_windows", "gather_windows")
     timer.wrap(fused, "diag_readout", "diag_readout")
     _build.reset_counts()
     t0 = time.time()
@@ -2745,6 +3101,7 @@ def main() -> None:
         f"holds {threads} threads at once")
 
     # ---------------- phase 4: card vs CPU on the first batch -------------
+    phase(4, "card vs CPU on the first batch")
     t0 = time.time()
     cpu_al = UnpairedAligner(data, pol, device="cpu")
     cpu_groups = cpu_al.collect_raw(cpu_al.submit(chunks[0]))
@@ -2754,8 +3111,10 @@ def main() -> None:
     if len(cpu_groups) != len(groups[0]) or ndiff:
         fail(f"card and CPU SAM differ in {ndiff} of {len(chunks[0])} reads")
     e2e_args = rec.take()
+    holder.check("SE --local")
 
     # ---------------- phase 5: the --local path, first batch ---------------
+    phase(5, "the --local path, first batch")
     lpol = make_policy("sensitive", local=True)
     laligner = UnpairedAligner(data, lpol)
     torch.cuda.synchronize()
@@ -2772,7 +3131,8 @@ def main() -> None:
     laligned = sum(1 for g in lgroups if not g[0][0] & 4)
     log(f"--local path: {len(chunks[0])} reads in {lwall:.2f} s; "
         f"{laligned} aligned; launches {llaunches}; plain calls {lplain}")
-    missing = [k for k in KERNELS if llaunches.get(k, 0) == 0]
+    missing = [k for k in list(KERNELS) + ["ref_gather_aligned"]
+               if llaunches.get(k, 0) == 0]
     if missing:
         fail(f"kernels never launched on the --local path: {missing}")
     if lplain:
@@ -2786,8 +3146,10 @@ def main() -> None:
     if len(cpu_lgroups) != len(lgroups) or ndiff:
         fail(f"--local card and CPU SAM differ in {ndiff} reads")
     local_args = rec.take()
+    holder.check(None)
 
     # ---------------- phase 6: each kernel against its plain version ------
+    phase(6, "each kernel against its plain version")
     plains = {"fm_sweep": fm._sweep_plain, "fm_substring": fm._substring_plain,
               "fm_seed": fm._seed_plain, "sa_resolve": fm._resolve_plain,
               "sw_rect": sw._sw_banded_plain, "backtrace": sw._backtrace_plain,
@@ -2975,24 +3337,30 @@ def main() -> None:
                f"{clock_hz / 1e6:.0f} MHz)) {issue_ms:.5f} ms"
                if name == "sw_rect" else ""))
 
-    # K7, the window gather of the fused path (torch ops, no kernel)
-    if "gather_windows_aligned" not in e2e_args:
-        fail("the fused path never gathered its windows")
-    gargs = e2e_args["gather_windows_aligned"]
-    gather = rec.orig_gather_windows_aligned
-    win, _shift = gather(*gargs)
-    g_ms = time_cuda(lambda: gather(*gargs), a.reps, spin=SPIN_TORCH_OPS)
-    Bg, Wa = win.shape
-    # words each window needs (2-bit codes and N bits), starts/lo/hi, and
-    # the codes and shifts written
-    g_bytes = Bg * (Wa // 16 + Wa // 32) * 4 + 3 * Bg * 4 + Bg * (Wa + 1) * 4
-    g_total = dev_ms.get("gather_windows_aligned", [0.0, 0])
-    h_total = dev_ms.get("gather_windows", [0.0, 0])
-    log(f"torch ops gather_windows_aligned (K7): shape {[Bg, Wa]} "
-        f"ms={g_ms:.4f} bound_ms={g_bytes / PEAK_BYTES_S * 1e3:.5f} "
-        f"(bytes) total_ms={g_total[0]:.4f} over {g_total[1]} calls; "
-        f"host-path gather_windows total_ms={h_total[0]:.4f} over "
-        f"{h_total[1]} calls")
+    # K7, the window gather: the fused path's first call (the aligned
+    # form) and the SE host path's first (the unaligned form), and every
+    # ops/cases.py window_cases case at scale 1 and 8 (the aligned form
+    # also over each case's tables split into 4 shards)
+    if "ref_gather_aligned" not in holder.first or \
+            "ref_gather" not in holder.first:
+        fail("the SE paths never gathered their windows")
+    t0 = time.time()
+    win_sweep = window_sweep(ref_mod, fm, cases, holder,
+                             torch.device("cuda"))
+    log(f"exactness sweep of K7 (ops/cases.py window_cases): "
+        f"{json.dumps({k: [len(v), max(e for _, e in v)] for k, v in win_sweep.items()})}"
+        f" (cases, max abs err; {time.time() - t0:.1f} s)")
+    k7_entries = {}
+    for name, args, aligned in (
+            ("ref_gather_aligned", holder.first["ref_gather_aligned"][1],
+             True),
+            ("ref_gather", holder.first["ref_gather"][1], False)):
+        k7_entries[name] = new_entry(
+            name, *K7[name], holder, args,
+            lambda x, _r, _a=aligned: gather_work(x, _a), a.reps,
+            launches.get(name, 0), dev_ms.get(name, [0.0, 0]), _build,
+            win_sweep[name])
+        kernels_out.append(k7_entries[name])
 
     # K10, the SE gapless readout of the fused path (torch ops, no kernel)
     if "diag_readout" not in e2e_args:
@@ -3008,11 +3376,27 @@ def main() -> None:
     d_bytes = nbytes(d_reads, d_quals, d_rows, d_lanes, d_lens) + \
         Bd * Ld * 4 + nbytes(*d_out)
     d_total = dev_ms.get("diag_readout", [0.0, 0])
+    d_cupti, d_by, _r = cupti(lambda: readout(*dargs))
     log(f"torch ops diag_readout (K10): shape {[Bd, Ld]} ms={d_ms:.4f} "
         f"bound_ms={d_bytes / PEAK_BYTES_S * 1e3:.5f} (bytes) "
-        f"total_ms={d_total[0]:.4f} over {d_total[1]} calls")
+        f"total_ms={d_total[0]:.4f} over {d_total[1]} calls (span upper "
+        f"bounds); CUPTI: {d_cupti} ms a call over {len(d_by)} kernels")
+
+    # one whole fused_se batch (the main path's first) under CUPTI: device
+    # time by kernel, and by the torch-op regions between the kernels
+    split_al = UnpairedAligner(data, pol)
+    se_total, se_by, se_reg = cupti(
+        lambda: split_al.submit(chunks[0]), reps=1, regions=(
+            (fused, "diag_readout", "K10 diag_readout"),
+            (fused, "gather_windows_aligned", "K7 gather_windows_aligned"),
+            (fused, "_core", "fused _core (phases 1-4)")))
+    se_ours = split_line(f"one fused_se batch ({len(chunks[0])} reads)",
+                         se_total, se_by, se_reg, _build)
+    k7_entries["ref_gather_aligned"]["batch_cupti_ms"] = se_ours.get(
+        "aligned_kernel<int, false>")
 
     # ---------------- phase 7: E. coli-sim corpus, index by the CLI -------
+    phase(7, "E. coli-sim corpus, index by the CLI")
     t0 = time.time()
     egenome, (se_codes, se_quals), (c1, c2, q1, q2) = ecoli_corpus(a.pairs)
     pairs = [(SeqRecord(name=f"p{i}", seq=c1[i].astype(np.uint8),
@@ -3045,6 +3429,7 @@ def main() -> None:
         f"{time.time() - t0:.1f} s")
 
     # ---------------- phase 8: the paired-end path ----------------
+    phase(8, "the paired-end path")
     # one batch first, as bench.py warms the JAX package up: the first
     # calls of the pairing's torch ops load their CUDA code
     t0 = time.time()
@@ -3057,6 +3442,7 @@ def main() -> None:
     log(f"paired-end warm-up: {min(PE_BATCH, len(pairs))} pairs in "
         f"{time.time() - t0:.2f} s")
     rec.take()
+    holder.label = "PE main path"
     pal = PairedAligner(edata, pol)
     pspent = host_timers([(pal, n) for n in (
         "submit", "collect_raw", "_pe_decode", "_pe_fast_prep",
@@ -3093,7 +3479,8 @@ def main() -> None:
         f"{({k: round(v, 2) for k, v in pspent.items()})}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     pe_args = rec.take()
-    for k in ("sw_rect_origin", "sw_rect@block"):
+    for k in ("sw_rect_origin", "sw_rect@block", "pe_pairing",
+              "ref_gather_aligned", "ref_gather"):
         if plaunches.get(k, 0) == 0:
             fail(f"{k} never launched on the paired-end path")
     if pplain:
@@ -3106,9 +3493,6 @@ def main() -> None:
 
     # the same run again under CUDA events, apart from the timed window
     ptimer = LaunchTimer(_build)
-    ptimer.wrap(fused, "_pe_pairing", "pe_pairing")
-    ptimer.wrap(fused, "gather_windows_aligned", "gather_windows_aligned")
-    ptimer.wrap(align_mod, "gather_windows", "gather_windows")
     t0 = time.time()
     try:
         PairedAligner(edata, pol).align_pairs_fast(pairs, batch=PE_BATCH,
@@ -3125,8 +3509,17 @@ def main() -> None:
         f" (total ms, spans); sum {pbusy:.4f} s = "
         f"{100 * pbusy / pwall:.4f} % of the paired-end path's {pwall:.2f} "
         f"s wall time; this pass {ptwall:.2f} s")
+    for name, e in k7_entries.items():
+        e["pe_launches"] = plaunches.get(name, 0)
+        e["pe_total_ms"] = round(pdev_ms.get(name, [0.0, 0])[0], 4)
 
     # ---------------- phase 9: paired-end output checks ----------------
+    phase(9, "paired-end output checks")
+    # (the PE main path's kept calls of the new kernels held first; then
+    # the checks' batches: the mixed-outcome batch's hostneed pairs and
+    # the overflow batch's host path)
+    holder.check("PE checks")
+
     def pe_cpu_check(label, policy, batch, groups, **kw):
         t1 = time.time()
         cpu_pa = PairedAligner(edata if kw.get("data") is None
@@ -3216,6 +3609,8 @@ def main() -> None:
     pe_cpu_check("overflow to the host path", pol, over, og, data=data)
 
     # ---------------- phase 10: the paired-end kernels ----------------
+    phase(10, "the paired-end kernels")
+    holder.check(None)
     if "sw_rect_origin" not in pe_args or "sw_rect@rescue" not in pe_args:
         fail("the paired-end path recorded no origin DP or rescue DP call")
     oargs = pe_args["sw_rect_origin"]
@@ -3305,23 +3700,45 @@ def main() -> None:
         pdev_ms.get("sw_rect@block", [0.0, 0]),
         plaunches.get("sw_rect@block", 0), None, [], _build, False))
     ok &= all(e["equal"] for e in kernels_out[-2:])
-    # K10's paired-end half, the device pairing (torch ops, no kernel)
-    if "pe_pairing" not in pe_args:
+    # K10's paired-end half, the device pairing: the first fused_pe call's
+    # inputs, every PE batch's (kept by the holder: the main path, the
+    # mixed-outcome batch's hostneed pairs) and every ops/cases.py
+    # pairing_cases case at scale 1 and 8, int32 and int64 extents
+    if "pe_pairing" not in holder.first:
         fail("the paired-end path never paired on the device")
-    pargs = pe_args["pe_pairing"]
-    pairing_fn = rec.orig_pe_pairing
-    p_out = pairing_fn(*pargs)
-    p_ms = time_cuda(lambda: pairing_fn(*pargs), a.reps,
-                     spin=SPIN_TORCH_OPS)
-    p_bytes = nbytes(*[t for t in pargs if isinstance(t, torch.Tensor)]) + \
-        nbytes(*p_out)
-    p_total = pdev_ms.get("pe_pairing", [0.0, 0])
-    log(f"torch ops _pe_pairing (K10, paired end): pairs {pargs[2]}, T "
-        f"{pargs[3]}; ms={p_ms:.4f} bound_ms="
-        f"{p_bytes / PEAK_BYTES_S * 1e3:.5f} (bytes) total_ms="
-        f"{p_total[0]:.4f} over {p_total[1]} calls")
+    t0 = time.time()
+    pair_sweep = []
+    for seed, scale in ((0, 1), (1, 8)):
+        for large in (False, True):
+            for c in cases.pairing_cases(seed=seed, scale=scale,
+                                         large=large):
+                cargs = (c.pairing, c.B, c.Bp, c.T) + tuple(
+                    torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                    for x in c.arrays)
+                pair_sweep.append((c.name, max_err(
+                    holder.kern_of("pe_pairing"),
+                    holder.plain_of("pe_pairing"), cargs)[1]))
+    log(f"exactness sweep of pe_pairing (ops/cases.py pairing_cases): "
+        f"{len(pair_sweep)} cases, max abs err "
+        f"{max(e for _, e in pair_sweep)} ({time.time() - t0:.1f} s)")
+    pargs = holder.first["pe_pairing"][1]
+    kernels_out.append(new_entry(
+        K10PE[0], *K10PE[1:], holder, pargs, pairing_work, a.reps,
+        plaunches.get(K10PE[0], 0), pdev_ms.get(K10PE[0], [0.0, 0]),
+        _build, pair_sweep, more=dict(hostneed_pairs=n_hostneed)))
+    # one whole fused_pe batch (the first) under CUPTI
+    split_pal = PairedAligner(edata, pol)
+    pe_total, pe_by, pe_reg = cupti(
+        lambda: split_pal.submit(batch0), reps=1, regions=(
+            (fused, "_pe_pairing", "K10 PE _pe_pairing"),
+            (fused, "gather_windows_aligned", "K7 gather_windows_aligned"),
+            (fused, "_core", "fused _core (phases 1-4)")))
+    pe_ours = split_line(f"one fused_pe batch ({len(batch0)} pairs)",
+                         pe_total, pe_by, pe_reg, _build)
+    kernels_out[-1]["batch_cupti_ms"] = pe_ours.get("pairing_kernel<int>")
 
     # ---------------- phase 11: the CLI, card vs --device cpu ------------
+    phase(11, "the CLI, card vs --device cpu")
     for label, inp in (("-U", ["-U", os.path.join(tdir, "se.fq")]),
                        ("-1/-2", ["-1", os.path.join(tdir, "pe_1.fq"),
                                   "-2", os.path.join(tdir, "pe_2.fq")])):
@@ -3341,12 +3758,35 @@ def main() -> None:
     tmp.cleanup()
 
     # ---------------- phase 12: long reads ----------------
+    phase(12, "long reads")
+    holder.label = "long reads"
     long_entries, long_first, long_groups = long_phase(
         a, port_mods, egenome, edata, pol, lpol, rec)
     kernels_out.extend(long_entries)
     ok &= all(e["equal"] for e in long_entries)
+    # K7's unaligned form at the long path's widest window, held and timed
+    wide = max(holder.calls.get("ref_gather", {}).values(),
+               key=lambda x: x[5] * x[2].shape[0], default=None)
+    if wide is None:
+        fail("the long-read path kept no ref_gather call")
+    we = k7_entries["ref_gather"]
+    we["long_launches"] = port_mods.long_launches.get("ref_gather", 0)
+    we["long_total_ms"] = round(port_mods.long_dev_ms.get(
+        "ref_gather", [0.0, 0])[0], 4)
+    w_ms = time_cuda(lambda: holder.kern_of("ref_gather")(*wide), a.reps)
+    w_bytes, w_ops = gather_work(wide, False)
+    we["wide"] = dict(shape=[wide[2].shape[0], wide[5]], ms=round(w_ms, 4),
+                      idle_ms=round(time_after_idle(
+                          lambda: holder.kern_of("ref_gather")(*wide), 5), 4),
+                      bound_ms=round(max(w_bytes / PEAK_BYTES_S,
+                                         w_ops / PEAK_OPS_S) * 1e3, 5))
+    log(f"kernel ref_gather at the long path's widest call: "
+        f"{json.dumps(we['wide'])}; long path launches "
+        f"{we['long_launches']} total_ms={we['long_total_ms']}")
+    holder.check("large index mode")
 
     # ---------------- phase 13: the large index mode ----------------
+    phase(13, "the large index mode")
     port_mods.fm = fm
     port_mods.half_from_tables = half_from_tables
     port_mods.build_index_from_refs = build_index_from_refs
@@ -3359,8 +3799,18 @@ def main() -> None:
     large_entries = large_phase(a, port_mods, large_ctx)
     kernels_out.extend(large_entries)
     ok &= all(e["equal"] for e in large_entries)
+    holder.check("sharded index")
+    # the large mode's int64 positions went through each new kernel
+    for e in ("ref_gather_aligned", "ref_gather"):
+        shapes = holder.checks.get(e, {}).get("large index mode", {}).get(
+            "shapes", [])
+        if not any(sh[2] == "int64" for sh in shapes):
+            fail(f"phase 13 made no {e} call with int64 positions")
+    if not holder.checks.get("pe_pairing", {}).get("large index mode"):
+        fail("phase 13 made no pe_pairing call")
 
     # ---------------- phase 14: sharded index, data mesh, processes -------
+    phase(14, "sharded index, data mesh, processes")
     port_mods.ref = ref_mod
     port_mods.FMIndex = FMIndex
     port_mods.ShardedFMHalf = ShardedFMHalf
@@ -3372,9 +3822,21 @@ def main() -> None:
         rep_l=large_ctx["rep_l"],
         large_fm_blocks=large_ctx["large_fm_blocks"], edata=edata,
         pairs=pairs, pe_groups0=first_groups[0], pe_cpu0=pe_cpu0,
-        se_codes=se_codes, se_quals=se_quals))
+        se_codes=se_codes, se_quals=se_quals, holder=holder,
+        win_sweep=win_sweep))
     kernels_out.extend(shard_entries)
     ok &= all(e["equal"] for e in shard_entries)
+    holder.check(None)
+    # every kept call of the new kernels, phases 13 and 14 included
+    for e in kernels_out:
+        if e["name"] in K7 or e["name"] == K10PE[0]:
+            e["checks"] = holder.checks.get(e["name"], {})
+            e["max_abs_err"] = max(e["max_abs_err"],
+                                   holder.max_err(e["name"]))
+            e["equal"] = e["max_abs_err"] == 0
+            ok &= e["equal"]
+    log(f"new kernels held to their plain versions, every phase: "
+        f"{json.dumps(holder.checks)}")
 
     print(json.dumps({"kernels": kernels_out}), flush=True)
     if not ok:

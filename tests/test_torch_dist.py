@@ -139,6 +139,9 @@ def test_mesh_helpers(toy):
     with pytest.raises(ValueError, match="data"):
         PAligner(data, ppolicy("sensitive"),
                  mesh=make_mesh(devices=["cpu"], axis="shard"))
-    with pytest.raises(ValueError, match="not supported"):
-        PAligner(data, ppolicy("sensitive"), mesh=mesh,
-                 shard_mesh=make_mesh(devices=["cpu"], axis="shard"))
+    # a data mesh over the sharded index: every entry reads the one set
+    # of shards (tests/test_torch_bothmesh.py holds its SAM to the JAX
+    # package's)
+    al = PAligner(data, ppolicy("sensitive"), mesh=mesh,
+                  shard_mesh=make_mesh(devices=["cpu"] * 2, axis="shard"))
+    assert al.sidx.fw.fm_blocks.S == 2 and list(al._homes) == [mesh.devices[0]]
