@@ -354,8 +354,12 @@ def cmd_align(argv):
                   or args.interleaved or args.tab5 or args.tab6)
     if args.batch is None:
         args.batch = 2048 if paired else 8192
-    aligner = (PairedAligner if paired else UnpairedAligner)(
-        data, pol, device=args.device)
+    try:
+        aligner = (PairedAligner if paired else UnpairedAligner)(
+            data, pol, device=args.device)
+    except NotImplementedError as e:    # PairedAligner past 2^32 - 4096
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
     if args.log_dp:
         aligner.dp_log = open(args.log_dp, "w")
     # binary output: the unpaired path emits finished line bytes from the
@@ -737,6 +741,9 @@ def cmd_inspect(argv):
             print(f"Sequence\t{n}\t{int(l)}")
         print(f"Joined length\t{data.n_joined}")
         print(f"Offrate\t{data.off_rate}")
+        # the port's own line, on stderr: stdout stays the JAX CLI's
+        from bowtie2_tpu_torch.index.fmindex import row_mode
+        print(f"Row mode\t{row_mode(data)}", file=sys.stderr)
         return 0
     # full FASTA reconstruction from the 2-bit reference + N mask
     import numpy as np

@@ -25,6 +25,17 @@
 // row type (0xFFFFFFFF). RowOut<R> is the type a kernel writes rows in:
 // int, or int64 holding the uint32 value (the port's tensor API).
 //
+// R = long long is the int64 mode past 2^32 rows (bowtie2_tpu/ops/fm.py
+// _occ_rows' occ_cp64 branch): the fused row's columns 8:12 hold only the
+// checkpoints' low 32 bits, so each LF step reads the block's checkpoint
+// from a second table, occ_cp64 (int64[nblocks, 4]; flat, or sharded as
+// fm_blocks is, through its shards' addresses), passed to the kernels as
+// `cp64` (their last argument) and unused by the other row types; its LF
+// steps are fm_lf2_pair_i64 and fm_lf_range_i64, twins of the int and
+// uint32_t ones, which keep their code. A row past the flat table's last
+// block reads words 0xFFFFFFFF and checkpoint INT64_MIN (jnp.take's fill
+// of an int64 table), and the LF sum wraps in int64 (lf_add).
+//
 // Row source: where a table's rows come from, a template argument beside
 // R. FlatRows is one table, as above: a row past the end is clamped for
 // the load and reads as 0xFFFFFFFF. ShardRows is the sharded index mode
@@ -44,6 +55,19 @@
 
 template <typename R> struct RowOut { using T = int; };
 template <> struct RowOut<uint32_t> { using T = long long; };
+template <> struct RowOut<long long> { using T = long long; };
+
+// whether the row type reads its checkpoints from occ_cp64
+template <typename R> struct Cp64 { static constexpr bool ON = false; };
+template <> struct Cp64<long long> { static constexpr bool ON = true; };
+
+// a + b + c - d in int64, wrapping as the JAX ops' adds do (through
+// unsigned arithmetic)
+__device__ __forceinline__ long long lf_add(long long a, long long b,
+                                            long long c, long long d) {
+    return (long long)((unsigned long long)a + (unsigned long long)b
+                       + (unsigned long long)c - (unsigned long long)d);
+}
 
 // the row sources, as template tags
 struct FlatRows {
@@ -77,6 +101,38 @@ __device__ __forceinline__ const uint32_t* shard_row(const ShardTab& sh,
 struct FmRow {
     uint32_t w[8];
 };
+
+// The int64 mode's occ_cp64 row of a block: flat (clamped to the table),
+// or its owner shard's (shard 0's row 0 where none holds it); `held` as
+// shard_row's, the same for the block's fused row.
+template <typename Src>
+__device__ __forceinline__ const long long* cp64_row(const void* cp64,
+                                                     const ShardTab& sh,
+                                                     int nblocks, int block) {
+    if constexpr (Src::SHARDED) {
+        bool held;
+        return reinterpret_cast<const long long*>(shard_row(
+            ShardTab{(const unsigned long long*)cp64, sh.per, sh.S}, block,
+            8, held));
+    } else {
+        return (const long long*)cp64 + (size_t)min(block, nblocks - 1) * 4;
+    }
+}
+
+// The checkpoint cp[c] of a block from its occ_cp64 row (the int64
+// mode), and the checkpoint of a block the source does not hold: INT64_MIN
+// flat (jnp.take's fill of an int64 table), 0 sharded.
+template <typename Src>
+__device__ __forceinline__ long long load_cp(const void* cp64,
+                                             const ShardTab& sh, int nblocks,
+                                             int block, int c) {
+    return __ldg(cp64_row<Src>(cp64, sh, nblocks, block) + c);
+}
+
+template <typename Src>
+__device__ __forceinline__ long long cp_fill() {
+    return Src::SHARDED ? 0LL : (-0x7FFFFFFFFFFFFFFFLL - 1);
+}
 
 // number of crumbs equal to c (0..3) among the first pos (0..128) of the row
 __device__ __forceinline__ int fm_count_below(const FmRow& r, int c, int pos) {
@@ -200,5 +256,89 @@ __device__ __forceinline__ void fm_lf_range(const uint32_t* __restrict__ fm,
                  - (R)((c == 0 && top > z_off) ? 1 : 0);
     bot = fchr_c + cpb + (R)fm_count_lean(s, c, pb)
           - (R)((c == 0 && bot > z_off) ? 1 : 0);
+    top = nt;
+}
+
+// The int64 mode's twins of the two LF steps above (R = long long): the
+// same loads of the fused row's words, each checkpoint from the block's
+// occ_cp64 row instead of columns 8:12, a block past the flat table
+// filled with words 0xFFFFFFFF and checkpoint INT64_MIN (0 sharded), and
+// the sums wrapped in int64 (lf_add).
+template <bool LEAN, typename Src>
+__device__ __forceinline__ void fm_lf2_pair_i64(
+        const uint32_t* __restrict__ fm, int nblocks, const ShardTab& sh,
+        const void* cp64, long long fchr_c, long long z_off, long long top,
+        long long bot, int c, int j, long long& ntop, long long& nbot) {
+    using R = long long;
+    const R i = j == 0 ? top : bot;
+    const int block = (int)(i >> 7);
+    // load a real row always and fill after it: no branch around the load
+    bool held = true;
+    const uint32_t* row;
+    if constexpr (Src::SHARDED)
+        row = shard_row(sh, block, 12, held);
+    else
+        row = fm + (size_t)min(block, nblocks - 1) * 12;
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(row));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(row) + 1);
+    FmRow r;
+    r.w[0] = a.x; r.w[1] = a.y; r.w[2] = a.z; r.w[3] = a.w;
+    r.w[4] = b.x; r.w[5] = b.y; r.w[6] = b.z; r.w[7] = b.w;
+    R base = load_cp<Src>(cp64, sh, nblocks, block, c);
+    if (Src::SHARDED ? !held : block >= nblocks) {
+        #pragma unroll
+        for (int k = 0; k < 8; ++k) r.w[k] = Src::FILL;
+        base = cp_fill<Src>();
+    }
+    const int pos = (int)(i & 127);
+    const R cnt = lf_add((R)(LEAN ? fm_count_lean(r, c, pos)
+                                  : fm_count_below(r, c, pos)), base,
+                         fchr_c, (R)((c == 0 && i > z_off) ? 1 : 0));
+    const R other = __shfl_xor_sync(0xFFFFFFFFu, cnt, 1);
+    ntop = j == 0 ? cnt : other;
+    nbot = j == 0 ? other : cnt;
+}
+
+template <typename Src>
+__device__ __forceinline__ void fm_lf_range_i64(
+        const uint32_t* __restrict__ fm, int nblocks, const ShardTab& sh,
+        const void* cp64, long long fchr_c, long long z_off, int c,
+        long long& top, long long& bot) {
+    using R = long long;
+    const int bt = (int)(top >> 7), bb = (int)(bot >> 7);
+    const int pt = (int)(top & 127), pb = (int)(bot & 127);
+    const bool same = bt == bb;
+    bool ht = true, hb = true;
+    const uint4 *rt, *rb;
+    if constexpr (Src::SHARDED) {
+        rt = reinterpret_cast<const uint4*>(shard_row(sh, bt, 12, ht));
+        rb = reinterpret_cast<const uint4*>(shard_row(sh, bb, 12, hb));
+    } else {
+        rt = reinterpret_cast<const uint4*>(
+            fm + (size_t)min(bt, nblocks - 1) * 12);
+        rb = reinterpret_cast<const uint4*>(
+            fm + (size_t)min(bb, nblocks - 1) * 12);
+    }
+    uint4 a0 = __ldg(rt), a1 = make_uint4(0, 0, 0, 0);
+    if (max(pt, same ? pb : 0) > 64) a1 = __ldg(rt + 1);
+    R cpt = load_cp<Src>(cp64, sh, nblocks, bt, c);
+    uint4 b0 = a0, b1 = a1;
+    R cpb = cpt;
+    if (!same) {
+        b0 = __ldg(rb);
+        if (pb > 64) b1 = __ldg(rb + 1);
+        cpb = load_cp<Src>(cp64, sh, nblocks, bb, c);
+    }
+    if (Src::SHARDED ? !ht : bt >= nblocks) cpt = cp_fill<Src>();
+    if (Src::SHARDED ? !hb : bb >= nblocks) cpb = cp_fill<Src>();
+    FmRow r, s;
+    r.w[0] = a0.x; r.w[1] = a0.y; r.w[2] = a0.z; r.w[3] = a0.w;
+    r.w[4] = a1.x; r.w[5] = a1.y; r.w[6] = a1.z; r.w[7] = a1.w;
+    s.w[0] = b0.x; s.w[1] = b0.y; s.w[2] = b0.z; s.w[3] = b0.w;
+    s.w[4] = b1.x; s.w[5] = b1.y; s.w[6] = b1.z; s.w[7] = b1.w;
+    const R nt = lf_add(fchr_c, cpt, (R)fm_count_lean(r, c, pt),
+                        (R)((c == 0 && top > z_off) ? 1 : 0));
+    bot = lf_add(fchr_c, cpb, (R)fm_count_lean(s, c, pb),
+                 (R)((c == 0 && bot > z_off) ? 1 : 0));
     top = nt;
 }

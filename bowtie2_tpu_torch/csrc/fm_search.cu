@@ -50,12 +50,14 @@
 // path's 1,024 blocks in one wave.
 //
 // Each kernel is a template on the row type R (fm_common.cuh): int for the
-// small mode (fm_sweep, fm_substring, fm_seed) and uint32_t for the large
+// small mode (fm_sweep, fm_substring, fm_seed), uint32_t for the large
 // mode's uint32 row space (the `_u32` entries), which writes its rows as
-// int64; and on the row source: one flat fm_blocks table, or the sharded
+// int64, and long long for the int64 mode past 2^32 rows (the `_i64`
+// entries), whose LF steps read each checkpoint from occ_cp64 beside the
+// fused row; and on the row source: one flat fm_blocks table, or the sharded
 // index mode's shards (the `_sh` entries, each LF step finding its row's
 // owner shard by a divide and its address in the shards' address array).
-// Launch shapes, staging and shared memory are the same in all four.
+// Launch shapes, staging and shared memory are the same in all six.
 #include "fm_common.cuh"
 
 namespace {
@@ -73,7 +75,7 @@ sweep_kernel(const uint32_t* __restrict__ fm, int nblocks,
              const R* __restrict__ fchr, R z_off, R nrows,
              const int* __restrict__ rr, int B, int L,
              typename RowOut<R>::T* top_out, typename RowOut<R>::T* bot_out,
-             int* nedit_out) {
+             int* nedit_out, const void* __restrict__ cp64) {
     __shared__ uint32_t pat[SWEEP_STATES * SWEEP_STRIDE];
     const int t = threadIdx.x;
     const int g = t >> 1, j = t & 1;
@@ -109,8 +111,14 @@ sweep_kernel(const uint32_t* __restrict__ fm, int nblocks,
                     const R fc = cc == 0 ? f0 : (cc == 1 ? f1
                                                : (cc == 2 ? f2 : f3));
                     R nt, nb;
-                    fm_lf2_pair<false, R, Src>(fm, nblocks, sh, fc, z_off,
-                                               top, bot, cc, j, nt, nb);
+                    if constexpr (Cp64<R>::ON)
+                        fm_lf2_pair_i64<false, Src>(fm, nblocks, sh, cp64,
+                                                    fc, z_off, top, bot, cc,
+                                                    j, nt, nb);
+                    else
+                        fm_lf2_pair<false, R, Src>(fm, nblocks, sh, fc,
+                                                   z_off, top, bot, cc, j,
+                                                   nt, nb);
                     if (c < 4) {
                         const bool empty = nt >= nb;
                         top = empty ? 0 : nt;
@@ -197,7 +205,8 @@ substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
                  const R* __restrict__ fchr, R z_off, R nrows,
                  const int* __restrict__ rr, int B, int L,
                  typename RowOut<R>::T* top_out,
-                 typename RowOut<R>::T* bot_out) {
+                 typename RowOut<R>::T* bot_out,
+                 const void* __restrict__ cp64) {
     // + 2 words: codes4 reads a word past a pattern's last code
     __shared__ uint32_t pat[SWEEP_STATES * SWEEP_CHUNK / 4 + 2];
     const int t = threadIdx.x;
@@ -227,10 +236,16 @@ substring_kernel(const uint32_t* __restrict__ fm, int nblocks,
                     // a state that does not step loads row 0 (a dead
                     // range's bot may be -1)
                     R nt, nb;
-                    fm_lf2_pair<true, R, Src>(fm, nblocks, sh, fc, z_off,
-                                              step ? top : (R)0,
-                                              step ? bot : (R)0, cc, j, nt,
-                                              nb);
+                    if constexpr (Cp64<R>::ON)
+                        fm_lf2_pair_i64<true, Src>(fm, nblocks, sh, cp64, fc,
+                                                   z_off, step ? top : (R)0,
+                                                   step ? bot : (R)0, cc, j,
+                                                   nt, nb);
+                    else
+                        fm_lf2_pair<true, R, Src>(fm, nblocks, sh, fc, z_off,
+                                                  step ? top : (R)0,
+                                                  step ? bot : (R)0, cc, j,
+                                                  nt, nb);
                     if (step) {
                         top = nt;
                         bot = nb;
@@ -262,7 +277,8 @@ seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
             const R* __restrict__ fchr, R z_off, R nrows,
             const R* __restrict__ ftab, const int* __restrict__ seeds,
             const unsigned char* __restrict__ valid, int B, int L, int K,
-            typename RowOut<R>::T* top_out, typename RowOut<R>::T* bot_out) {
+            typename RowOut<R>::T* top_out, typename RowOut<R>::T* bot_out,
+            const void* __restrict__ cp64) {
     // + 2 words: codes4 reads a word past a seed's last code
     __shared__ uint32_t pat[SEED_THREADS * SEED_CHUNK / 4 + 2];
     const int t = threadIdx.x;
@@ -319,7 +335,12 @@ seed_kernel(const uint32_t* __restrict__ fm, int nblocks,
             } else {
                 const int c = (int)(w >> (2 * q)) & 3;
                 const R fc = c == 0 ? f0 : (c == 1 ? f1 : (c == 2 ? f2 : f3));
-                fm_lf_range<R, Src>(fm, nblocks, sh, fc, z_off, c, top, bot);
+                if constexpr (Cp64<R>::ON)
+                    fm_lf_range_i64<Src>(fm, nblocks, sh, cp64, fc, z_off, c,
+                                         top, bot);
+                else
+                    fm_lf_range<R, Src>(fm, nblocks, sh, fc, z_off, c, top,
+                                        bot);
             }
         }
     }
@@ -337,38 +358,38 @@ ShardTab tab(const void* shards, int per, int S) {
 }
 
 template <typename R, typename Src>
-int launch_sweep(const void* fm, int nblocks, int S, const void* fchr,
-                 R z_off, R nrows, const void* rr, int B, int L, void* top,
-                 void* bot, void* nedit, void* stream) {
+int launch_sweep(const void* fm, int nblocks, int S, const void* cp64,
+                 const void* fchr, R z_off, R nrows, const void* rr, int B,
+                 int L, void* top, void* bot, void* nedit, void* stream) {
     using O = typename RowOut<R>::T;
     if (B > 0)
         sweep_kernel<R, Src><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
                                SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)fm, nblocks, tab(fm, nblocks, S),
             (const R*)fchr, z_off, nrows, (const int*)rr, B, L, (O*)top,
-            (O*)bot, (int*)nedit);
+            (O*)bot, (int*)nedit, cp64);
     return (int)cudaGetLastError();
 }
 
 template <typename R, typename Src>
-int launch_substring(const void* fm, int nblocks, int S, const void* fchr,
-                     R z_off, R nrows, const void* rr, int B, int L,
-                     void* top, void* bot, void* stream) {
+int launch_substring(const void* fm, int nblocks, int S, const void* cp64,
+                     const void* fchr, R z_off, R nrows, const void* rr,
+                     int B, int L, void* top, void* bot, void* stream) {
     using O = typename RowOut<R>::T;
     if (B > 0)
         substring_kernel<R, Src><<<(B + SWEEP_STATES - 1) / SWEEP_STATES,
                                    SWEEP_THREADS, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)fm, nblocks, tab(fm, nblocks, S),
             (const R*)fchr, z_off, nrows, (const int*)rr, B, L, (O*)top,
-            (O*)bot);
+            (O*)bot, cp64);
     return (int)cudaGetLastError();
 }
 
 template <typename R, typename Src>
-int launch_seed(const void* fm, int nblocks, int S, const void* fchr,
-                R z_off, R nrows, const void* ftab, const void* seeds,
-                const void* valid, int B, int L, int K, void* top, void* bot,
-                void* stream) {
+int launch_seed(const void* fm, int nblocks, int S, const void* cp64,
+                const void* fchr, R z_off, R nrows, const void* ftab,
+                const void* seeds, const void* valid, int B, int L, int K,
+                void* top, void* bot, void* stream) {
     using O = typename RowOut<R>::T;
     // a ftab key of more than 32 codes would not lie in the first chunk
     // (and no ftab has one: keys are 4^K entries with K <= 15)
@@ -378,7 +399,7 @@ int launch_seed(const void* fm, int nblocks, int S, const void* fchr,
                               SEED_THREADS, 0, (cudaStream_t)stream>>>(
             (const uint32_t*)fm, nblocks, tab(fm, nblocks, S),
             (const R*)fchr, z_off, nrows, (const R*)ftab, (const int*)seeds,
-            (const unsigned char*)valid, B, L, K, (O*)top, (O*)bot);
+            (const unsigned char*)valid, B, L, K, (O*)top, (O*)bot, cp64);
     return (int)cudaGetLastError();
 }
 
@@ -386,29 +407,33 @@ int launch_seed(const void* fm, int nblocks, int S, const void* fchr,
 
 // The C entries: fm_<search> over one flat table (fm, nblocks), and
 // fm_<search>_sh over a sharded one (shards: S device addresses of `per`
-// fm_blocks rows each); each with a `_u32` twin in the large row mode.
+// fm_blocks rows each); each with a `_u32` twin in the large row mode and
+// an `_i64` twin in the int64 row mode, which takes occ_cp64 (the table,
+// or its S shards' addresses, `per` rows each) after the FM table.
 extern "C" int fm_sweep(const void* fm, int nblocks, const void* fchr,
                         int z_off, int nrows, const void* rr, int B, int L,
                         void* top, void* bot, void* nedit, void* stream) {
-    return launch_sweep<int, FlatRows>(fm, nblocks, 1, fchr, z_off, nrows,
-                                       rr, B, L, top, bot, nedit, stream);
+    return launch_sweep<int, FlatRows>(fm, nblocks, 1, nullptr, fchr, z_off,
+                                       nrows, rr, B, L, top, bot, nedit,
+                                       stream);
 }
 
 extern "C" int fm_sweep_u32(const void* fm, int nblocks, const void* fchr,
                             unsigned z_off, unsigned nrows, const void* rr,
                             int B, int L, void* top, void* bot, void* nedit,
                             void* stream) {
-    return launch_sweep<uint32_t, FlatRows>(fm, nblocks, 1, fchr, z_off,
-                                            nrows, rr, B, L, top, bot, nedit,
-                                            stream);
+    return launch_sweep<uint32_t, FlatRows>(fm, nblocks, 1, nullptr, fchr,
+                                            z_off, nrows, rr, B, L, top, bot,
+                                            nedit, stream);
 }
 
 extern "C" int fm_sweep_sh(const void* shards, int per, int S,
                            const void* fchr, int z_off, int nrows,
                            const void* rr, int B, int L, void* top, void* bot,
                            void* nedit, void* stream) {
-    return launch_sweep<int, ShardRows>(shards, per, S, fchr, z_off, nrows,
-                                        rr, B, L, top, bot, nedit, stream);
+    return launch_sweep<int, ShardRows>(shards, per, S, nullptr, fchr, z_off,
+                                        nrows, rr, B, L, top, bot, nedit,
+                                        stream);
 }
 
 extern "C" int fm_sweep_sh_u32(const void* shards, int per, int S,
@@ -416,33 +441,34 @@ extern "C" int fm_sweep_sh_u32(const void* shards, int per, int S,
                                unsigned nrows, const void* rr, int B, int L,
                                void* top, void* bot, void* nedit,
                                void* stream) {
-    return launch_sweep<uint32_t, ShardRows>(shards, per, S, fchr, z_off,
-                                             nrows, rr, B, L, top, bot, nedit,
-                                             stream);
+    return launch_sweep<uint32_t, ShardRows>(shards, per, S, nullptr, fchr,
+                                             z_off, nrows, rr, B, L, top, bot,
+                                             nedit, stream);
 }
 
 extern "C" int fm_substring(const void* fm, int nblocks, const void* fchr,
                             int z_off, int nrows, const void* rr, int B, int L,
                             void* top, void* bot, void* stream) {
-    return launch_substring<int, FlatRows>(fm, nblocks, 1, fchr, z_off,
-                                           nrows, rr, B, L, top, bot, stream);
+    return launch_substring<int, FlatRows>(fm, nblocks, 1, nullptr, fchr,
+                                           z_off, nrows, rr, B, L, top, bot,
+                                           stream);
 }
 
 extern "C" int fm_substring_u32(const void* fm, int nblocks, const void* fchr,
                                 unsigned z_off, unsigned nrows,
                                 const void* rr, int B, int L, void* top,
                                 void* bot, void* stream) {
-    return launch_substring<uint32_t, FlatRows>(fm, nblocks, 1, fchr, z_off,
-                                                nrows, rr, B, L, top, bot,
-                                                stream);
+    return launch_substring<uint32_t, FlatRows>(fm, nblocks, 1, nullptr, fchr,
+                                                z_off, nrows, rr, B, L, top,
+                                                bot, stream);
 }
 
 extern "C" int fm_substring_sh(const void* shards, int per, int S,
                                const void* fchr, int z_off, int nrows,
                                const void* rr, int B, int L, void* top,
                                void* bot, void* stream) {
-    return launch_substring<int, ShardRows>(shards, per, S, fchr, z_off,
-                                            nrows, rr, B, L, top, bot,
+    return launch_substring<int, ShardRows>(shards, per, S, nullptr, fchr,
+                                            z_off, nrows, rr, B, L, top, bot,
                                             stream);
 }
 
@@ -451,27 +477,27 @@ extern "C" int fm_substring_sh_u32(const void* shards, int per, int S,
                                    unsigned nrows, const void* rr, int B,
                                    int L, void* top, void* bot,
                                    void* stream) {
-    return launch_substring<uint32_t, ShardRows>(shards, per, S, fchr, z_off,
-                                                 nrows, rr, B, L, top, bot,
-                                                 stream);
+    return launch_substring<uint32_t, ShardRows>(shards, per, S, nullptr, fchr,
+                                                 z_off, nrows, rr, B, L, top,
+                                                 bot, stream);
 }
 
 extern "C" int fm_seed(const void* fm, int nblocks, const void* fchr,
                        int z_off, int nrows, const void* ftab,
                        const void* seeds, const void* valid, int B, int L,
                        int K, void* top, void* bot, void* stream) {
-    return launch_seed<int, FlatRows>(fm, nblocks, 1, fchr, z_off, nrows,
-                                      ftab, seeds, valid, B, L, K, top, bot,
-                                      stream);
+    return launch_seed<int, FlatRows>(fm, nblocks, 1, nullptr, fchr, z_off,
+                                      nrows, ftab, seeds, valid, B, L, K, top,
+                                      bot, stream);
 }
 
 extern "C" int fm_seed_u32(const void* fm, int nblocks, const void* fchr,
                            unsigned z_off, unsigned nrows, const void* ftab,
                            const void* seeds, const void* valid, int B,
                            int L, int K, void* top, void* bot, void* stream) {
-    return launch_seed<uint32_t, FlatRows>(fm, nblocks, 1, fchr, z_off,
-                                           nrows, ftab, seeds, valid, B, L,
-                                           K, top, bot, stream);
+    return launch_seed<uint32_t, FlatRows>(fm, nblocks, 1, nullptr, fchr,
+                                           z_off, nrows, ftab, seeds, valid, B,
+                                           L, K, top, bot, stream);
 }
 
 extern "C" int fm_seed_sh(const void* shards, int per, int S,
@@ -479,9 +505,9 @@ extern "C" int fm_seed_sh(const void* shards, int per, int S,
                           const void* ftab, const void* seeds,
                           const void* valid, int B, int L, int K, void* top,
                           void* bot, void* stream) {
-    return launch_seed<int, ShardRows>(shards, per, S, fchr, z_off, nrows,
-                                       ftab, seeds, valid, B, L, K, top, bot,
-                                       stream);
+    return launch_seed<int, ShardRows>(shards, per, S, nullptr, fchr, z_off,
+                                       nrows, ftab, seeds, valid, B, L, K, top,
+                                       bot, stream);
 }
 
 extern "C" int fm_seed_sh_u32(const void* shards, int per, int S,
@@ -490,7 +516,66 @@ extern "C" int fm_seed_sh_u32(const void* shards, int per, int S,
                               const void* seeds, const void* valid, int B,
                               int L, int K, void* top, void* bot,
                               void* stream) {
-    return launch_seed<uint32_t, ShardRows>(shards, per, S, fchr, z_off,
-                                            nrows, ftab, seeds, valid, B, L,
-                                            K, top, bot, stream);
+    return launch_seed<uint32_t, ShardRows>(shards, per, S, nullptr, fchr,
+                                            z_off, nrows, ftab, seeds, valid,
+                                            B, L, K, top, bot, stream);
+}
+
+extern "C" int fm_sweep_i64(const void* fm, int nblocks, const void* cp64,
+                            const void* fchr, long long z_off,
+                            long long nrows, const void* rr, int B, int L,
+                            void* top, void* bot, void* nedit, void* stream) {
+    return launch_sweep<long long, FlatRows>(fm, nblocks, 1, cp64, fchr, z_off,
+                                             nrows, rr, B, L, top, bot, nedit,
+                                             stream);
+}
+
+extern "C" int fm_sweep_sh_i64(const void* shards, int per, int S,
+                               const void* cp64, const void* fchr,
+                               long long z_off, long long nrows,
+                               const void* rr, int B, int L, void* top,
+                               void* bot, void* nedit, void* stream) {
+    return launch_sweep<long long, ShardRows>(shards, per, S, cp64, fchr,
+                                              z_off, nrows, rr, B, L, top, bot,
+                                              nedit, stream);
+}
+
+extern "C" int fm_substring_i64(const void* fm, int nblocks, const void* cp64,
+                                const void* fchr, long long z_off,
+                                long long nrows, const void* rr, int B, int L,
+                                void* top, void* bot, void* stream) {
+    return launch_substring<long long, FlatRows>(fm, nblocks, 1, cp64, fchr,
+                                                 z_off, nrows, rr, B, L, top,
+                                                 bot, stream);
+}
+
+extern "C" int fm_substring_sh_i64(const void* shards, int per, int S,
+                                   const void* cp64, const void* fchr,
+                                   long long z_off, long long nrows,
+                                   const void* rr, int B, int L, void* top,
+                                   void* bot, void* stream) {
+    return launch_substring<long long, ShardRows>(shards, per, S, cp64, fchr,
+                                                  z_off, nrows, rr, B, L, top,
+                                                  bot, stream);
+}
+
+extern "C" int fm_seed_i64(const void* fm, int nblocks, const void* cp64,
+                           const void* fchr, long long z_off, long long nrows,
+                           const void* ftab, const void* seeds,
+                           const void* valid, int B, int L, int K, void* top,
+                           void* bot, void* stream) {
+    return launch_seed<long long, FlatRows>(fm, nblocks, 1, cp64, fchr, z_off,
+                                            nrows, ftab, seeds, valid, B, L, K,
+                                            top, bot, stream);
+}
+
+extern "C" int fm_seed_sh_i64(const void* shards, int per, int S,
+                              const void* cp64, const void* fchr,
+                              long long z_off, long long nrows,
+                              const void* ftab, const void* seeds,
+                              const void* valid, int B, int L, int K,
+                              void* top, void* bot, void* stream) {
+    return launch_seed<long long, ShardRows>(shards, per, S, cp64, fchr, z_off,
+                                             nrows, ftab, seeds, valid, B, L,
+                                             K, top, bot, stream);
 }

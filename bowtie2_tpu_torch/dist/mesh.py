@@ -65,7 +65,8 @@ def _half_to(h: Optional[FMHalf], device) -> Optional[FMHalf]:
     if h is None:
         return None
     return h._replace(**{f: getattr(h, f).to(device) for f in (
-        "fm_blocks", "fchr", "ftab", "mark_rows", "offs")})
+        "fm_blocks", "fchr", "ftab", "mark_rows", "offs")
+        + (("occ_cp64",) if h.i64 else ())})
 
 
 def index_to(idx: FMIndex, device) -> FMIndex:

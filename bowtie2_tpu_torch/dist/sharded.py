@@ -71,17 +71,19 @@ def _enable_peers(home: torch.device, mesh: Mesh) -> None:
                                f"error {err}")
 
 
-def shard_index(data: IndexData, mesh: Mesh,
-                device=None) -> ShardedIndex:
+def shard_index(data: IndexData, mesh: Mesh, device=None,
+                int64_rows=None) -> ShardedIndex:
     """Split the host index over the mesh's devices; `device` is the home
     device that runs the pipeline (default: the mesh's first). The row
-    mode (small or large) is FMIndex.from_host's."""
+    mode (small, large or int64) is FMIndex.from_host's, which takes
+    `int64_rows`; in the int64 mode occ_cp64 is split as fm_blocks is
+    (bowtie2_tpu/dist/sharded.py:118-119)."""
     if mesh.axis != SHARD_AXIS:
         raise ValueError(f"shard_index needs a {SHARD_AXIS!r} mesh, not "
                          f"{mesh.axis!r}")
     home = device_key(device if device is not None else mesh.devices[0])
     _enable_peers(home, mesh)
-    rep = FMIndex.from_host(data, device="cpu")
+    rep = FMIndex.from_host(data, device="cpu", int64_rows=int64_rows)
     h = rep.fw
 
     def split(t):
@@ -91,7 +93,8 @@ def shard_index(data: IndexData, mesh: Mesh,
         n=h.n, z_off=h.z_off, fm_blocks=split(h.fm_blocks),
         fchr=h.fchr.to(home), ftab=h.ftab.to(home),
         mark_rows=split(h.mark_rows), offs=split(h.offs),
-        row_dtype=h.row_dtype)
+        row_dtype=h.row_dtype,
+        occ_cp64=split(h.occ_cp64) if h.i64 else None)
     return ShardedIndex(
         fw=fw, ref_words=ShardedWords(split(rep.ref_words)),
         refn_words=ShardedWords(split(rep.refn_words)),
@@ -111,7 +114,8 @@ def index_home(sidx: ShardedIndex, device) -> ShardedIndex:
     fw = sidx.fw._replace(
         fm_blocks=rows(sidx.fw.fm_blocks), mark_rows=rows(sidx.fw.mark_rows),
         offs=rows(sidx.fw.offs), fchr=sidx.fw.fchr.to(home),
-        ftab=sidx.fw.ftab.to(home))
+        ftab=sidx.fw.ftab.to(home),
+        occ_cp64=rows(sidx.fw.occ_cp64) if sidx.fw.i64 else None)
     return sidx._replace(
         fw=fw, ref_words=ShardedWords(rows(sidx.ref_words.words)),
         refn_words=ShardedWords(rows(sidx.refn_words.words)),
@@ -119,6 +123,8 @@ def index_home(sidx: ShardedIndex, device) -> ShardedIndex:
 
 
 def _checked(mesh: Mesh, large: bool, sidx: ShardedIndex) -> None:
+    """The index is sharded over `mesh`, and `large` (int64 rows and
+    positions at the API: the large or the int64 row mode) is its mode."""
     if sidx.mesh != mesh:
         raise ValueError("the index is sharded over another mesh")
     if sidx.fw.large != large:

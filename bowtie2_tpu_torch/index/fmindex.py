@@ -19,9 +19,17 @@ Two row modes, as in the JAX package (bowtie2_tpu/index/fmindex.py):
   tables keep the low 32 bits of each value (int32 tensors with uint32
   bits), `ref_cum` is int64, and at the tensor API rows are int64 tensors
   holding the uint32 values (`FMHalf.row_dtype`); the kernels compute in
-  uint32 and wrap where the JAX package's uint32 ops wrap.
-The int64 row mode past 2^32 rows (the JAX package's `occ_cp64`) is not
-ported: it raises.
+  uint32 and wrap where the JAX package's uint32 ops wrap;
+- int64: a joined text of 2^32 - 1 bp or more (n + 1 >= 2^32 rows). The
+  checkpoints no longer fit fm_blocks' 32-bit columns 8:12 (which keep
+  their low 32 bits), so each half carries a second table, `occ_cp64`
+  (int64[nblocks, 4], the full checkpoints), read beside the fused row on
+  every LF step, and fchr, ftab and offs are int64 tensors holding their
+  true values; rows and positions are int64 at the API and in the
+  kernels (the `_i64` C entries). `half_from_tables` takes the mode from
+  its `occ_cp64` argument, so a genome of any size can be put in it.
+`FMHalf.large` is true in both wide modes (rows and positions are int64
+tensors), `FMHalf.i64` only in the int64 one.
 """
 
 from typing import NamedTuple, Optional
@@ -31,8 +39,9 @@ import torch
 
 from bowtie2_tpu_torch.index.build import HalfIndex, IndexData
 
-INT64_ROWS_ITEM = ("ROADMAP.md slice queue item 5, 'the int64 row mode "
-                   "past 2^32 rows'")
+# the joined-text row count from which FMIndex.from_host takes the int64
+# row mode (bowtie2_tpu/index/fmindex.py:100)
+INT64_ROWS = 1 << 32
 
 
 class FMHalf(NamedTuple):
@@ -46,9 +55,11 @@ class FMHalf(NamedTuple):
     ftab: torch.Tensor          # int32[2*4^K + 1]
     mark_rows: torch.Tensor     # int32[nblocks, 5]: cols 0:4 mark bits,
                                 # col 4 mark-rank checkpoint
-    offs: torch.Tensor          # int32[n_marked]
+    offs: torch.Tensor          # int32[n_marked]; int64 in the int64 mode
     row_dtype: torch.dtype = torch.int32   # rows at the tensor API: int32,
-                                # or int64 holding uint32 values (large)
+                                # or int64 (large and int64 modes)
+    occ_cp64: Optional[torch.Tensor] = None  # int64[nblocks, 4], the full
+                                # checkpoints, only in the int64 mode
 
     @property
     def nrows(self) -> int:
@@ -56,9 +67,14 @@ class FMHalf(NamedTuple):
 
     @property
     def large(self) -> bool:
-        """The uint32 row space: rows are int64 tensors at the API, the
-        kernels' `_u32` entries compute in uint32."""
+        """Rows and positions are int64 tensors at the API: the uint32 row
+        space (the `_u32` entries) or the int64 one (the `_i64` entries)."""
         return self.row_dtype == torch.int64
+
+    @property
+    def i64(self) -> bool:
+        """The int64 row space past 2^32 rows (`occ_cp64` present)."""
+        return self.occ_cp64 is not None
 
 
 class ShardedFMHalf(NamedTuple):
@@ -73,8 +89,11 @@ class ShardedFMHalf(NamedTuple):
     ftab: torch.Tensor          # int32[2*4^K + 1], home device
     mark_rows: object           # ShardedRows of int32[per, 5], sharded as
                                 # fm_blocks is
-    offs: object                # ShardedRows of int32[per_off]
+    offs: object                # ShardedRows of int32[per_off] (int64
+                                # in the int64 mode)
     row_dtype: torch.dtype = torch.int32
+    occ_cp64: object = None     # ShardedRows of int64[per, 4], sharded as
+                                # fm_blocks is, only in the int64 mode
 
     @property
     def nrows(self) -> int:
@@ -83,6 +102,10 @@ class ShardedFMHalf(NamedTuple):
     @property
     def large(self) -> bool:
         return self.row_dtype == torch.int64
+
+    @property
+    def i64(self) -> bool:
+        return self.occ_cp64 is not None
 
 
 def _low32(a: np.ndarray) -> np.ndarray:
@@ -93,14 +116,19 @@ def _low32(a: np.ndarray) -> np.ndarray:
     return a.astype(np.uint32, copy=False)
 
 
-def pack_fm_blocks(bwt_words: np.ndarray, occ_cp: np.ndarray) -> np.ndarray:
-    """[bwt8|occ4] fusion of one direction's BWT → uint32[nblocks, 12]; the
-    checkpoints keep their low 32 bits, the exact value below 2^32 rows."""
+def pack_fm_blocks(bwt_words: np.ndarray, occ_cp: np.ndarray, nrdt=None):
+    """[bwt8|occ4] fusion of one direction's BWT → (uint32[nblocks, 12],
+    occ_cp64): the checkpoints keep their low 32 bits in columns 8:12, the
+    exact value below 2^32 rows; with an int64 row type `nrdt` the full
+    checkpoints come back as occ_cp64 (int64[nblocks, 4]), else None
+    (bowtie2_tpu/index/fmindex.py pack_fm_blocks)."""
     nblocks = occ_cp.shape[0]
     fm = np.empty((nblocks, 12), dtype=np.uint32)
     fm[:, :8] = bwt_words.reshape(nblocks, 8).view(np.uint32)
     fm[:, 8:] = _low32(occ_cp)
-    return fm
+    occ_cp64 = occ_cp.astype(np.int64, copy=False) \
+        if nrdt is not None and np.dtype(nrdt) == np.int64 else None
+    return fm, occ_cp64
 
 
 def pack_mark_rows(mark_words: np.ndarray, mark_cp: np.ndarray) -> np.ndarray:
@@ -140,20 +168,17 @@ class FMIndex(NamedTuple):
     n_ref_total: int
 
     @staticmethod
-    def from_host(data: IndexData, device=None) -> "FMIndex":
+    def from_host(data: IndexData, device=None,
+                  int64_rows: Optional[bool] = None) -> "FMIndex":
+        """The index on `device`, in the row mode its size needs: int64
+        rows from 2^32 rows (INT64_ROWS), else large or small (is_large).
+        `int64_rows=True` puts any index in the int64 mode, as a genome of
+        4.29 Gbp would be (the tests and chip_smoke.py hold it to the
+        other modes that way)."""
         device = resolve_device(device)
-        if data.fw.n + 1 >= (1 << 32):
-            raise NotImplementedError(
-                f"a joined text of {data.fw.n} bp has 2^32 rows or more and "
-                f"needs the int64 row mode, not yet ported: see "
-                f"{INT64_ROWS_ITEM}")
-        if int(data.ref_cum[-1]) >= (1 << 32) - 4096:
-            # the paired-end export wraps global positions to 32 bits and
-            # decodes them unambiguously only below 2^32 - 4096
-            raise NotImplementedError(
-                f"global coordinates of {int(data.ref_cum[-1])} bp pass "
-                f"2^32 - 4096 and need the int64 mode: see {INT64_ROWS_ITEM}")
-        large = is_large(data)
+        if int64_rows is None:
+            int64_rows = data.fw.n + 1 >= INT64_ROWS
+        large = int64_rows or is_large(data)
 
         def half(h: HalfIndex):
             if h is None:
@@ -164,10 +189,12 @@ class FMIndex(NamedTuple):
             markcp = h.mark_cp if h.mark_cp is not None else \
                 np.zeros(nblocks, dtype=np.int32)
             offs = h.offs if h.offs is not None else np.zeros(1, np.int32)
+            fm, occ_cp64 = pack_fm_blocks(
+                h.bwt_words, h.occ_cp, np.int64 if int64_rows else None)
             return half_from_tables(
-                h.n, h.z_off, pack_fm_blocks(h.bwt_words, h.occ_cp), h.fchr,
-                h.ftab, pack_mark_rows(mark.reshape(nblocks, -1), markcp),
-                offs, large, device)
+                h.n, h.z_off, fm, h.fchr, h.ftab,
+                pack_mark_rows(mark.reshape(nblocks, -1), markcp), offs,
+                large, device, occ_cp64=occ_cp64)
 
         return FMIndex(
             fw=half(data.fw), bw=half(data.bw),
@@ -180,15 +207,35 @@ class FMIndex(NamedTuple):
 
 def half_from_tables(n: int, z_off: int, fm_blocks: np.ndarray, fchr,
                      ftab, mark_rows: np.ndarray, offs, large: bool,
-                     device) -> FMHalf:
+                     device, occ_cp64: Optional[np.ndarray] = None
+                     ) -> FMHalf:
     """An FMHalf on `device` from packed host tables (fm_blocks uint32[nb,
     12], mark_rows uint32[nb, 5]; fchr, ftab and offs of any integer
-    type), in the large row mode or the small one."""
+    type): with `occ_cp64` (int64[nb, 4], the full checkpoints) in the
+    int64 row mode, whose fchr, ftab and offs are int64 tensors of their
+    true values; else in the large row mode or the small one."""
+    if occ_cp64 is not None:
+        def i64(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.asarray(a).astype(np.int64, copy=False))).to(device)
+        return FMHalf(
+            n=int(n), z_off=int(z_off), fm_blocks=_as_i32(fm_blocks, device),
+            fchr=i64(fchr), ftab=i64(ftab),
+            mark_rows=_as_i32(mark_rows, device), offs=i64(offs),
+            row_dtype=torch.int64, occ_cp64=i64(occ_cp64))
     return FMHalf(
         n=int(n), z_off=int(z_off), fm_blocks=_as_i32(fm_blocks, device),
         fchr=_as_i32(fchr, device), ftab=_as_i32(ftab, device),
         mark_rows=_as_i32(mark_rows, device), offs=_as_i32(offs, device),
         row_dtype=torch.int64 if large else torch.int32)
+
+
+def row_mode(data: IndexData) -> str:
+    """The row mode FMIndex.from_host takes for `data`: "int64", "large"
+    (uint32 rows) or "small"."""
+    if data.fw.n + 1 >= INT64_ROWS:
+        return "int64"
+    return "large" if is_large(data) else "small"
 
 
 def is_large(data: IndexData) -> bool:

@@ -31,7 +31,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "kernels")
 SOURCES = ("fm_search", "sa_resolve", "sw_rect", "backtrace", "sw_diag",
-           "take_sharded", "ref_gather", "pe_pairing")
+           "take_sharded", "ref_gather", "pe_pairing", "diag_readout")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

@@ -1,9 +1,9 @@
 """Seeded synthetic inputs for the exactness sweep of the rectangle DP
 (`sw_rect`), the read sweep (`fm_sweep`), the half-read search
 (`fm_substring`, on the read sweep's patterns), the seed search
-(`fm_seed`), the direction walk (`backtrace`) and the SA-offset walk
-(`sa_resolve`): shapes, modes and codes that the main path's first call
-does not reach. numpy only.
+(`fm_seed`), the direction walk (`backtrace`), the SE gapless readout
+(`diag_readout`) and the SA-offset walk (`sa_resolve`): shapes, modes
+and codes that the main path's first call does not reach. numpy only.
 
 chip_smoke.py holds each kernel to its plain PyTorch version on every case
 on the card; tests/test_torch_sw.py and tests/test_torch_fm.py hold the
@@ -34,10 +34,15 @@ lane W - 1, a row past the read's end and a duplicated candidate; two
 cases of random direction words add walks that run out of steps and
 walks whose column goes below 0; a bulk case repeats one case's walks to
 9,000 at scale 8, past the walk count at which the kernel runs one
-thread a walk. Resolve cases hold rows at every walk
-length, marked rows, rows 0, n and z_off, the last block's rows, and one
-bulk case that at scale 8 holds more rows than an H100 runs threads at
-once, so the kernel's blocks (one thread a row) run in several waves.
+thread a walk. Readout cases (`readout_cases`) hold diagonals that
+start left of the window and run past its right end, Ns in reads and
+windows, code-5 columns, rows 0 and Lmax - 1, lengths below and past
+rows + 1, read lengths 1, 32, 33 and the main path's 128, and candidate
+counts that are not a multiple of the kernel's tile. Resolve cases hold
+rows at every walk length, marked rows, rows 0, n and z_off, the last
+block's rows, and one bulk case that at scale 8 holds more rows than an
+H100 runs threads at once, so the kernel's blocks (one thread a row) run
+in several waves.
 
 The large index mode's tables (`large_fm_case`) are made without a text:
 random 2-bit BWT words over `rows` rows with checkpoints consistent with
@@ -51,7 +56,12 @@ ranges start near fchr[3] and run to the last row) and random ones, and
 SA rows drawn mostly from the top of the row space.
 chip_smoke.py holds the `_u32` kernels to their plain versions on it on
 the card; tests/test_torch_zlarge.py runs the same builder at a small
-`rows` against the JAX package's uint32 ops.
+`rows` against the JAX package's uint32 ops. Its twin `i64_fm_case` makes
+the int64 row mode's tables (2^32 + 2^27 - 1 rows by default, with the
+full checkpoints in a second int64 table, occ_cp64) and states past
+2^32; chip_smoke.py holds the `_i64` kernels to their plain versions on
+it, tests/test_torch_zzint64.py the plain versions at a small `rows` to
+the JAX package's int64 ops.
 """
 
 from typing import Callable, List, NamedTuple, Optional
@@ -519,6 +529,77 @@ def bt_cases(dp: Callable[[DPCase], tuple], seed: int = 0,
 # SA-offset walk (sa_resolve)
 # ---------------------------------------------------------------------------
 
+class ReadoutCase(NamedTuple):
+    name: str
+    reads: np.ndarray                # (Bc, Lmax) int32 codes 0..4
+    quals: np.ndarray                # (Bc, Lmax) int32
+    wins: np.ndarray                 # (Bc, Wf) int32 codes 0..5
+    rows: np.ndarray                 # (Bc,) int32 in 0..Lmax - 1
+    lanes: np.ndarray                # (Bc,) int32 window columns
+    lens: np.ndarray                 # (Bc,) int32 in 0..Lmax
+    params: dict                     # SWParams keywords (either package's)
+
+
+READOUT_LMAXES = (1, 32, 33, 128)      # 128: the main path's bucket
+READOUT_BATCH = 45     # candidates a case, a unit of scale: not a multiple
+                       # of the kernel's 32-candidate tile
+READOUT_PARAMS = (("e2e", {}),
+                  ("bonus", dict(match_bonus=2, mm_pen_max=5, mm_pen_min=1,
+                                 n_pen=2)))
+
+
+def _readout_case(rng, name, Bc, Lmax, Wf, params):
+    rows = rng.integers(0, Lmax, Bc).astype(np.int32)
+    rows[:2] = (0, Lmax - 1)
+    # diagonals that start left of the window (base < 0), inside it, and
+    # that run past its right end
+    base = rng.integers(-4, max(Wf - Lmax, 0) + 5, Bc).astype(np.int32)
+    base[2:4] = (-Lmax - 2, Wf + 1)            # wholly outside
+    lanes = (base + rows).astype(np.int32)
+    # lengths from 0 to Lmax: below rows + 1 (rows past the read) and
+    # past it (positions no walk step reads)
+    lens = rng.integers(0, Lmax + 1, Bc).astype(np.int32)
+    lens[4:] = np.where(rng.random(Bc - 4) < 0.5, rows[4:] + 1, lens[4:])
+    wins = rng.integers(0, 4, (Bc, Wf)).astype(np.int32)
+    reads = rng.integers(0, 4, (Bc, Lmax)).astype(np.int32)
+    for b in range(Bc):
+        # the read copied off its diagonal, with a few substitutions
+        p = np.arange(Lmax)
+        idx = base[b] + p
+        inw = (idx >= 0) & (idx < Wf)
+        reads[b, inw] = wins[b, idx[inw]]
+        sub = rng.random(Lmax) < 0.05
+        reads[b, sub] = (reads[b, sub]
+                         + rng.integers(1, 4, int(sub.sum()))) % 4
+    # Ns in reads and windows, columns outside the reference (code 5): a
+    # run at either end of some windows and lone ones inside
+    reads[rng.random((Bc, Lmax)) < 0.03] = 4
+    wins[rng.random((Bc, Wf)) < 0.03] = 4
+    wins[rng.random((Bc, Wf)) < 0.01] = 5
+    for b in range(0, Bc, 3):
+        wins[b, :int(rng.integers(0, min(Wf, 6) + 1))] = 5
+        wins[b, Wf - int(rng.integers(0, min(Wf, 6) + 1)):] = 5
+    quals = rng.integers(0, 45, (Bc, Lmax)).astype(np.int32)
+    return ReadoutCase(name, reads, quals, wins, rows, lanes, lens,
+                       dict(params))
+
+
+def readout_cases(seed: int = 0, scale: int = 1) -> List[ReadoutCase]:
+    """The SE gapless readout (`diag_readout`): every read length of
+    READOUT_LMAXES, a window wider than the read (the fused path's shape)
+    and one narrower, each with the default scores and with a match bonus
+    and other penalties; `scale` multiplies the candidates of a case."""
+    rng = np.random.default_rng(seed + 4242)
+    out = []
+    for Lmax in READOUT_LMAXES:
+        for wkind, Wf in (("wide", Lmax + 61), ("narrow", Lmax // 2 + 3)):
+            for pkind, params in READOUT_PARAMS:
+                out.append(_readout_case(
+                    rng, f"L{Lmax}_{wkind}_{pkind}", READOUT_BATCH * scale,
+                    Lmax, Wf, params))
+    return out
+
+
 RESOLVE_PERIODS = (1, 16, 32)
 RESOLVE_KINDS = ("lengths", "ends", "bulk")
 
@@ -856,8 +937,10 @@ def bt_diag_cases(dp: Callable[[DPCase], tuple], seed: int = 0,
 # reads the row count's true checkpoint (about 17.8 M blocks: fm_blocks
 # 0.86 GB, mark_rows 0.36 GB, offs 0.27 GB)
 LARGE_ROWS = (1 << 31) + (1 << 27) - 1
+I64_ROWS = (1 << 32) + (1 << 27) - 1   # the int64 mode's table
 LARGE_FTAB = 5          # ftab key codes (4^5 keys) of the large table
 _M32 = np.uint64(0xFFFFFFFF)
+_I64_MIN = np.int64(-(1 << 63))
 
 
 class LargeFmCase(NamedTuple):
@@ -875,6 +958,9 @@ class LargeFmCase(NamedTuple):
     seed_valid: np.ndarray      # (8 batch,) bool
     seed_len: int
     resolve_rows: np.ndarray    # (8 batch,) int64 rows
+    occ_cp64: Optional[np.ndarray] = None  # int64[nblocks, 4]: the int64
+                                # mode's checkpoints (i64_fm_case), whose
+                                # fchr, ftab and offs are int64
 
 
 def _popcount32(x: np.ndarray) -> np.ndarray:
@@ -896,19 +982,26 @@ def _crumb_counts(words: np.ndarray) -> np.ndarray:
     return np.stack([16 - c1 - c2 - c3, c1, c2, c3], axis=1)
 
 
-def lf_np(fm_blocks, fchr, z_off, i, c):
+def lf_np(fm_blocks, fchr, z_off, i, c, occ_cp64=None):
     """LF(i, c) of a uint32-row table in int64 numpy, wrapping mod 2^32
     where the JAX package's uint32 op does (a row past the last block
-    reads as 0xFFFFFFFF). i: (m,) rows, c: (m,) codes 0..3."""
+    reads as 0xFFFFFFFF); with `occ_cp64`, of an int64-row table, whose
+    checkpoints come from it (INT64_MIN past the last block) and whose
+    adds wrap in int64. i: (m,) rows, c: (m,) codes 0..3."""
     i = np.asarray(i, np.int64)
     c = np.asarray(c, np.int64)
     nb = fm_blocks.shape[0]
     block = i >> 7
     past = block >= nb
-    row = fm_blocks[np.minimum(block, nb - 1)]
+    if occ_cp64 is not None:     # below row 0 after a fill: read as past
+        past |= block < 0
+    row = fm_blocks[np.clip(block, 0, nb - 1)]
     words = np.where(past[:, None], np.uint32(0xFFFFFFFF), row[:, :8])
-    cp = np.where(past, 0xFFFFFFFF,
-                  row[np.arange(i.size), 8 + c].astype(np.int64))
+    if occ_cp64 is not None:
+        cp = np.where(past, _I64_MIN, occ_cp64[np.clip(block, 0, nb - 1), c])
+    else:
+        cp = np.where(past, 0xFFFFFFFF,
+                      row[np.arange(i.size), 8 + c].astype(np.int64))
     pos = i & 127
     pat = (c * 0x55555555).astype(np.uint32)
     cnt = np.zeros(i.size, np.int64)
@@ -920,7 +1013,9 @@ def lf_np(fm_blocks, fchr, z_off, i, c):
                         (1 << (2 * n)) - 1).astype(np.uint32)
         cnt += _popcount32(eq & mask)
     corr = ((c == 0) & (i > z_off)).astype(np.int64)
-    return (fchr.astype(np.int64)[c] + cp + cnt - corr) & 0xFFFFFFFF
+    with np.errstate(over="ignore"):
+        out = fchr.astype(np.int64)[c] + cp + cnt - corr
+    return out if occ_cp64 is not None else out & 0xFFFFFFFF
 
 
 def _bwt_code(fm_blocks, row):
@@ -929,7 +1024,8 @@ def _bwt_code(fm_blocks, row):
     return ((w >> (2 * (row & 15)).astype(np.uint32)) & 3).astype(np.int64)
 
 
-def _large_patterns(rng, fm_blocks, fchr, z_off, B, L, tails=True):
+def _large_patterns(rng, fm_blocks, fchr, z_off, B, L, tails=True,
+                    occ_cp64=None):
     """(B, L) reversed patterns by b % 4: two of four read off the table
     by LF walks from rows in its top quarter (their backward searches keep
     a range holding the walk's next row all the way), one a run of Ts (its
@@ -946,7 +1042,7 @@ def _large_patterns(rng, fm_blocks, fchr, z_off, B, L, tails=True):
     for p in range(L):
         c = _bwt_code(fm_blocks, row)
         rr[walk, p] = c
-        row = lf_np(fm_blocks, fchr, z_off, row, c)
+        row = lf_np(fm_blocks, fchr, z_off, row, c, occ_cp64)
         row = np.where(row < rows, row, 0)
     noise = (kind == 3)[:, None] & (rng.random((B, L)) < 0.02)
     rr[noise] = 4
@@ -968,6 +1064,22 @@ def large_fm_case(seed: int = 0, rows: int = LARGE_ROWS,
     the builder does, the sentinel row's BWT code is an A, the last
     block's codes past the rows are As, and neither counts in fchr."""
     assert rows < (1 << 32)
+    return _fm_case(seed, rows, batch, ftab_chars, False)
+
+
+def i64_fm_case(seed: int = 0, rows: int = I64_ROWS, batch: int = 16384,
+                ftab_chars: int = LARGE_FTAB) -> LargeFmCase:
+    """large_fm_case's twin in the int64 row mode: the same tables and
+    states over `rows` rows (2^32 + 2^27 - 1 by default, one short of
+    whole blocks), with the full checkpoints in `occ_cp64`, fchr, ftab
+    and offs as int64 (offsets up to n, past 2^32 at the default size),
+    and the SA rows drawn mostly past 2^32. At a small `rows` it serves
+    the CPU tests; at a multiple of 128 the row past the last block is
+    reached (INT64_MIN fill)."""
+    return _fm_case(seed, rows, batch, ftab_chars, True)
+
+
+def _fm_case(seed, rows, batch, ftab_chars, int64) -> LargeFmCase:
     rng = np.random.default_rng(seed)
     nb = -(-rows // 128)
     n = rows - 1
@@ -990,6 +1102,7 @@ def large_fm_case(seed: int = 0, rows: int = LARGE_ROWS,
     fm = np.empty((nb, 12), np.uint32)
     fm[:, :8] = words.reshape(nb, 8)
     fm[:, 8:] = (occ & 0xFFFFFFFF).astype(np.uint32)
+    cp64 = occ if int64 else None
     del words, occ, counts
     # marks at 1/32 density (each bit the AND of five random bits), the
     # last row marked, so that every row's rank indexes offs
@@ -1005,7 +1118,8 @@ def large_fm_case(seed: int = 0, rows: int = LARGE_ROWS,
     mark_rows[:, :4] = marks.reshape(nb, 4)
     mark_rows[:, 4] = np.concatenate([[0], np.cumsum(per)[:-1]]).astype(
         np.uint32)
-    offs = rng.integers(0, n, int(per.sum()), dtype=np.uint32)
+    offs = rng.integers(0, n, int(per.sum()),
+                        dtype=np.int64 if int64 else np.uint32)
     del marks, per
     # ftab: each full K-mer's range by backward search from the last code
     K = ftab_chars
@@ -1014,33 +1128,38 @@ def large_fm_case(seed: int = 0, rows: int = LARGE_ROWS,
     bot = np.full(keys.size, rows, np.int64)
     for q in range(K):                           # codes right to left
         c = (keys // 4 ** q) % 4
-        top, bot = lf_np(fm, fchr, z_off, top, c), \
-            lf_np(fm, fchr, z_off, bot, c)
+        top, bot = lf_np(fm, fchr, z_off, top, c, cp64), \
+            lf_np(fm, fchr, z_off, bot, c, cp64)
     ftab = np.zeros(2 * keys.size + 1, np.int64)
     ftab[2 * keys + 1] = top
     ftab[2 * keys + 2] = bot
     # the states: patterns read off the table, T runs and random ones;
     # seeds are text-order patterns (the search runs right to left)
     srng = np.random.default_rng(seed + 1)
-    sweep_rr = _large_patterns(srng, fm, fchr, z_off, batch, 128)
-    substring_rr = _large_patterns(srng, fm, fchr, z_off, 2 * batch, 65)
+    sweep_rr = _large_patterns(srng, fm, fchr, z_off, batch, 128,
+                               occ_cp64=cp64)
+    substring_rr = _large_patterns(srng, fm, fchr, z_off, 2 * batch, 65,
+                                   occ_cp64=cp64)
     S, slen = 8 * batch, 22
     seeds = np.ascontiguousarray(_large_patterns(
-        srng, fm, fchr, z_off, S, slen, tails=False)[:, ::-1])
+        srng, fm, fchr, z_off, S, slen, tails=False, occ_cp64=cp64)[:, ::-1])
     valid = srng.random(S) < 0.95
-    # SA rows: most from the top quarter of the row space (past 2^31 at
-    # the default size), the rest anywhere, and the ends
+    # SA rows: most from the top quarter of the row space (past 2^31, or
+    # in the int64 mode past 2^32, at the default size), the rest
+    # anywhere, and the ends
     hi = srng.integers(rows - rows // 4, rows, S - S // 4 - 8)
     anyr = srng.integers(0, rows, S // 4)
     ends = np.array([0, n, z_off, max(z_off - 1, 0), min(z_off + 1, n),
-                     rows - 128, rows - 2, (1 << 31) % rows], np.int64)
+                     rows - 128, rows - 2,
+                     (1 << (32 if int64 else 31)) % rows], np.int64)
     resolve_rows = srng.permutation(np.concatenate([hi, anyr, ends]))
+    tdt = np.int64 if int64 else np.uint32
     return LargeFmCase(
-        n=n, z_off=z_off, fm_blocks=fm, fchr=fchr.astype(np.uint32),
-        ftab=ftab.astype(np.uint32), ftab_chars=K, mark_rows=mark_rows,
+        n=n, z_off=z_off, fm_blocks=fm, fchr=fchr.astype(tdt),
+        ftab=ftab.astype(tdt), ftab_chars=K, mark_rows=mark_rows,
         offs=offs, sweep_rr=sweep_rr, substring_rr=substring_rr,
         seeds=seeds, seed_valid=valid, seed_len=slen,
-        resolve_rows=resolve_rows.astype(np.int64))
+        resolve_rows=resolve_rows.astype(np.int64), occ_cp64=cp64)
 
 
 # ---------------------------------------------------------------------------

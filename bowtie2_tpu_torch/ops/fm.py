@@ -18,7 +18,11 @@ Rows follow the index's row mode (index/fmindex.py): int32 tensors in the
 small mode, int64 tensors holding uint32 values in the large mode, whose
 plain versions compute in int64 and wrap to 32 bits where the JAX
 package's uint32 ops wrap (`_wrap`), and whose kernels are the `_u32`
-C entries, the same sources computing in uint32.
+C entries, the same sources computing in uint32; int64 tensors of int64
+values in the int64 mode past 2^32 rows, whose checkpoints come from the
+second table `occ_cp64` (a row past the flat table reads as INT64_MIN
+there, as jnp.take fills an int64 table), and whose kernels are the
+`_i64` C entries, computing in int64.
 
 The sharded index mode (dist/sharded.py, the JAX package's `shard_mesh`):
 an index half whose fm_blocks, mark_rows and offs are `ShardedRows`
@@ -43,6 +47,8 @@ from bowtie2_tpu_torch.ops._build import I, P, U, check, on_cpu, ptr
 
 i32 = torch.int32
 MASK32 = 0xFFFFFFFF
+INT64_MIN = -(1 << 63)
+LL = ctypes.c_longlong
 
 # the mesh axis of the sharded index mode (dist/mesh.py Mesh.axis)
 SHARD_AXIS = "shard"
@@ -154,31 +160,57 @@ def _sharded(half) -> bool:
 # plain LF step (K2)
 # ---------------------------------------------------------------------------
 
-def _rows(half: FMHalf, block: torch.Tensor) -> torch.Tensor:
-    """fm_blocks rows of `block` as jnp.take gives them: a negative block
-    counts from the end, and rows outside the table read as 0xFFFFFFFF
-    (the JAX op reaches i = n + 1 when n + 1 is a multiple of 128, and the
-    searches that die take a LF step of a dead range, whose bot may be -1,
-    and mask it off). A sharded half reads the owner's row, or zeros
-    (_take_sharded)."""
+def _rows(half: FMHalf, block: torch.Tensor, table=None, fill=-1
+          ) -> torch.Tensor:
+    """Rows of `block` of fm_blocks (or of `table`) as jnp.take gives them:
+    a negative block counts from the end, and rows outside the table read
+    as `fill` (0xFFFFFFFF in fm_blocks' int32 bits; INT64_MIN in the int64
+    occ_cp64). The JAX op reaches i = n + 1 when n + 1 is a multiple of
+    128, and the searches that die take a LF step of a dead range, whose
+    bot may be -1, and mask it off. A sharded half reads the owner's row,
+    or zeros (_take_sharded). The block is the JAX op's: its int32
+    image."""
+    table = half.fm_blocks if table is None else table
+    block = _block32(block)
     if _sharded(half):
-        return _take_sharded(half.fm_blocks, block)
-    nb = half.fm_blocks.shape[0]
+        return _take_sharded(table, block)
+    nb = table.shape[0]
     block = torch.where(block < 0, block + nb, block)
-    rows = half.fm_blocks.index_select(0, torch.clamp(block, 0, nb - 1).long())
-    return torch.where(((block < 0) | (block >= nb))[:, None], -1, rows)
+    rows = table.index_select(0, torch.clamp(block, 0, nb - 1).long())
+    return torch.where(((block < 0) | (block >= nb))[:, None], fill, rows)
+
+
+def _block32(block: torch.Tensor) -> torch.Tensor:
+    """The int32 image of a block index (the JAX ops' astype(int32)); int32
+    blocks as they are."""
+    if block.dtype == torch.int64:
+        return ((block + (1 << 31)) & MASK32) - (1 << 31)
+    return block
+
+
+def _cps(half: FMHalf, i: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(B, 4) occ checkpoints of row i's block in the row type: columns
+    8:12 of its fm_blocks row `rows`, or in the int64 mode the block's
+    occ_cp64 row."""
+    if half.i64:
+        return _rows(half, i // OCC_BLOCK, half.occ_cp64, INT64_MIN)
+    return _val(half, rows[:, 8:12])
 
 
 def _wrap(half: FMHalf, x: torch.Tensor) -> torch.Tensor:
     """A row-type result: x mod 2^32 in the large mode (JAX's uint32 ops
-    wrap there), int32 in the small mode (whose int32 ops wrap)."""
+    wrap there), int32 in the small mode (whose int32 ops wrap), x itself
+    in the int64 mode (int64 adds wrap alike)."""
+    if half.i64:
+        return x
     return x & MASK32 if half.large else x.to(i32)
 
 
 def _val(half: FMHalf, t: torch.Tensor) -> torch.Tensor:
     """Values of a table stored as int32 bits (checkpoints, fchr, ftab,
-    offs) in the row type: their uint32 value in the large mode."""
-    return t.long() & MASK32 if half.large else t
+    offs) in the row type: their uint32 value in the large mode; the
+    int64 mode's tables hold their values."""
+    return t.long() & MASK32 if half.large and not half.i64 else t
 
 
 def _crumbs(words: torch.Tensor) -> torch.Tensor:
@@ -192,7 +224,7 @@ def _occ_rows(half: FMHalf, i: torch.Tensor, c: torch.Tensor, rows):
     pos = i % OCC_BLOCK
     crumbs = _crumbs(rows[:, :8])
     inb = ((crumbs == c[:, None]) & (lane < pos[:, None])).sum(dim=1)
-    cp = _val(half, rows[:, 8:12].gather(1, c.long()[:, None])[:, 0])
+    cp = _cps(half, i, rows).gather(1, c.long()[:, None])[:, 0]
     corr = ((c == 0) & (i > half.z_off)).to(i32)
     return _wrap(half, cp + inb - corr)
 
@@ -227,40 +259,65 @@ def _lf2(half, top, bot, cc):
 
 def _fm_args(half: FMHalf):
     """The table arguments of a search's C entry: (fm_blocks, nblocks) of
-    a flat half, (shard addresses, per, S) of a sharded one; then fchr,
+    a flat half, (shard addresses, per, S) of a sharded one, and in the
+    int64 mode occ_cp64 (its table, or its shards' addresses); then fchr,
     z_off and the row count."""
+    return _tab_args(half) + (ptr(half.fchr), half.z_off, half.nrows)
+
+
+def _tab_args(half: FMHalf) -> tuple:
     fm = half.fm_blocks
     tab = (ptr(fm.addrs), fm.per, fm.S) if _sharded(half) else \
         (ptr(fm), fm.shape[0])
-    return tab + (ptr(half.fchr), half.z_off, half.nrows)
+    if half.i64:
+        cp = half.occ_cp64
+        tab += (ptr(cp.addrs) if _sharded(half) else ptr(cp),)
+    return tab
 
 
 def _entry(half: FMHalf, name: str, argtypes, unsigned=(3, 4)):
     """The C entry of a kernel in the index's row mode, and its argument
-    types: the `_u32` entry takes its row-valued scalars as unsigned
-    (z_off and the row count, the 4th and 5th arguments of the searches;
-    z_off, the 4th, of sa_resolve). A sharded half's `_sh` entry takes
-    its FM table as three arguments (addresses, per, S) where the flat
-    entry takes two (fm_blocks, nblocks)."""
+    types: the `_u32` entry takes its row-valued scalars as unsigned, the
+    `_i64` entry as 64-bit (z_off and the row count, the 4th and 5th
+    arguments of the searches; z_off, the 4th, of sa_resolve). A sharded
+    half's `_sh` entry takes its FM table as three arguments (addresses,
+    per, S) where the flat entry takes two (fm_blocks, nblocks); the
+    `_i64` entries take occ_cp64 (its table or its shards' addresses,
+    sharded as fm_blocks is) right after them."""
     if _sharded(half):
         name += "_sh"
         argtypes = [P, I, I] + list(argtypes[2:])
         unsigned = tuple(k + 1 for k in unsigned)
     if not half.large:
         return name, argtypes
+    if half.i64:
+        k0 = 3 if _sharded(half) else 2
+        argtypes = [LL if k in unsigned else t
+                    for k, t in enumerate(argtypes)]
+        return name + "_i64", argtypes[:k0] + [P] + argtypes[k0:]
     return name + "_u32", [U if k in unsigned else t
                            for k, t in enumerate(argtypes)]
 
 
 def _check_half(half: FMHalf, dev) -> None:
+    big = ("fm_blocks", "occ_cp64") if half.i64 else ("fm_blocks",)
     if _sharded(half):
-        for name in ("fm_blocks", "mark_rows", "offs"):
+        for name in big + ("mark_rows", "offs"):
             check(getattr(half, name).addrs, f"{name} shard addresses",
                   dtype=torch.int64, device=dev)
+        if half.i64 and (half.occ_cp64.per, half.occ_cp64.S) != (
+                half.fm_blocks.per, half.fm_blocks.S):
+            raise ValueError("occ_cp64 is not sharded as fm_blocks is")
     else:
         check(half.fm_blocks, "fm_blocks", device=dev)
-    check(half.fchr, "fchr", shape=(5,), device=dev)
-    if half.nrows >= (1 << (32 if half.large else 31)):
+        if half.i64:
+            check(half.occ_cp64, "occ_cp64", dtype=torch.int64,
+                  shape=(half.fm_blocks.shape[0], 4), device=dev)
+    check(half.fchr, "fchr", dtype=half.row_dtype if half.i64 else i32,
+          shape=(5,), device=dev)
+    # the mode's row space; the kernels count blocks in 32-bit ints
+    bits = 38 if half.i64 else 32 if half.large else 31
+    if half.nrows >= (1 << bits):
         raise ValueError(f"{half.nrows} rows do not fit the row mode")
 
 
@@ -409,7 +466,8 @@ def seed_search_exact(half: FMHalf, seeds: torch.Tensor, valid: torch.Tensor,
         return _seed_plain(half, seeds, valid, seed_len, ftab_chars)
     dev = seeds.device
     _check_half(half, dev)
-    check(half.ftab, "ftab", device=dev)
+    check(half.ftab, "ftab", dtype=half.row_dtype if half.i64 else i32,
+          device=dev)
     B = seeds.shape[0]
     check(seeds, "seeds", shape=(B, seed_len))
     check(valid, "valid", dtype=torch.bool, shape=(B,), device=dev)
@@ -494,10 +552,10 @@ def lf_row(half: FMHalf, row: torch.Tensor, c: torch.Tensor, frows
 def sa_resolve(half: FMHalf, rows: torch.Tensor, period: int = 32
                ) -> torch.Tensor:
     """Batched BWT row → joined text offset. rows: (B,) of the row type."""
-    # rows in the row type: int32, or the uint32 value of each (int64
-    # rows wrap mod 2^32 as the JAX op's astype(uint32) does)
-    rows = (rows.long() & MASK32 if half.large else rows.to(i32)
-            ).contiguous()
+    # rows in the row type: int32, the uint32 value of each (int64 rows
+    # wrap mod 2^32 as the JAX op's astype(uint32) does), or int64
+    rows = (rows.long() if half.i64 else rows.long() & MASK32
+            if half.large else rows.to(i32)).contiguous()
     if on_cpu(rows, "sa_resolve"):
         return _resolve_plain(half, rows, period)
     dev = rows.device
@@ -508,16 +566,19 @@ def sa_resolve(half: FMHalf, rows: torch.Tensor, period: int = 32
         fmr, mk, of = half.fm_blocks, half.mark_rows, half.offs
         if (mk.per, mk.S) != (fmr.per, fmr.S):
             raise ValueError("mark_rows are not sharded as fm_blocks are")
-        tabs = (ptr(fmr.addrs), fmr.per, fmr.S, ptr(half.fchr), half.z_off,
-                ptr(mk.addrs), ptr(of.addrs), of.per, of.S)
-        name = "sa_resolve_sh_u32" if half.large else "sa_resolve_sh"
-        types = [P, I, I, P, U if half.large else I, P, P, I, I, P, I, I, P]
+        tabs = _tab_args(half) + (ptr(half.fchr), half.z_off,
+                                  ptr(mk.addrs), ptr(of.addrs), of.per,
+                                  of.S)
+        name, types = _entry(half, "sa_resolve",
+                             [P, I, P, I, P, P, I, I, P, I, I, P],
+                             unsigned=(3,))
     else:
         check(half.mark_rows, "mark_rows", device=dev)
-        check(half.offs, "offs", device=dev)
-        tabs = (ptr(half.fm_blocks), half.fm_blocks.shape[0],
-                ptr(half.fchr), half.z_off, ptr(half.mark_rows),
-                ptr(half.offs), half.offs.shape[0])
+        check(half.offs, "offs", dtype=half.row_dtype if half.i64 else i32,
+              device=dev)
+        tabs = _tab_args(half) + (ptr(half.fchr), half.z_off,
+                                  ptr(half.mark_rows), ptr(half.offs),
+                                  half.offs.shape[0])
         name, types = _entry(half, "sa_resolve",
                              [P, I, P, I, P, P, I, P, I, I, P], unsigned=(3,))
     _build.call("sa_resolve", name, types, *tabs, ptr(rows), B, period,

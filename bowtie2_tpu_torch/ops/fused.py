@@ -21,7 +21,9 @@ tensors holding uint32 values, and from the SA walk on the position
 arithmetic (joined offsets, global positions, anchors, window starts and
 ends) is int64, the segment tables' type; the exports wrap rows and
 positions to int32 words where the JAX program casts them (`_i32`), and
-the host decodes them (pipeline/align.py `_u32pos`).
+the host decodes them (pipeline/align.py `_u32pos`). The int64 row mode
+is the same with int64 rows, whose exact-sweep tops the SE export splits
+into two int32 words, as the JAX program does.
 """
 
 from typing import NamedTuple, Optional
@@ -577,8 +579,10 @@ def fused_se(half: FMHalf, ref_words, refn_words, seg: SegTables,
     sweep = cx["sweep"]
     ee_w2 = torch.where((sweep.nedit == 0) & (cx["sweep_bot"] > sweep.top),
                         cx["sweep_bot"] - sweep.top, 0)
+    # the rows' low and high int32 words (high words only in the int64 row
+    # mode; the export wraps the low ones)
     ee_lo = sweep.top
-    ee_hi = torch.zeros_like(ee_lo)
+    ee_hi = sweep.top >> 32 if half.i64 else torch.zeros_like(ee_lo)
     ee_block = torch.cat([
         ee_lo[:B], ee_hi[:B], ee_w2[:B], ee_lo[B:], ee_hi[B:], ee_w2[B:],
         cx["seed_elts"], cx["seed_nz"]])

@@ -1,9 +1,10 @@
 """Rectangle gapped-extension DP and its direction walk, and the band-
 coordinate DP and walk of long reads, in torch + CUDA.
 
-Port of bowtie2_tpu/ops/sw.py. The DPs (`sw_banded`, `sw_banded_diag`) and
-the walks (`backtrace`, `backtrace_diag`) are hand-written kernels
-(csrc/sw_rect.cu, csrc/backtrace.cu, csrc/sw_diag.cu) for CUDA tensors;
+Port of bowtie2_tpu/ops/sw.py. The DPs (`sw_banded`, `sw_banded_diag`),
+the walks (`backtrace`, `backtrace_diag`) and the single-end gapless
+readout (`diag_readout`) are hand-written kernels (csrc/sw_rect.cu,
+csrc/backtrace.cu, csrc/sw_diag.cu, csrc/diag_readout.cu) for CUDA tensors;
 beside each sits a plain PyTorch version of the same function, one or a
 few torch ops per scan step, which runs for CPU tensors (the tests) and
 which chip_smoke.py holds the kernels against on the card.
@@ -822,13 +823,9 @@ def backtrace_diag(dirs: torch.Tensor, sel: torch.Tensor, rows: torch.Tensor,
     return _backtrace_diag_cuda(*args, params, band, S)
 
 
-def diag_readout(reads, quals, refwins, rows, lanes, lens, params: SWParams):
-    """Gapless readout along the diagonal ending at (rows, lanes), as torch
-    ops (bowtie2_tpu/ops/sw.py diag_readout; see there for why a candidate
-    whose best score equals this diagonal's walks exactly this diagonal).
-
-    Returns (ops (Lmax, Bc) uint8 in walk order, dscore, n_mm, n_refn,
-    ref_start_win, gapless_ok)."""
+def _diag_readout_plain(reads, quals, refwins, rows, lanes, lens,
+                        params: SWParams):
+    """The readout as torch ops, the JAX op's arrays one for one."""
     p = params
     i32 = torch.int32
     Bc, Lmax = reads.shape
@@ -859,6 +856,52 @@ def diag_readout(reads, quals, refwins, rows, lanes, lens, params: SWParams):
     opbyte = torch.where(rev >= 0, OP_M | (fc << 2) | (ism << 5), OP_NONE)
     return (opbyte.to(torch.uint8).T.contiguous(), dscore, n_mm, n_refn,
             base.to(i32), gapless_ok)
+
+
+_READOUT_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P]
+
+
+def _diag_readout_cuda(reads, quals, refwins, rows, lanes, lens,
+                       p: SWParams):
+    Bc, Lmax = reads.shape
+    Wf = refwins.shape[1]
+    dev = reads.device
+    for t, n, shp in ((reads, "reads", (Bc, Lmax)),
+                      (quals, "quals", (Bc, Lmax)),
+                      (refwins, "refwins", (Bc, Wf)), (rows, "rows", (Bc,)),
+                      (lanes, "lanes", (Bc,)), (lens, "lens", (Bc,))):
+        check(t, n, shape=shp, device=dev)
+    if Lmax == 0 or Wf == 0:
+        raise ValueError(f"diag_readout: read length {Lmax} and window "
+                         f"width {Wf} must be positive")
+    ops = torch.empty((Lmax, Bc), dtype=torch.uint8, device=dev)
+    fields = torch.empty((4, Bc), dtype=torch.int32, device=dev)
+    ok = torch.empty(Bc, dtype=torch.bool, device=dev)
+    _build.call("diag_readout", "diag_readout", _READOUT_ARGS,
+                ptr(reads), ptr(quals), ptr(refwins), ptr(rows), ptr(lanes),
+                ptr(lens), Bc, Lmax, Wf, p.match_bonus, p.mm_pen_min,
+                p.mm_pen_max, p.n_pen, ptr(ops), ptr(fields[0]),
+                ptr(fields[1]), ptr(fields[2]), ptr(fields[3]), ptr(ok))
+    dscore, n_mm, n_refn, base = fields.unbind(0)
+    return ops, dscore, n_mm, n_refn, base, ok
+
+
+def diag_readout(reads, quals, refwins, rows, lanes, lens, params: SWParams):
+    """Gapless readout along the diagonal ending at (rows, lanes)
+    (bowtie2_tpu/ops/sw.py diag_readout; see there for why a candidate
+    whose best score equals this diagonal's walks exactly this diagonal).
+    reads, quals (Bc, Lmax), refwins (Bc, Wf), rows, lanes, lens (Bc,).
+    CPU tensors take the plain version, CUDA tensors the diag_readout
+    kernel (csrc/diag_readout.cu).
+
+    Returns (ops (Lmax, Bc) uint8 in walk order, dscore, n_mm, n_refn,
+    ref_start_win, gapless_ok)."""
+    i32 = torch.int32
+    args = tuple(t.to(i32).contiguous() for t in (reads, quals, refwins,
+                                                  rows, lanes, lens))
+    if on_cpu(args[0], "diag_readout"):
+        return _diag_readout_plain(*args, params)
+    return _diag_readout_cuda(*args, params)
 
 
 # ---------------------- numpy oracles (replay layer) ----------------------

@@ -43,6 +43,10 @@ from bowtie2_tpu_torch.pipeline.align import (LEN_BUCKETS,
 from bowtie2_tpu_torch.pipeline.pe import (PE_DISCORD, pe_classify,
                                            rescue_window)
 
+# the global coordinate from which the paired-end exports' int32 position
+# words are ambiguous (_u32pos)
+PE_COORD_LIMIT = (1 << 32) - 4096
+
 
 @dataclass
 class FusedPEBatch:
@@ -92,6 +96,22 @@ class PairedAligner(BatchAligner):
     from the per-slot export."""
 
     force_host_pairing = False
+
+    def __init__(self, data, policy, device=None, mesh=None,
+                 shard_mesh=None):
+        """As BatchAligner's. An index whose global coordinates reach
+        PE_COORD_LIMIT raises: the paired-end exports carry positions as
+        int32 words, which `_u32pos` decodes unambiguously only below it
+        (the JAX package's PairedAligner gives wrong positions there)."""
+        if int(data.ref_cum[-1]) >= PE_COORD_LIMIT:
+            raise NotImplementedError(
+                f"global coordinates of {int(data.ref_cum[-1])} bp reach "
+                f"2^32 - 4096, past which the paired-end path's int32 "
+                f"position words do not decode: a limit inherited from the "
+                f"JAX package (ROADMAP.md §3); single-end alignment runs "
+                f"on this index")
+        super().__init__(data, policy, device=device, mesh=mesh,
+                         shard_mesh=shard_mesh)
 
     def submit(self, pairs) -> Optional[FusedPEBatch]:
         """Enqueue the fused PE device pipeline for one batch of pairs (no

@@ -22,8 +22,8 @@ Phases, each of which exits non-zero when it fails:
    just before and read just after: every kernel must have launched, and
    no plain PyTorch version may have run. Then the same run once more,
    with a fresh aligner, apart from the timed window: CUDA events around
-   every kernel launch (and around the SE gapless readout, which is torch
-   ops) give each kernel's total device time over the run, printed with
+   every kernel launch give each kernel's total device time over the run,
+   printed with
    the sum's share of the main path's wall time (the `device time:`
    line), a lower bound on the card's busy share; the `call shapes:` line
    splits the walk's and the SA walk's totals by the sizes that pick
@@ -65,8 +65,8 @@ Phases, each of which exits non-zero when it fails:
    a LF step (`live_step_share`), the share of those whose range lies in
    one 128-row block (`same_block_share`) and the L2 sectors the search
    asks for, over the kernel's time. The SE gapless
-   readout (ops/sw.py diag_readout, torch ops) is timed as the window
-   gather is. The DP's sweep runs the origin-tracking variant
+   readout (K10 SE) is held and timed as the window gather is (below).
+   The DP's sweep runs the origin-tracking variant
    (`sw_rect_origin`) on the same cases and on `origin_cases`, and both
    on `padded_origin_cases` at their n_live, as a host int and as a 0-d
    tensor on the card. Each DP entry gives the cells its data needs
@@ -157,14 +157,16 @@ Phases, each of which exits non-zero when it fails:
    some of its results past 2^31, timed, its bound from what the states
    touch (fm_work, resolve_work); (b) global coordinates past 2^31: an
    all-N reference of PAD_BP bp, then the E. coli-sim genome split into
-   two references with N runs, built by the port's builder; the first SE
+   two references with N runs (the two references by the port's
+   builder, the padding laid out in numpy as the builder lays it out,
+   `pad_genome`); the first SE
    batch (--batch reads) and the first PE batch (3,125 pairs) on the card
    must equal the same reads against the two references alone, and
    LARGE_CPU_SE reads and LARGE_CPU_PE pairs on the card the CPU's; (c)
    the repcorpus and E. coli-sim genomes indexed with `large=True`: the
    first SE batch, the first PE batch (fused path) and the first long
    reads of phase 12 must equal their small-index runs, with SE reads/s
-   and PE pairs/s beside the small index's on the same batch (two runs
+   and PE pairs/s beside the small index's on the same batch (one run
    each, in turns, with the host timers of each), and each
    `_u32` kernel is held to its plain version on the forced-large main
    path's first call and timed on phase 6's first-call inputs beside the
@@ -173,7 +175,8 @@ Phases, each of which exits non-zero when it fails:
    must launch.
 14. The multi-device layer on one card (dist/, the JAX package's
    `shard_mesh=` and `mesh=`): (c) the repcorpus SE path's first two
-   batches over the sharded index mode at 4 and at 8 shards on the card
+   batches over the sharded index mode at 4 shards, and its first at 8,
+   on the card
    (each a separate allocation, read through the shards' address array),
    the first batch over the forced-large index of phase 13 at 4 shards,
    and the E. coli-sim PE path's first two batches at 4 shards: every
@@ -202,31 +205,53 @@ Phases, each of which exits non-zero when it fails:
    phase 6's first-call inputs: the cost of the owner lookup. The
    multi-card parts of the mode (a shard read over peer access, NCCL
    between cards) need more than one card and do not run here.
+15. The int64 row mode (past 2^32 rows: int64 rows and positions, the
+   full occ checkpoints in a second table, occ_cp64): (a) the eight
+   `_i64` entries (`fm_sweep_i64`, `fm_seed_i64`, `fm_substring_i64`,
+   `sa_resolve_i64` and their `_sh_i64` twins) against their plain
+   versions on ops/cases.py i64_fm_case (2^32 + 2^27 - 1 rows, about 4.6
+   GB on the card; its host build time is logged), flat and split into 4
+   shards, with results past 2^32, each timed with its bound and
+   registers; (b) the repcorpus and E. coli-sim genomes forced into the
+   mode (aligners over their forced-large indexes of phase 13 take
+   `FMIndex.from_host(..., int64_rows=True)` and, sharded,
+   `shard_index(..., int64_rows=True)` in place of their own index): the
+   first SE batch (flat, and over 4
+   shards), the first PE batch (fused path) and the first long reads of
+   phase 12 must equal their small-index runs, only `_i64` FM entries may
+   launch and each must; (c) single end past 2^32 global coordinates: an
+   all-N reference of 2^32 + 2^24 bp ahead of the E. coli-sim genome
+   (`pad_genome`, the builder's layout): the first SE batch must equal
+   the genome alone, and the PairedAligner must refuse the index.
 
 The window gather (K7: `ref_gather_aligned`, `ref_gather_aligned_sh` over
-sharded word tables, `ref_gather`, csrc/ref_gather.cu) and the device
-pairing (K10 PE: `pe_pairing`, csrc/pe_pairing.cu) are held to their
+sharded word tables, `ref_gather`, csrc/ref_gather.cu), the device
+pairing (K10 PE: `pe_pairing`, csrc/pe_pairing.cu) and the SE gapless
+readout (K10 SE: `diag_readout`, csrc/diag_readout.cu) are held to their
 plain versions at every call the run makes on the card (Holder): the
 first call of each shape (windows, width, position type, shards) of the
-gathers and every call of the pairing, phase by phase after the phase has
-read its counts (the `new kernels held` lines, `checks` in their JSON
-entries): the SE main path and its host path (phase 3), --local (5), the
-PE main path (8), the mixed-outcome batch's hostneed pairs and the
-overflow batch's host path (9), the long reads' wide windows (12), the
-large index mode's int64 positions past 2^31 and int64 extents (13), the
-sharded tables at 4 and 8 shards (14); and on every ops/cases.py
-window_cases case (both forms, and the aligned form over 4 shards) and
-pairing_cases case (int32 and int64 extents), at scale 1 and 8. Each
-must launch on its paths (no plain version may run there): the gathers
-in phases 3, 5, 8 and 12, the pairing in phase 8, `_sh` in phase 14.
+gathers and every call of the pairing and of the readout, phase by phase
+after the phase has read its counts (the `new kernels held` lines,
+`checks` in their JSON entries): the SE main path and its host path
+(phase 3), --local (5), the PE main path (8), the mixed-outcome batch's
+hostneed pairs and the overflow batch's host path (9), the long reads'
+wide windows (12), the large index mode's int64 positions past 2^31 and
+int64 extents (13), the sharded tables at 4 and 8 shards (14), the int64
+row mode and global coordinates past 2^32 (15); and on every
+ops/cases.py window_cases case (both forms, and the aligned form over 4
+shards), pairing_cases case (int32 and int64 extents) and readout_cases
+case, at scale 1 and 8. Each must launch on its paths (no plain version
+may run there): the gathers in phases 3, 5, 8 and 12, the pairing in
+phase 8, the readout in phase 3 (the --local path of phase 5 walks every
+record and reads no diagonal out), `_sh` in phase 14.
 Each is timed as in phase 6 at its main path's first call (phase 3's
 fused and host-path calls, phase 8's pairing, phase 14's sharded call;
-the unaligned form also at the long path's widest call, `wide`), and
-under torch.profiler (CUPTI) with its plain version (`cupti_ms`,
-`plain_cupti_ms`). One whole fused_se batch and one fused_pe batch run
-under CUPTI too (the `CUPTI split` lines: device time by kernel and by
-region: fused `_core`, the gather, the SE readout, the pairing), and so
-does one call of the SE readout (K10, torch ops). Since the aligned gather
+the unaligned form also at the long path's widest call, `wide`; the
+readout at the fused path's first call), and under torch.profiler
+(CUPTI) with its plain version (`cupti_ms`, `plain_cupti_ms`). One whole
+fused_se batch and one fused_pe batch run under CUPTI too (the `CUPTI
+split` lines: device time by kernel and by region: fused `_core`, the
+gather, the SE readout, the pairing). Since the aligned gather
 reads sharded words itself, K12 (`take_sharded`) runs on no path; phase 14
 times it on the word indices of the sharded path's first gather.
 
@@ -237,6 +262,7 @@ card's name and power limit; the last line is
 
 import argparse
 import ctypes
+import dataclasses
 import datetime
 import importlib.util
 import json
@@ -303,9 +329,17 @@ OPS_BT_STEP = 9
 #   subtracts, select: 6) and the argmax compare: 27; and one (slot,
 #   slot) pair of a read (T^2 a read): the dedupe (two compares, the
 #   score order: 5) and the rank (3): 8.
+# - one read position of the SE gapless readout (K10 SE): the window
+#   index and its bounds (add, two compares, select), is_n, oob and eq
+#   (four compares, three ANDs/ORs), the qual penalty (min, multiply,
+#   divide by a constant as a multiply and shift, add), the score term
+#   (two selects) and its masked add (compare, AND, add), n_mm and n_refn
+#   (three compares, two ANDs/ORs, two adds), the op byte (two shifts,
+#   two ORs, a select): 30.
 OPS_GATHER_CODE = 9
 OPS_PAIR_COMBO = 27
 OPS_PAIR_SLOTS = 8
+OPS_READOUT_POS = 30
 SECTORS_STEP = 3
 SECTORS_ROW = 3
 
@@ -468,6 +502,34 @@ MH_WINDOW, MH_WINDOWS = 1024, 4
 # the large table's gather: indices in range, and the K12 timing reps
 K12_LARGE_IDX = 1 << 20
 
+# the int64 row mode's C entries (phase 15), flat and sharded, by the
+# wrapper that launches each: name -> (wrapper, source, TPU-side function
+# it replaces)
+I64_KERNELS = {
+    f"{w}{sh}_i64": (w, src, repl)
+    for sh in ("", "_sh") for w, src, repl in (
+        ("fm_sweep", "bowtie2_tpu_torch/csrc/fm_search.cu",
+         "bowtie2_tpu/ops/fm.py:215"),
+        ("fm_seed", "bowtie2_tpu_torch/csrc/fm_search.cu",
+         "bowtie2_tpu/ops/fm.py:335"),
+        ("fm_substring", "bowtie2_tpu_torch/csrc/fm_search.cu",
+         "bowtie2_tpu/ops/fm.py:275"),
+        ("sa_resolve", "bowtie2_tpu_torch/csrc/sa_resolve.cu",
+         "bowtie2_tpu/ops/fm.py:408"))}
+PTXAS_FUNCS.update({k: (PTXAS_FUNCS[w][0], "<int64,sh>" if "_sh" in k
+                        else "<int64>")
+                    for k, (w, _s, _r) in I64_KERNELS.items()})
+# the SE gapless readout (K10 SE)
+K10SE = ("diag_readout", "bowtie2_tpu_torch/csrc/diag_readout.cu",
+         "bowtie2_tpu/ops/sw.py:463")
+PTXAS_FUNCS[K10SE[0]] = "readout_kernel"
+# phase 15's genome whose global coordinates pass 2^32: an all-N leading
+# reference of I64_PAD_BP ahead of the E. coli-sim genome; the row and
+# the offset the int64 table's results must pass; its shard count
+I64_PAD_BP = (1 << 32) + (1 << 24)
+PAST_ROW_I64 = 1 << 32
+I64_SHARDS = 4
+
 KERNELS = {  # name -> (source, TPU-side function it replaces)
     "fm_sweep": ("bowtie2_tpu_torch/csrc/fm_search.cu",
                  "bowtie2_tpu/ops/fm.py:215"),
@@ -604,21 +666,28 @@ class Recorder:
 
 class Holder:
     """Keeps the calls of the window gather's two forms (K7: `ref_gather_
-    aligned`, `_sh` over sharded word tables, and `ref_gather`) and of the
-    device pairing (K10 PE, `pe_pairing`) on the card, under the label of
-    the phase that made them: the first call of each shape (windows,
-    width, position type, word source) of the gathers, every call of the
-    pairing (each PE batch). `check` holds each kept call's kernel result
-    to the plain version on the same inputs, after the phase has read its
-    counts, and starts afresh; `first` keeps each entry's first call."""
+    aligned`, `_sh` over sharded word tables, and `ref_gather`), of the
+    device pairing (K10 PE, `pe_pairing`) and of the SE gapless readout
+    (K10 SE, `diag_readout`) on the card, under the label of the phase
+    that made them: the first call of each shape (windows, width, position
+    type, word source) of the gathers, every call of the pairing (each PE
+    batch) and of the readout (each fused SE batch). `check` holds each
+    kept call's kernel result to the plain version on the same inputs,
+    after the phase has read its counts, and starts afresh; `first` keeps
+    each entry's first call."""
 
-    def __init__(self, ref, fused, align_mod):
+    def __init__(self, ref, fused, align_mod, sw):
+        i32 = torch.int32
         self.plain = {"ref_gather_aligned": ref._gather_windows_aligned_plain,
                       "ref_gather": ref._gather_windows_plain,
-                      "pe_pairing": fused._pe_pairing_plain}
+                      "pe_pairing": fused._pe_pairing_plain,
+                      # the wrapper's int32 copies, then the plain version
+                      "diag_readout": lambda *x: sw._diag_readout_plain(
+                          *(t.to(i32).contiguous() for t in x[:6]), x[6])}
         self.kern = {"ref_gather_aligned": ref.gather_windows_aligned,
                      "ref_gather": ref.gather_windows,
-                     "pe_pairing": fused._pe_pairing}
+                     "pe_pairing": fused._pe_pairing,
+                     "diag_readout": fused.diag_readout}
         self.calls = {}            # entry -> {key: args}
         self.first = {}            # entry -> (label, args)
         self.checks = {}           # entry -> {label: record}
@@ -627,7 +696,8 @@ class Holder:
         for mod, attr, name in ((fused, "gather_windows_aligned",
                                  "ref_gather_aligned"),
                                 (align_mod, "gather_windows", "ref_gather"),
-                                (fused, "_pe_pairing", "pe_pairing")):
+                                (fused, "_pe_pairing", "pe_pairing"),
+                                (fused, "diag_readout", "diag_readout")):
             self._patch(mod, attr, name)
 
     def entry(self, name, args):
@@ -640,7 +710,7 @@ class Holder:
 
     @staticmethod
     def key(name, args):
-        if name == "pe_pairing":
+        if name in ("pe_pairing", "diag_readout"):
             return None                   # every call
         starts = args[2]
         return (starts.shape[0], args[5], str(starts.dtype).split(".")[-1],
@@ -650,7 +720,7 @@ class Holder:
         orig = getattr(mod, attr)
 
         def wrapped(*a, **k):
-            t = a[2] if name != "pe_pairing" else a[5]
+            t = a[2] if name != "pe_pairing" else a[5]     # on the card?
             if self.label is not None and t.is_cuda:
                 e = self.entry(name, a)
                 self.first.setdefault(e, (self.label, a))
@@ -1117,10 +1187,12 @@ def fm_work(fm, name, args):
     what it touches: the 48-byte row of each distinct block where a live
     step (a LF step of a range that is not empty, code < 4; the read
     sweep restarts an empty range and steps every code < 4) reads top or
-    bot, two ftab entries (4 bytes each, int32 bits in either mode) for
-    each distinct ftab key a valid seed with no N in its tail looks up,
-    and fchr. Rows in and out count at the tensor API's row type: 8 bytes
-    in the large mode, whose rows are int64 tensors holding uint32 values.
+    bot (and in the int64 mode its 32-byte occ_cp64 row), two ftab
+    entries (4 bytes each, int32 bits in the small and large modes, 8 in
+    the int64 mode) for each distinct ftab key a valid seed with no N in
+    its tail looks up, and fchr. Rows in and out count at the tensor API's
+    row type: 8 bytes in the large mode, whose rows are int64 tensors
+    holding uint32 values, and in the int64 mode.
     LF steps are two a live step. The facts are derived from the replay,
     not measured:
     - live_step_share: live steps over the state-steps the search has (a
@@ -1199,7 +1271,9 @@ def fm_work(fm, name, args):
                  live_steps=live_n, rows_touched=rows, ftab_keys=keys,
                  l2_sectors=2 * live_n + 2 * (live_n - same_n) + lookups
                  + -(-io // 32))
-    return (48 * rows + 2 * half.ftab.element_size() * keys
+    # a block's fused row, and in the int64 mode its 32-byte occ_cp64 row
+    row_bytes = 48 + 32 * half.i64
+    return (row_bytes * rows + 2 * half.ftab.element_size() * keys
             + nbytes(half.fchr) + io,
             2 * live_n, facts)
 
@@ -1209,10 +1283,11 @@ def resolve_work(fm, args):
     walk is replayed to count each row's LF steps (offset minus the marked
     row's sample) and what the walks touch. The bytes are what the
     function must read and write: the mark row (20 bytes) of each distinct
-    block where a walk tests a mark, the FM row (48 bytes) of each distinct
-    block where a walk takes a LF step, one offset for each distinct row a
-    walk ends on, fchr, the rows and the output. The facts are derived
-    from the replay, not measured:
+    block where a walk tests a mark, the FM row (48 bytes, and in the int64
+    mode its 32-byte occ_cp64 row) of each distinct block where a walk
+    takes a LF step, one offset (4 bytes, 8 in the int64 mode) for each
+    distinct row a walk ends on, fchr, the rows and the output. The facts
+    are derived from the replay, not measured:
     - lane_idle_share: over the input's 32-row warps (one row a lane),
       1 - (sum of steps) / (sum over warps of 32 x the warp's most steps);
     - sectors: the 32-byte sectors the walk asks for, lane by lane
@@ -1261,10 +1336,12 @@ def resolve_work(fm, args):
         sectors=SECTORS_STEP * total + SECTORS_ROW * B,
         sectors_warp=sectors_warp + 2 * B)
     rsize = rows.element_size()         # rows and offsets: the row type
+    # the int64 mode: a block's occ_cp64 row beside its fused row, and
+    # 8-byte offsets
     byt = (20 * torch.unique(torch.cat(mark_blocks)).numel()
-           + 48 * torch.unique(torch.cat(lf_blocks)).numel()
-           + 4 * torch.unique(row).numel() + nbytes(half.fchr, rows)
-           + B * rsize)
+           + (48 + 32 * half.i64) * torch.unique(torch.cat(lf_blocks)).numel()
+           + (4 + 4 * half.i64) * torch.unique(row).numel()
+           + nbytes(half.fchr, rows) + B * rsize)
     return byt, total * OPS_RESOLVE_STEP + B * OPS_RESOLVE_ROW, facts
 
 
@@ -1658,13 +1735,41 @@ def pairing_work(args, out):
     return byt, Bp * T * T * OPS_PAIR_COMBO + B * T * T * OPS_PAIR_SLOTS
 
 
+def readout_work(args, out):
+    """K10 SE's (bytes, operations) on a call's inputs: the read codes
+    and quals, the Lmax window codes each candidate's diagonal touches,
+    rows, lanes and lengths read once; the (Lmax, Bc) op bytes and the
+    five per-candidate outputs (dscore, n_mm, n_refn, base, gapless_ok)
+    written once; OPS_READOUT_POS a read position."""
+    reads, quals, wins, rows, lanes, lens, _p = args
+    Bc, L = reads.shape
+    byt = nbytes(reads, quals, rows, lanes, lens) + \
+        Bc * L * wins.element_size() + Bc * L + 5 * 4 * Bc
+    return byt, Bc * L * OPS_READOUT_POS
+
+
+def readout_sweep(cases, sw, holder, dev):
+    """The readout kernel against its plain version on every
+    ops/cases.py readout_cases case at scale 1 and 8: [(case, max abs
+    err)]."""
+    out = []
+    kern, plain = holder.kern_of(K10SE[0]), holder.plain_of(K10SE[0])
+    for scale in (1, 8):
+        for c in cases.readout_cases(scale=scale):
+            args = tuple(torch.from_numpy(x).to(dev) for x in (
+                c.reads, c.quals, c.wins, c.rows, c.lanes, c.lens)) + (
+                sw.SWParams(**c.params),)
+            out.append((f"{c.name} x{scale}", max_err(kern, plain, args)[1]))
+    return out
+
+
 def new_entry(name, src, repl, holder, args, work, reps, launches, total,
-              build_mod, sweep=(), more=None):
-    """The `kernels` entry (and log line) of a kernel of this slice (K7,
-    K10 PE) at one main-path call: exact against its plain version there,
-    on every call the Holder kept (`checks`) and on the ops/cases.py
-    sweep; timed back to back, after idle and under CUPTI (kernel and
-    plain version); its bound from `work(args, result)`."""
+              build_mod, sweep=(), more=None, shape=None):
+    """The `kernels` entry (and log line) of a kernel held by the Holder
+    (K7, K10 PE, K10 SE) at one main-path call: exact against its plain
+    version there, on every call the Holder kept (`checks`) and on the
+    ops/cases.py sweep; timed back to back, after idle and under CUPTI
+    (kernel and plain version); its bound from `work(args, result)`."""
     kern, plain = holder.kern_of(name), holder.plain_of(name)
     got, err = max_err(kern, plain, args)
     ms = time_cuda(lambda: kern(*args), reps)
@@ -1690,8 +1795,8 @@ def new_entry(name, src, repl, holder, args, work, reps, launches, total,
         plain_cupti_kernels=len(p_by),
         ptxas=ptxas_of(build_mod, name, os.path.splitext(
             os.path.basename(src))[0]),
-        shape=[args[2].shape[0], args[5]] if name in K7 else
-        [args[2], args[3]],
+        shape=shape if shape is not None else
+        [args[2].shape[0], args[5]] if name in K7 else [args[2], args[3]],
         checks=holder.checks.get(name, {}))
     if sweep:
         entry["sweep_cases"] = len(sweep)
@@ -2204,8 +2309,9 @@ def large_phase(a, m, ctx):
     rb[-N_ENDS:] = 4
     refs = [("ecoli_a", ra), ("ecoli_b", rb)]
     d_small = m.build_index_from_refs(refs)
-    d_big = m.build_index_from_refs(
-        [("pad", np.full(PAD_BP, 4, np.uint8))] + refs)
+    # the builder's tables for [("pad", PAD_BP Ns)] + refs, laid out in
+    # numpy (an all-N reference adds nothing to the joined text)
+    d_big = pad_genome(d_small, PAD_BP)
     log(f"padded genome: references {d_big.ref_names} of "
         f"{d_big.ref_lens.tolist()} bp, global coordinates to "
         f"{int(d_big.ref_cum[-1])}, joined text {d_big.fw.n} bp (host "
@@ -2279,12 +2385,14 @@ def large_phase(a, m, ctx):
     rep_l = m.build_index_from_refs([("rep", ctx["genome"].astype(np.uint8))],
                                     large=True)
     eco_l = m.build_index_from_refs([("ecoli_sim", eg)], large=True)
-    ctx["rep_l"] = rep_l                      # phase 14's `_sh_u32` path
+    ctx["rep_l"] = rep_l            # phase 14's `_sh_u32` path; phase 15
+    ctx["eco_l"] = eco_l
     log(f"forced-large indexes of the repcorpus and E. coli-sim genomes "
         f"built in {time.time() - t1:.1f} s")
-    # each batch four times, small and large index in turns (small, large,
-    # large, small): one batch's wall time varies by more than the modes
-    # differ; the host timers say where the time went
+    # each batch twice, small and large index in turns (small, large): one
+    # batch's wall time varies by more than the modes differ, so the rates
+    # are no comparison of the modes; the host timers say where the time
+    # went
     rates = {}
     replay = host_timers([(m.traj_replay, "run_replays")])
     for label, data, run, batch, want, unit in (
@@ -2295,7 +2403,7 @@ def large_phase(a, m, ctx):
         big_data = rep_l if data is ctx["data"] else eco_l
         walls = {"small": [], "large": []}
         spent = {"small": {}, "large": {}}
-        for turn, tag in enumerate(("small", "large", "large", "small")):
+        for turn, tag in enumerate(("small", "large")):
             r0 = replay.get("run_replays", 0.0)
             rec.take()
             if tag == "large":
@@ -2318,14 +2426,14 @@ def large_phase(a, m, ctx):
             acc = spent[tag]
             for k, v in out[1].metrics.counters.items():
                 if k.startswith("t_"):
-                    acc[k] = acc.get(k, 0.0) + v / 2
+                    acc[k] = acc.get(k, 0.0) + v
             acc["run_replays"] = acc.get("run_replays", 0.0) + (
-                replay.get("run_replays", 0.0) - r0) / 2
-        rates[label] = tuple(len(batch) * 2 / sum(walls[t])
+                replay.get("run_replays", 0.0) - r0)
+        rates[label] = tuple(len(batch) / sum(walls[t])
                              for t in ("small", "large"))
         log(f"forced large {label}: {len(batch)} {unit} a run, "
-            f"{rates[label][1]:.1f} {unit}/s over two runs (small index, "
-            f"same batch, in turns: {rates[label][0]:.1f}); wall s small "
+            f"{rates[label][1]:.1f} {unit}/s (small index, same batch, "
+            f"the run before: {rates[label][0]:.1f}); wall s small "
             f"{[round(x, 3) for x in walls['small']]}, large "
             f"{[round(x, 3) for x in walls['large']]}; host s a run small "
             f"{({k: round(v, 3) for k, v in sorted(spent['small'].items())})}"
@@ -2497,7 +2605,8 @@ def multihost_runs(m, edata, codes, quals):
 
 def sharded_half(m, h, S, large=False):
     """An FM half split into S shards on its own card (the tables of
-    index/fmindex.py ShardedFMHalf), in the large row mode or its own."""
+    index/fmindex.py ShardedFMHalf), in the large row mode or its own (the
+    int64 mode's occ_cp64 split as fm_blocks is)."""
     dev = h.fchr.device
 
     def split(t):
@@ -2505,7 +2614,8 @@ def sharded_half(m, h, S, large=False):
     return m.ShardedFMHalf(
         n=h.n, z_off=h.z_off, fm_blocks=split(h.fm_blocks), fchr=h.fchr,
         ftab=h.ftab, mark_rows=split(h.mark_rows), offs=split(h.offs),
-        row_dtype=torch.int64 if large else h.row_dtype)
+        row_dtype=torch.int64 if large else h.row_dtype,
+        occ_cp64=split(h.occ_cp64) if h.i64 else None)
 
 
 def k12_work(rows, idx):
@@ -2649,15 +2759,16 @@ def shard_phase(a, m, ctx):
     for k, (gg, want) in enumerate(zip(pg4, pe_rep)):
         differ(f"PE batch {k}, 4 shards vs replicated", gg, want)
     differ("PE batch 0, 4 shards vs CPU", pg4[0], ctx["pe_cpu0"])
-    (g8, al8), w8, ln8 = counted("sharded SE, 8 shards",
-                                 lambda: se_run(ctx["data"], 8, se_batches),
-                                 sh_int + ["ref_gather_aligned_sh"])
+    # 8 shards: the first batch only (the second is the 4-shard run's)
+    (g8, al8), w8, ln8 = counted(
+        "sharded SE, 8 shards",
+        lambda: se_run(ctx["data"], 8, se_batches[:1]),
+        sh_int + ["ref_gather_aligned_sh"])
     rec.take()
-    for k, (gg, want) in enumerate(zip(g8, ctx["groups"])):
-        differ(f"SE batch {k}, 8 shards vs replicated", gg, want)
+    differ("SE batch 0, 8 shards vs replicated", g8[0], ctx["groups"][0])
     differ("SE batch 0, 8 shards vs CPU", g8[0], ctx["cpu_groups"])
-    log(f"sharded SE (8 shards): {nreads} reads in {w8:.2f} s; launches "
-        f"{ln8}")
+    log(f"sharded SE (8 shards): {len(se_batches[0])} reads in {w8:.2f} s; "
+        f"launches {ln8}")
 
     # ---- (d) the data mesh ----
     t1 = time.time()
@@ -2908,6 +3019,293 @@ def shard_phase(a, m, ctx):
     return entries
 
 
+def pad_genome(data, P):
+    """`data` behind an all-N reference of P bp (a multiple of 32), laid
+    out as the port's builder lays one out (the same tables, field for
+    field, as build_index_from_refs on [("pad", P Ns)] + the references):
+    reference words 0 and N bits set across it, nothing in the joined
+    text; numpy, without rebuilding the index."""
+    words = np.zeros(P // 16 + data.ref_words.size, np.uint32)
+    words[P // 16:] = data.ref_words
+    nwords = np.empty(P // 32 + data.refn_words.size, np.uint32)
+    nwords[:P // 32] = 0xFFFFFFFF
+    nwords[P // 32:] = data.refn_words
+    return dataclasses.replace(
+        data, ref_names=["pad"] + list(data.ref_names),
+        ref_lens=np.concatenate([[P], data.ref_lens]).astype(np.int64),
+        ref_cum=np.concatenate([[0], P + data.ref_cum]).astype(np.int64),
+        seg_global_start=data.seg_global_start + P, ref_words=words,
+        refn_words=nwords)
+
+
+def int64_phase(a, m, ctx):
+    """Phase 15, the int64 row mode on the card (see the module's
+    docstring). m: the port's modules; ctx: what earlier phases made.
+    Returns the `kernels` entries of the eight `_i64` entries."""
+    t_phase = time.time()
+    fm, build, rec, pol = m.fm, m._build, ctx["rec"], ctx["pol"]
+    dev = torch.device("cuda")
+    checks = {}
+    i64_launch = {}
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def launched(label, fn, want):
+        """fn() with the counts set to 0 just before and read just after:
+        no plain version may run, no FM entry of another row mode may
+        launch, and each entry in `want` must."""
+        torch.cuda.synchronize()
+        build.reset_counts()
+        t1 = time.time()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except Exception as e:
+            fail(f"{label}: {type(e).__name__}: {e}")
+        wall = time.time() - t1
+        ln, pl = dict(build.LAUNCHES), dict(build.PLAIN_CALLS)
+        if pl:
+            fail(f"{label}: plain versions ran on the card: {pl}")
+        other = [k for k in ln if k.startswith(("fm_", "sa_resolve"))
+                 and not k.endswith("_i64")]
+        if other:
+            fail(f"{label}: FM entries of another row mode launched: "
+                 f"{other}")
+        missing = [k for k in want if not ln.get(k)]
+        if missing:
+            fail(f"{label}: never launched {missing}")
+        for k in I64_KERNELS:
+            i64_launch[k] = i64_launch.get(k, 0) + ln.get(k, 0)
+        return out, wall, ln
+
+    flat = [k for k in I64_KERNELS if "_sh" not in k]
+    sharded = [k for k in I64_KERNELS if "_sh" in k]
+    plains = {"fm_sweep": fm._sweep_plain, "fm_substring": fm._substring_plain,
+              "fm_seed": fm._seed_plain, "sa_resolve": fm._resolve_plain}
+
+    # (a) the eight entries past 2^32 rows, on ops/cases.py i64_fm_case,
+    # flat and split into I64_SHARDS shards on the card
+    t1 = time.time()
+    c = m.cases.i64_fm_case(seed=a.seed)
+    t_case = time.time() - t1
+    half = m.half_from_tables(c.n, c.z_off, c.fm_blocks, c.fchr, c.ftab,
+                              c.mark_rows, c.offs, True, dev,
+                              occ_cp64=c.occ_cp64)
+    if not half.i64:
+        fail("i64_fm_case's half is not in the int64 row mode")
+    targs = {
+        "fm_sweep": (half, put(c.sweep_rr)),
+        "fm_substring": (half, put(c.substring_rr)),
+        "fm_seed": (half, put(c.seeds), put(c.seed_valid), c.seed_len,
+                    c.ftab_chars),
+        "sa_resolve": (half, put(c.resolve_rows), 32)}
+    log(f"int64 table: {c.n + 1} rows ({half.fm_blocks.shape[0]} blocks; "
+        f"fm_blocks {nbytes(half.fm_blocks) / 1e9:.3f} GB, occ_cp64 "
+        f"{nbytes(half.occ_cp64) / 1e9:.3f} GB, mark_rows "
+        f"{nbytes(half.mark_rows) / 1e9:.3f} GB, offs "
+        f"{nbytes(half.offs) / 1e9:.3f} GB on the card), fchr "
+        f"{c.fchr.tolist()}, made on the host in {t_case:.1f} s")
+    del c
+    shalf = sharded_half(m, half, I64_SHARDS)
+    big = {}
+    for name, (wrapper, _src, _repl) in I64_KERNELS.items():
+        args = targs[wrapper]
+        if "_sh" in name:
+            args = (shalf,) + args[1:]
+        kern = getattr(rec, "orig_" + wrapper)
+        build.reset_counts()
+        got, err = max_err(kern, plains[wrapper], args)
+        if not build.LAUNCHES.get(name):
+            fail(f"{name}: the int64 table launched "
+                 f"{dict(build.LAUNCHES)}")
+        out0 = got[0] if isinstance(got, tuple) else got
+        past = int((out0 >= PAST_ROW_I64).sum())
+        if past == 0:
+            fail(f"{name}: no result past 2^32")
+        ms = time_cuda(lambda: kern(*args), a.reps)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        plains[wrapper](*args)
+        e1.record()
+        torch.cuda.synchronize()
+        # the function's work on the flat half (the same rows and offsets
+        # whatever holds them)
+        if wrapper == "sa_resolve":
+            byt, ops, _facts = resolve_work(fm, targs[wrapper])
+        else:
+            byt, lf, _facts = fm_work(fm, wrapper, targs[wrapper])
+            ops = lf * OPS_LF
+        big[name] = dict(err=err, ms=ms, plain_ms=e0.elapsed_time(e1),
+                         bytes_ms=byt / PEAK_BYTES_S * 1e3,
+                         ops_ms=ops / PEAK_OPS_S * 1e3, past=past,
+                         shape=[list(t.shape) for t in args
+                                if isinstance(t, torch.Tensor)][:1])
+        log(f"int64 kernel {name} on the int64 table: max_abs_err={err}; "
+            f"{past} of {out0.numel()} results (SA walk: offsets) past "
+            f"2^32; ms={ms:.4f} plain_ms={big[name]['plain_ms']:.3f} "
+            f"bound_ms={max(big[name]['bytes_ms'], big[name]['ops_ms']):.5f}"
+            f" (bytes {big[name]['bytes_ms']:.5f}, operations "
+            f"{big[name]['ops_ms']:.5f}) shape {big[name]['shape']}")
+    del targs, half, shalf
+    torch.cuda.empty_cache()
+
+    # (b) the earlier cells' genomes forced into the int64 mode: the first
+    # SE batch (flat, and over I64_SHARDS shards), the first PE batch
+    # (fused path) and the first long reads, each against its small-index
+    # run of the earlier phases. Each aligner is made over the genome's
+    # forced-large index of phase 13 (int64 segment tables) and takes the
+    # int64 index in place of its own, as a genome past 2^32 rows has it.
+    def int64_aligner(cls, data, shard_mesh=None):
+        al = cls(data, pol, shard_mesh=shard_mesh)
+        al.idx = m.FMIndex.from_host(data, al.device, int64_rows=True)
+        if shard_mesh is not None:
+            al.sidx = m.shard_index(data, shard_mesh, al.device,
+                                    int64_rows=True)
+        return al
+
+    def se_run(data, recs, **kw):
+        al = int64_aligner(m.UnpairedAligner, data, **kw)
+        return al.collect_raw(al.submit(recs)), al
+
+    rec.take()
+    (g_se, al_se), w_se, ln_se = launched(
+        "int64 repcorpus SE", lambda: se_run(ctx["rep_l"], ctx["chunk0"]),
+        flat)
+    main_args = rec.take()
+    if not al_se.idx.fw.i64:
+        fail("the forced aligner's index is not in the int64 row mode")
+    nd = sum(1 for x, y in zip(g_se, ctx["groups0"]) if x != y)
+    checks["int64 repcorpus SE"] = nd
+    log(f"int64 repcorpus SE: {len(ctx['chunk0'])} reads in {w_se:.2f} s; "
+        f"launches {ln_se}; vs the small index's run: {nd} groups differ")
+    if nd or len(g_se) != len(ctx["groups0"]):
+        fail(f"int64 repcorpus SE: {nd} groups differ")
+    mesh = m.make_mesh(devices=[dev] * I64_SHARDS, axis="shard")
+    (g_sh, al_sh), w_sh, ln_sh = launched(
+        f"int64 repcorpus SE, {I64_SHARDS} shards",
+        lambda: se_run(ctx["rep_l"], ctx["chunk0"], shard_mesh=mesh),
+        sharded)
+    if not al_sh.sidx.fw.i64:
+        fail("the sharded index is not in the int64 row mode")
+    nd = sum(1 for x, y in zip(g_sh, ctx["groups0"]) if x != y)
+    checks[f"int64 repcorpus SE, {I64_SHARDS} shards"] = nd
+    log(f"int64 repcorpus SE over {I64_SHARDS} shards: {w_sh:.2f} s; "
+        f"launches {ln_sh}; vs the small index's run: {nd} groups differ")
+    if nd or len(g_sh) != len(ctx["groups0"]):
+        fail(f"int64 sharded SE: {nd} groups differ")
+    del al_se, al_sh
+
+    def pe_run():
+        al = int64_aligner(m.PairedAligner, ctx["eco_l"])
+        fb = al.submit(ctx["pe_batch0"])
+        if isinstance(fb, tuple):
+            fail(f"int64 PE took the {fb[0]} path, not the fused one")
+        return al.collect_raw(fb)
+    g_pe, w_pe, ln_pe = launched("int64 E. coli-sim PE", pe_run, flat)
+    nd = sum(1 for x, y in zip(g_pe, ctx["pe_groups0"]) if x != y)
+    checks["int64 E. coli-sim PE"] = nd
+    log(f"int64 E. coli-sim PE: {len(ctx['pe_batch0'])} pairs in "
+        f"{w_pe:.2f} s; launches {ln_pe}; vs the small index's run: {nd} "
+        f"groups differ")
+    if nd or len(g_pe) != len(ctx["pe_groups0"]):
+        fail(f"int64 PE: {nd} pairs differ")
+    (g_lg, _al), w_lg, ln_lg = launched(
+        "int64 long reads", lambda: se_run(ctx["eco_l"], ctx["long_first"]),
+        ["fm_seed_i64", "sa_resolve_i64"])
+    nd = sum(1 for x, y in zip(g_lg, ctx["long_groups"]) if x != y)
+    checks["int64 long reads"] = nd
+    log(f"int64 long reads: {len(ctx['long_first'])} reads in {w_lg:.2f} s;"
+        f" launches {ln_lg}; vs the small index's run: {nd} groups differ")
+    if nd or len(g_lg) != len(ctx["long_groups"]):
+        fail(f"int64 long reads: {nd} groups differ")
+
+    # (c) single end past 2^32 global coordinates, and the paired-end
+    # refusal there
+    t1 = time.time()
+    d_pad = pad_genome(ctx["edata"], I64_PAD_BP)
+    log(f"padded genome: references {d_pad.ref_names} of "
+        f"{d_pad.ref_lens.tolist()} bp, global coordinates to "
+        f"{int(d_pad.ref_cum[-1])}; laid out in {time.time() - t1:.1f} s")
+    try:
+        m.PairedAligner(d_pad, pol)
+        fail("the PairedAligner took an index past 2^32 - 4096")
+    except NotImplementedError as e:
+        if "ROADMAP.md" not in str(e):
+            fail(f"the paired-end refusal does not name ROADMAP.md: {e}")
+        log(f"paired-end refusal past 2^32 - 4096: {e}")
+    se_recs = [m.SeqRecord(name=f"e{i}", seq=ctx["se_codes"][i].astype(
+        np.uint8), qual=ctx["se_quals"][i]) for i in range(a.batch)]
+
+    def se_pad():
+        al = m.UnpairedAligner(d_pad, pol)
+        if not al.idx.fw.large or al.idx.ref_cum.dtype != torch.int64:
+            fail("the padded genome's index is not in the large mode")
+        return al.collect_raw(al.submit(se_recs))
+    g_pad, w_pad, ln_pad = (None, 0.0, {})
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t1 = time.time()
+    try:
+        g_pad = se_pad()
+        torch.cuda.synchronize()
+    except Exception as e:
+        fail(f"SE past 2^32: {type(e).__name__}: {e}")
+    w_pad, ln_pad = time.time() - t1, dict(build.LAUNCHES)
+    if build.PLAIN_CALLS:
+        fail(f"SE past 2^32: plain versions ran: {dict(build.PLAIN_CALLS)}")
+    al_g = m.UnpairedAligner(ctx["edata"], pol)
+    g_alone = al_g.collect_raw(al_g.submit(se_recs))
+    nd = sum(1 for x, y in zip(g_pad, g_alone) if x != y)
+    aligned = sum(1 for g in g_pad if not g[0][0] & 4)
+    checks["SE past 2^32 vs the genome alone"] = nd
+    log(f"SE past 2^32: {len(se_recs)} reads ({aligned} aligned) in "
+        f"{w_pad:.2f} s; launches {ln_pad}; vs the genome alone: {nd} "
+        f"groups differ")
+    if nd or len(g_pad) != len(g_alone):
+        fail(f"SE past 2^32: {nd} groups differ from the genome alone")
+    del d_pad, al_g
+    torch.cuda.empty_cache()
+
+    # each flat entry against its plain version on the forced main path's
+    # first call too
+    entries = []
+    for name, (wrapper, src, repl) in I64_KERNELS.items():
+        merr = 0
+        if "_sh" not in name:
+            if wrapper not in main_args:
+                fail(f"the int64 SE batch recorded no {wrapper} call")
+            kern = getattr(rec, "orig_" + wrapper)
+            merr = max_err(kern, plains[wrapper], main_args[wrapper])[1]
+        b = big[name]
+        e = max(b["err"], merr)
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=repl,
+            launches=i64_launch.get(name, 0), max_abs_err=e, equal=e == 0,
+            ms=round(b["ms"], 4), plain_ms=round(b["plain_ms"], 3),
+            bound_ms=round(max(b["bytes_ms"], b["ops_ms"]), 5),
+            bytes_ms=round(b["bytes_ms"], 5), ops_ms=round(b["ops_ms"], 5),
+            bound_by="bytes" if b["bytes_ms"] >= b["ops_ms"]
+            else "operations",
+            library_ms=None, shape=b["shape"], past_2_32=b["past"],
+            ptxas=ptxas_of(build, name, os.path.splitext(
+                os.path.basename(src))[0]))
+        entries.append(entry)
+        log(f"kernel {name}: equal={e == 0} max_abs_err on the int64 table "
+            f"{b['err']}, the forced main path's first call {merr}; "
+            f"launches on the int64 runs {entry['launches']}; ms="
+            f"{b['ms']:.4f} plain_ms={b['plain_ms']:.3f} bound_ms="
+            f"{entry['bound_ms']}; ptxas {entry['ptxas']}")
+    missing = [k for k in I64_KERNELS if not i64_launch.get(k)]
+    if missing:
+        fail(f"int64 entries never launched on the int64 runs: {missing}")
+    log(f"int64-mode checks (groups differing): {json.dumps(checks)}; "
+        f"int64 launches {i64_launch}; phase 15: "
+        f"{time.time() - t_phase:.1f} s")
+    return entries
+
+
 def _sharded_of(half):
     """The half's ShardedRows of fm_blocks, or None for a flat half."""
     fmb = getattr(half, "fm_blocks", None)
@@ -2953,6 +3351,7 @@ def main() -> None:
         from bowtie2_tpu_torch.dist.mesh import make_mesh
         from bowtie2_tpu_torch.index.build import save_index
         from bowtie2_tpu_torch.index.fmindex import ShardedFMHalf
+        from bowtie2_tpu_torch.dist.sharded import shard_index
         from bowtie2_tpu_torch.ops import ref as ref_mod
         mrc = load_repcorpus()
     except (ImportError, FileNotFoundError) as e:
@@ -3006,7 +3405,7 @@ def main() -> None:
     rec = Recorder(fm, sw, fused, bulk={
         "backtrace": BT_WARP_WALKS_PER_SM * props.multi_processor_count,
         "sa_resolve": threads, "fm_seed": None, "fm_substring": None})
-    holder = Holder(ref_mod, fused, align_mod)
+    holder = Holder(ref_mod, fused, align_mod, sw)
     holder.label = "SE main path"
     pol = make_policy("sensitive")
     aligner = UnpairedAligner(data, pol)
@@ -3055,7 +3454,7 @@ def main() -> None:
     if n_groups != len(records):
         fail(f"{n_groups} SAM groups for {len(records)} reads")
     missing = [k for k in list(KERNELS) + ["ref_gather_aligned",
-                                           "ref_gather"]
+                                           "ref_gather", K10SE[0]]
                if launches.get(k, 0) == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
@@ -3072,7 +3471,6 @@ def main() -> None:
     # the same run again, with a fresh aligner, under CUDA events: kept
     # apart from the timed window so that reads/s carries no spin or event
     timer = LaunchTimer(_build)
-    timer.wrap(fused, "diag_readout", "diag_readout")
     _build.reset_counts()
     t0 = time.time()
     try:
@@ -3362,25 +3760,25 @@ def main() -> None:
             win_sweep[name])
         kernels_out.append(k7_entries[name])
 
-    # K10, the SE gapless readout of the fused path (torch ops, no kernel)
-    if "diag_readout" not in e2e_args:
+    # K10 SE, the gapless readout of the fused path: its first call on the
+    # main path, every call the Holder kept, and every ops/cases.py
+    # readout_cases case at scale 1 and 8
+    if K10SE[0] not in holder.first:
         fail("the fused path never read a diagonal out")
-    dargs = e2e_args["diag_readout"]
-    readout = rec.orig_diag_readout
-    d_out = readout(*dargs)
-    d_ms = time_cuda(lambda: readout(*dargs), a.reps, spin=SPIN_TORCH_OPS)
-    d_reads, d_quals, _wins, d_rows, d_lanes, d_lens, _p = dargs
-    Bd, Ld = d_reads.shape
-    # reads, quals and the diagonal's window codes, each read once; rows,
-    # lanes, lengths; the outputs written
-    d_bytes = nbytes(d_reads, d_quals, d_rows, d_lanes, d_lens) + \
-        Bd * Ld * 4 + nbytes(*d_out)
-    d_total = dev_ms.get("diag_readout", [0.0, 0])
-    d_cupti, d_by, _r = cupti(lambda: readout(*dargs))
-    log(f"torch ops diag_readout (K10): shape {[Bd, Ld]} ms={d_ms:.4f} "
-        f"bound_ms={d_bytes / PEAK_BYTES_S * 1e3:.5f} (bytes) "
-        f"total_ms={d_total[0]:.4f} over {d_total[1]} calls (span upper "
-        f"bounds); CUPTI: {d_cupti} ms a call over {len(d_by)} kernels")
+    t0 = time.time()
+    ro_sweep = readout_sweep(cases, sw, holder, torch.device("cuda"))
+    log(f"exactness sweep of K10 SE (ops/cases.py readout_cases): "
+        f"{len(ro_sweep)} cases, max abs err "
+        f"{max(e for _, e in ro_sweep)} ({time.time() - t0:.1f} s)")
+    ro_args = holder.first[K10SE[0]][1]
+    kernels_out.append(new_entry(
+        K10SE[0], *K10SE[1:], holder, ro_args, readout_work, a.reps,
+        launches.get(K10SE[0], 0), dev_ms.get(K10SE[0], [0.0, 0]), _build,
+        ro_sweep, more=dict(library_reason="no single PyTorch call "
+                            "computes the readout (a gather along each "
+                            "diagonal, masked sums and the transposed op "
+                            "bytes)"),
+        shape=list(ro_args[0].shape) + [ro_args[2].shape[1]]))
 
     # one whole fused_se batch (the main path's first) under CUPTI: device
     # time by kernel, and by the torch-op regions between the kernels
@@ -3826,10 +4224,22 @@ def main() -> None:
         win_sweep=win_sweep))
     kernels_out.extend(shard_entries)
     ok &= all(e["equal"] for e in shard_entries)
+    holder.check("int64 row mode")
+
+    # ---------------- phase 15: the int64 row mode ----------------
+    phase(15, "the int64 row mode")
+    port_mods.shard_index = shard_index
+    i64_entries = int64_phase(a, port_mods, dict(
+        rec=rec, pol=pol, rep_l=large_ctx["rep_l"], chunk0=chunks[0],
+        groups0=groups[0], edata=edata, eco_l=large_ctx["eco_l"],
+        pe_batch0=batch0, pe_groups0=first_groups[0], long_first=long_first,
+        long_groups=long_groups, se_codes=se_codes, se_quals=se_quals))
+    kernels_out.extend(i64_entries)
+    ok &= all(e["equal"] for e in i64_entries)
     holder.check(None)
-    # every kept call of the new kernels, phases 13 and 14 included
+    # every kept call of the Holder's kernels, phases 13 to 15 included
     for e in kernels_out:
-        if e["name"] in K7 or e["name"] == K10PE[0]:
+        if e["name"] in K7 or e["name"] in (K10PE[0], K10SE[0]):
             e["checks"] = holder.checks.get(e["name"], {})
             e["max_abs_err"] = max(e["max_abs_err"],
                                    holder.max_err(e["name"]))

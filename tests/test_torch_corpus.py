@@ -144,16 +144,21 @@ def multiref_pairs(refs, n: int, seed: int = 11):
     return out
 
 
-def port_sam(data, kind: str, batch, entries=("collect", "collect_raw")):
+def port_sam(data, kind: str, batch, entries=("collect", "collect_raw"),
+             int64_rows=None):
     """The port's SAM (device="cpu") for one batch of numpy records, run in
     a process of its own by the tests that hold it beside the JAX
     package's run: kind "se" (reads (name, codes, quals)) or "pe" (pairs
     (name, codes 1, codes 2, quals 1, quals 2)). Returns {entry: output}
     of one submitted batch (`collect`: record lines, `collect_raw`:
     groups), "path": the kind of batch `submit` returned, and "counters":
-    the host-path batches and the reads the trajectory replay overrode."""
+    the host-path batches and the reads the trajectory replay overrode.
+    With `int64_rows` the aligner's index is put in the int64 row mode
+    (`data` built with large=True, whose segment tables are int64), as a
+    genome past 2^32 rows would be."""
     import torch
     torch.set_num_threads(1)
+    from bowtie2_tpu_torch.index.fmindex import FMIndex
     from bowtie2_tpu_torch.io.fastx import SeqRecord
     from bowtie2_tpu_torch.pipeline.align import UnpairedAligner
     from bowtie2_tpu_torch.pipeline.paired import PairedAligner
@@ -161,9 +166,14 @@ def port_sam(data, kind: str, batch, entries=("collect", "collect_raw")):
     pol = make_policy("sensitive")
     if kind == "se":
         al = UnpairedAligner(data, pol, device="cpu")
-        h = al.submit([SeqRecord(name=n, seq=c, qual=q) for n, c, q in batch])
     else:
         al = PairedAligner(data, pol, device="cpu")
+    if int64_rows:
+        assert al.idx.fw.large
+        al.idx = FMIndex.from_host(data, "cpu", int64_rows=True)
+    if kind == "se":
+        h = al.submit([SeqRecord(name=n, seq=c, qual=q) for n, c, q in batch])
+    else:
         h = al.submit([(SeqRecord(name=n, seq=a, qual=qa),
                         SeqRecord(name=n, seq=b, qual=qb))
                        for n, a, b, qa, qb in batch])

@@ -16,6 +16,7 @@ from bowtie2_tpu.index import build as jbuild  # noqa: E402
 from bowtie2_tpu.index.fmindex import FMIndex as JFMIndex  # noqa: E402
 from bowtie2_tpu_torch.index import build as pbuild  # noqa: E402
 from bowtie2_tpu_torch.index.fmindex import FMIndex as PFMIndex  # noqa: E402
+from bowtie2_tpu_torch.index.fmindex import row_mode  # noqa: E402
 from test_torch_corpus import corpus, n_refs_with_ns  # noqa: E402
 
 
@@ -91,10 +92,21 @@ def test_fmindex_tables_equal(kind):
 
 def test_large_index_mode_raises():
     """The uint32 large mode loads (tests/test_torch_zlarge.py holds it to
-    the JAX package); the int64 row mode past 2^32 rows still raises,
-    naming its ROADMAP.md item (the row count is checked first)."""
+    the JAX package), and an index of 2^32 rows or more loads in the int64
+    row mode, which raised before it was ported: occ_cp64 holds the full
+    checkpoints, fchr, ftab and offs are int64 tensors of the host values
+    (tests/test_torch_zzint64.py holds the mode to the JAX package)."""
     data = pbuild.build_index_from_refs(n_refs_with_ns(), large=True)
     assert PFMIndex.from_host(data, device="cpu").fw.large
+    assert row_mode(data) == "large"
     data.fw.n = (1 << 32) - 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PFMIndex.from_host(data, device="cpu")
+    assert row_mode(data) == "int64"
+    h = PFMIndex.from_host(data, device="cpu").fw
+    assert h.i64 and h.large and h.row_dtype == torch.int64
+    assert h.occ_cp64.dtype == torch.int64
+    assert tuple(h.occ_cp64.shape) == (data.fw.occ_cp.shape[0], 4)
+    np.testing.assert_array_equal(h.occ_cp64.numpy(), data.fw.occ_cp)
+    for f in ("fchr", "ftab", "offs"):
+        assert getattr(h, f).dtype == torch.int64, f
+        np.testing.assert_array_equal(getattr(h, f).numpy(),
+                                      getattr(data.fw, f), f)

@@ -18,7 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from bowtie2_tpu.index.build import build_index_from_refs  # noqa: E402
 from bowtie2_tpu.ops import ref as jref  # noqa: E402
 from bowtie2_tpu.ops import sw as jsw  # noqa: E402
-from bowtie2_tpu_torch.ops import cases  # noqa: E402
+from bowtie2_tpu_torch.ops import _build, cases  # noqa: E402
 from bowtie2_tpu_torch.ops import ref as pref  # noqa: E402
 from bowtie2_tpu_torch.ops import sw as psw  # noqa: E402
 from test_torch_corpus import (N_LIVE_KINDS, assert_live_region,  # noqa: E402
@@ -269,6 +269,30 @@ def test_backtrace_and_diag_readout(local):
                           q.row[sel], q.lane[sel], _t(lens[sel]), p)
     for a, b in zip(dj, dq):
         _eq(a, b)
+
+
+READOUT_CASES = cases.readout_cases()
+
+
+@pytest.mark.parametrize("k", range(len(READOUT_CASES)),
+                         ids=[c.name for c in READOUT_CASES])
+def test_diag_readout_plain_matches_jax_on_cases(k):
+    """The readout's plain version (the one CPU tensors take) against the
+    JAX op on every ops/cases.py readout case: every output exact."""
+    c = READOUT_CASES[k]
+    args = (c.reads, c.quals, c.wins, c.rows, c.lanes, c.lens)
+    dj = jsw.diag_readout(*map(jnp.asarray, args), jsw.SWParams(**c.params))
+    _build.reset_counts()
+    dq = psw.diag_readout(*map(_t, args), psw.SWParams(**c.params))
+    assert _build.PLAIN_CALLS["diag_readout"] == 1 and not _build.LAUNCHES
+    assert dq[0].shape == (c.reads.shape[1], c.reads.shape[0])
+    assert dq[0].dtype == torch.uint8 and dq[5].dtype == torch.bool
+    for f, a, b in zip(("ops", "dscore", "n_mm", "n_refn", "base", "ok"),
+                       dj, dq):
+        _eq(a, b, f)
+    # the case reaches its edges: diagonals out of the window, N, OP_NONE
+    assert not dq[5].all() or c.reads.shape[1] == 1
+    assert (dq[0].numpy() == psw.OP_NONE).any() or c.reads.shape[1] == 1
 
 
 def _pallas_or_skip():

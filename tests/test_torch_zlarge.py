@@ -17,19 +17,22 @@ output, byte-identical for SAM.
   cases over the forced-large half, and on `large_fm_case` at a small row
   count.
 - `_u32pos` against the JAX package's at the edges of its range; the
-  raise of `FMIndex.from_host` past 2^32 rows; the port's CLI `align` and
-  `inspect` on a large index saved to disk.
+  int64 row mode that `FMIndex.from_host` takes past 2^32 rows, the
+  paired-end refusal at 2^32 - 4096 global coordinates and single-end
+  alignment past 2^32; the port's CLI `align` and `inspect` on a large
+  index saved to disk.
 
 The JAX package's `FMIndex.from_host` turns on jax_enable_x64 for the
 whole process when it loads a large index: the file sorts after every
 other test_torch_* file, and a module fixture puts the flag back when it
 ends, since the suite's workers take files largest first, not by name."""
 
+import dataclasses
 import io
 import multiprocessing
 import os
 from concurrent.futures import ProcessPoolExecutor
-from contextlib import redirect_stdout
+from contextlib import redirect_stderr, redirect_stdout
 
 import numpy as np
 import pytest
@@ -54,10 +57,14 @@ from bowtie2_tpu_torch.cli.main import main as pmain  # noqa: E402
 from bowtie2_tpu_torch.index import build as pbuild  # noqa: E402
 from bowtie2_tpu_torch.index.fmindex import FMIndex as PFMIndex  # noqa: E402
 from bowtie2_tpu_torch.index.fmindex import half_from_tables  # noqa: E402
+from bowtie2_tpu_torch.io.fastx import SeqRecord as PRec  # noqa: E402
 from bowtie2_tpu_torch.ops import cases  # noqa: E402
 from bowtie2_tpu_torch.ops import fm as pfm  # noqa: E402
 from bowtie2_tpu_torch.pipeline.align import _u32pos as p_u32pos  # noqa: E402
+from bowtie2_tpu_torch.pipeline.align import UnpairedAligner as PAligner  # noqa: E402
 from bowtie2_tpu_torch.pipeline.paired import FusedPEBatch  # noqa: E402
+from bowtie2_tpu_torch.pipeline.paired import PairedAligner as PPaired  # noqa: E402
+from bowtie2_tpu_torch.pipeline.policy import make_policy as ppolicy  # noqa: E402
 from test_torch_cli import _fastq, _sam  # noqa: E402
 from test_torch_cli_lambda import GOLDEN_PE, rebuild_lambda  # noqa: E402
 from test_torch_corpus import corpus, port_sam  # noqa: E402
@@ -254,27 +261,78 @@ def test_u32pos_matches_jax():
                                 (1 << 32) - 4097, -4096])
 
 
-def test_from_host_raises_past_2_32_rows(lam):
-    """The int64 row mode is not ported: a joined text of 2^32 - 1 bp
-    (2^32 rows) raises, naming its ROADMAP.md item (a stub: no table is
-    built or read before the check)."""
-    large = lam[4]
-    stub = pbuild.IndexData(
-        ref_names=["big"], ref_lens=np.array([1 << 32]),
-        ref_cum=np.array([0, 1 << 32]), seg_joined_start=np.zeros(1),
-        seg_global_start=np.zeros(1), seg_len=np.array([(1 << 32) - 1]),
-        ref_words=np.zeros(1, np.uint32), refn_words=np.zeros(1, np.uint32),
-        fw=pbuild.HalfIndex(n=(1 << 32) - 1, z_off=0, bwt_words=None,
-                            occ_cp=np.zeros((1, 4), np.int64), fchr=None,
-                            ftab=None, ftab_chars=10))
+def pad_index(data, P: int):
+    """`data` behind a leading all-N reference of P bp (a multiple of 32):
+    its global coordinates shift by P, its joined text stays the same (an
+    all-N reference adds nothing to it). The words of the leading
+    reference are left zero and untouched (np.zeros pages stay unmapped):
+    no window reads them, since a position outside its read's reference
+    is code 5 whatever its words hold."""
+    words = np.zeros(P // 16 + data.ref_words.size, np.uint32)
+    words[P // 16:] = data.ref_words
+    nwords = np.zeros(P // 32 + data.refn_words.size, np.uint32)
+    nwords[P // 32:] = data.refn_words
+    return dataclasses.replace(
+        data, ref_names=["pad"] + list(data.ref_names),
+        ref_lens=np.concatenate([[P], data.ref_lens]).astype(np.int64),
+        ref_cum=np.concatenate([[0], P + data.ref_cum]).astype(np.int64),
+        seg_global_start=data.seg_global_start + P, ref_words=words,
+        refn_words=nwords)
+
+
+def test_from_host_raises_past_2_32_rows(lam, tmp_path):
+    """from_host raised past 2^32 rows and past 2^32 - 4096 global
+    coordinates before the int64 row mode was ported. Now a joined text of
+    2^32 - 1 bp (2^32 rows) loads in the int64 mode (occ_cp64 present,
+    fchr, ftab and offs int64; tests/test_torch_zzint64.py holds the mode
+    to the JAX package). At 2^32 - 4096 global coordinates the
+    PairedAligner (and the CLI's -1/-2) refuses, naming ROADMAP.md §3,
+    since the paired-end exports' int32 position words no longer decode
+    (a limit of the JAX package), while single-end alignment runs: the
+    lambda phage behind an all-N reference of 2^32 bp aligns as alone."""
+    name, g, m1, small, large = lam[:5]
+    big = dataclasses.replace(large, fw=dataclasses.replace(
+        large.fw, n=(1 << 32) - 1))
+    h = PFMIndex.from_host(big, device="cpu").fw
+    assert h.i64 and h.large and h.occ_cp64.dtype == torch.int64
+    assert all(getattr(h, f).dtype == torch.int64
+               for f in ("fchr", "ftab", "offs"))
+    assert not PFMIndex.from_host(large, device="cpu").fw.i64
+    # the paired-end refusal, at the line and past it (stub coordinates:
+    # the aligner refuses before it reads a table)
+    edge = dataclasses.replace(small, ref_cum=np.array(
+        [0, (1 << 32) - 4096], np.int64))
+    pol = ppolicy("sensitive")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PFMIndex.from_host(stub, device="cpu")
-    # rows below 2^32, global coordinates at the decode's limit
-    stub.fw.n = 1000
-    stub.ref_cum = np.array([0, (1 << 32) - 4096])
+        PPaired(edge, pol, device="cpu")
+    prefix = os.path.join(str(tmp_path), "edge")
+    pbuild.save_index(edge, prefix)
+    fq1, fq2 = (os.path.join(str(tmp_path), f"r{k}.fq") for k in (1, 2))
+    _fastq(fq1, m1[:4])
+    _fastq(fq2, m1[:4])
+    err = io.StringIO()
+    with redirect_stderr(err):
+        rc = pmain(["align", "-x", prefix, "-1", fq1, "-2", fq2, "-S",
+                    os.path.join(str(tmp_path), "pe.sam"), "--device",
+                    "cpu"])
+    assert rc == 1 and "ROADMAP.md" in err.getvalue()
+    below = dataclasses.replace(small, ref_cum=np.array(
+        [0, (1 << 32) - 4097], np.int64))
+    assert PPaired(below, pol, device="cpu").idx.fw.large
+    # single end past 2^32
+    pad = pad_index(small, 1 << 32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PFMIndex.from_host(stub, device="cpu")
-    assert PFMIndex.from_host(large, device="cpu").fw.large
+        PPaired(pad, pol, device="cpu")
+    recs = [PRec(name=n, seq=_codes(sq), qual=_quals(q))
+            for n, sq, q in m1[:32]]
+    runs, modes = [], []
+    for data in (pad, small):
+        al = PAligner(data, pol, device="cpu")
+        runs.append(al.collect_raw(al.submit(recs)))
+        modes.append((al.idx.fw.large, al.idx.fw.i64))
+    assert modes == [(True, False), (False, False)] and len(runs[0]) == 32
+    assert sum(1 for grp in runs[0] if not grp[0][0] & 4) > 24
+    assert runs[0] == runs[1]
 
 
 # ---------------------------------------------------------------------------
