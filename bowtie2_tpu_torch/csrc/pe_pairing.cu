@@ -1,4 +1,5 @@
-// Kernel K10 PE: the device half of the paired-end pairing, one warp a pair.
+// Kernel K10 PE: the device half of the paired-end pairing, a pair to a
+// group of TT lanes (TT = 16: two pairs a warp; TT = 32: one).
 //
 // Replaces: bowtie2_tpu/ops/fused.py:721 _pe_pairing with
 // bowtie2_tpu/pipeline/pe.py:170 pe_classify_jnp, about 30 XLA ops over
@@ -8,16 +9,17 @@
 // concordant combination by a packed (score sum, rank, rank) key, and each
 // read's two ranked heads.
 //
-// Here a warp takes pair p, reads p (mate 1) and Bp + p (mate 2), T <= 32
-// slots each: lane j holds slot j of both reads. What the JAX op computes
-// over a (T, T) mask a lane computes over a loop of T steps, the other
-// slot's fields by shuffle; what it reduces over a read's slots is a
-// ballot or a warp reduction. The combinations (i, k) live on lane i, a
-// bit k of its concordance mask. Ties break as the JAX ops' argmax and
-// argmin do, on the first index: a lane keeps its first best in k order,
-// and the warp reduction orders by (key, flat index). The second best
-// combination masks only the best's index, with KMIN, which then still
-// competes at its own index, as in the JAX op.
+// A group takes pair p, reads p (mate 1) and Bp + p (mate 2), T <= TT
+// slots each: lane j holds slot j of both reads (slots j >= T dead). What
+// the JAX op computes over a (T, T) mask a lane computes over a loop of the
+// other read's slots; what it reduces over a read's slots is a ballot or a
+// reduction over the group's lanes. The combinations (i, k) live on lane
+// i, a bit k of its masks. Ties break as the JAX ops' argmax and argmin do,
+// on the first index: a lane keeps its first best in (key, k) order, and
+// the group's maximum key then least flat index i T + k (T the true slot
+// count) picks the pair's. The second best combination masks only the
+// best's index, with KMIN, which then still competes at its own index, as
+// in the JAX op.
 //
 // Integers wrap as in the JAX op: extents are int32, or int64 in the large
 // index mode (template P), and their differences wrap in P; the score sum
@@ -25,19 +27,37 @@
 // within int32 for every combination it keeps). Positions are written
 // wrapped to int32, as the JAX op's int32 casts write them.
 //
-// Bound on the card: a few hundred bytes a pair in, 100 out; the pair's
-// work is its dependency chain of T-step shuffle loops, short next to the
-// launch, so the kernel is latency-bound: the design keeps a pair in one
-// warp with no shared memory or barrier.
+// Bound on the card: a few hundred bytes a pair in, 100 out, so the bytes
+// bound is far below the work, the pair's chain of loops over slots and of
+// reductions over them, a few thousand cycles of latency. Brought by
+// shuffles, four to six a loop step, the other slot's fields would cost a
+// warp several hundred shuffles; and a warp intrinsic over 16 lanes costs
+// several times its latency over 32 (a reduction about 235 cycles against
+// 47, a ballot 175 against 28). So:
+// - TT is a template (16 for T <= 16, the PE main path's slot count, else
+//   32): a pair takes TT lanes, and at T <= 16 a warp runs two pairs. Every
+//   warp intrinsic runs on all 32 lanes and each half takes its own part of
+//   the result (Group), so a half-warp past the last pair runs beside the
+//   other with no slots.
+// - Each slot's fields are staged once in shared memory as a record (Rec),
+//   so a loop step reads the other slot's fields with broadcast loads. Each
+//   loop visits only the slots that can matter, as the union of the warp's
+//   two pairs (one path for the warp), without branches in its body: the
+//   valid slots (the dedupe of both reads in one loop), the mate-2
+//   representatives (concordance), the mate-2 slots some lane keeps (the
+//   best two combinations, in one pass).
+// - Reductions over a pair are redux.sync (__reduce_*_sync): one packed add
+//   gives a read's three slot counts, one OR a read's heads by rank, and a
+//   max, a ballot and a shuffle the first argmax.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int WARPS = 4;              // warps (pairs) a block
+constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int KMIN = -2147483647;     // -(1 << 31) + 1
-constexpr int NORANK = 32;            // a rank past every slot (T <= 32)
 constexpr int READ_FIELDS = 10;
 constexpr int PAIR_FIELDS = 15;
 
@@ -73,7 +93,8 @@ struct In {
 };
 
 // pe_classify (pipeline/pe.py) with expand-to-fit, reduced to what the
-// pairing reads of it: whether the combination is not PE_DISCORD
+// pairing reads of it: whether the combination is not PE_DISCORD (bitwise
+// operators: the loops that call it stay free of branches)
 template <typename P>
 __device__ __forceinline__ bool concordant(const Pairing& pr, P lo1, P hi1,
                                            bool fw1, P lo2, P hi2,
@@ -85,37 +106,42 @@ __device__ __forceinline__ bool concordant(const Pairing& pr, P lo1, P hi1,
     const bool compat = (pr.policy <= 1) ? (fw1 == fw2) : (fw1 != fw2);
     const bool one_left = (pr.policy & 1) ? !fw1 : fw1;
     const P frag = sub1(hi1 > hi2 ? hi1 : hi2, lo1 < lo2 ? lo1 : lo2);
-    bool ok = compat && frag <= mx && frag >= mn;
-    const bool contain = (lo1 >= lo2 && hi1 <= hi2) ||
-                         (lo2 >= lo1 && hi2 <= hi1);
-    const bool olap = contain || (lo1 <= lo2 && lo2 <= hi1) ||
-                      (lo1 <= hi2 && hi2 <= hi1);
-    if (!pr.olap_ok) ok = ok && !olap;
-    const bool wrong = !olap && ((one_left && lo2 < lo1) ||
-                                 (!one_left && lo1 < lo2));
-    ok = ok && !wrong;
-    if (!pr.contain_ok) ok = ok && !contain;
-    const bool dove = (one_left && (hi1 > hi2 || lo2 < lo1)) ||
-                      (!one_left && (hi2 > hi1 || lo1 < lo2));
-    if (!pr.dove_ok) ok = ok && !dove;
-    return ok;
+    const bool contain = ((lo1 >= lo2) & (hi1 <= hi2)) |
+                         ((lo2 >= lo1) & (hi2 <= hi1));
+    const bool olap = contain | ((lo1 <= lo2) & (lo2 <= hi1)) |
+                      ((lo1 <= hi2) & (hi2 <= hi1));
+    const bool wrong = !olap & (one_left ? lo2 < lo1 : lo1 < lo2);
+    const bool dove = one_left ? (hi1 > hi2) | (lo2 < lo1)
+                               : (hi2 > hi1) | (lo1 < lo2);
+    return compat & (frag <= mx) & (frag >= mn) & !wrong &
+           (pr.olap_ok | !olap) & (pr.contain_ok | !contain) &
+           (pr.dove_ok | !dove);
 }
 
-// one read's slot j: its fields, and its dedupe and rank over the read
+// one read's slot j, in a lane's registers
+template <typename P>
 struct Slot {
     bool a;            // a valid alignment
-    int s, o, r, cp, mm;
     bool occ, exact, half;
-    long long lo, hi;  // extents, widened from P
-    bool rep;          // the first of its (orient, end) group
-    int rank;          // rank under (not rep, -score, slot)
+    int s, o, r, cp, mm;
+    P lo, hi;
 };
 
+// a slot's fields as the other lanes read them, in shared memory
 template <typename P>
-__device__ __forceinline__ Slot load_slot(const In& in, long long row,
-                                          int j, int T) {
-    Slot x{};
-    if (j < T) {
+struct alignas(16) Rec {
+    P lo, hi;
+    int s, o, r, cp;
+    int rank;          // its rank, where it is a representative
+};
+
+// slot j of a read (row) of T slots, where j < Tp (T, or 0 in a group
+// without a pair)
+template <typename P>
+__device__ __forceinline__ Slot<P> load_slot(const In& in, long long row,
+                                             int j, int T, int Tp) {
+    Slot<P> x{};
+    if (j < Tp) {
         const long long i = row * T + j;
         x.a = __ldg(in.aok + i) != 0;
         x.s = __ldg(in.score + i);
@@ -126,191 +152,300 @@ __device__ __forceinline__ Slot load_slot(const In& in, long long row,
         x.occ = __ldg(in.occ + i) != 0;
         x.exact = __ldg(in.exact + i) != 0;
         x.half = __ldg(in.half + i) != 0;
-        x.lo = (long long)__ldg((const P*)in.lo + i);
-        x.hi = (long long)__ldg((const P*)in.hi + i);
+        x.lo = __ldg((const P*)in.lo + i);
+        x.hi = __ldg((const P*)in.hi + i);
     }
     return x;
 }
 
-// dedupe by (orient, end): a slot loses to a same-key slot of higher
-// score, or of equal score and earlier index; then the rank
-__device__ __forceinline__ void dedupe_rank(Slot& x, int j, int T) {
-    bool rep = x.a;
-    for (int k = 0; k < T; ++k) {
-        const int sk = __shfl_sync(FULL, x.s, k);
-        const int ok = __shfl_sync(FULL, x.o, k);
-        const long long hk = __shfl_sync(FULL, x.hi, k);
-        const bool ak = __shfl_sync(FULL, (int)x.a, k);
-        const bool bet = sk > x.s || (sk == x.s && k < j);
-        if (ok == x.o && hk == x.hi && x.a && ak && bet) rep = false;
-    }
-    x.rep = rep;
-    int rank = 0;
-    for (int k = 0; k < T; ++k) {
-        const int sk = __shfl_sync(FULL, x.s, k);
-        const bool nk = !__shfl_sync(FULL, (int)rep, k);
-        const bool n = !rep;
-        rank += (nk < n) || (nk == n && (sk > x.s || (sk == x.s && k < j)));
-    }
-    x.rank = rank;
-}
-
-// (key, flat index) ordered as argmax's first index: larger key, then
-// smaller index
-__device__ __forceinline__ void argmax_warp(int& key, int& flat) {
-    #pragma unroll
-    for (int d = 16; d >= 1; d >>= 1) {
-        const int k2 = __shfl_xor_sync(FULL, key, d);
-        const int f2 = __shfl_xor_sync(FULL, flat, d);
-        if (k2 > key || (k2 == key && f2 < flat)) {
-            key = k2;
-            flat = f2;
-        }
-    }
-}
-
-// a read's -D fast flags and attempted slots under the pair's suppression
-struct ReadFlags {
-    bool hostneed;     // not fast, or a suppressed read with half hits
-    bool suc;          // this slot attempted and in a concordant combination
-    int head_key;      // (rank << 5) | slot where attempted, else NORANK's
-    unsigned heads;    // the attempted representatives, as lanes
+// the lanes of one pair: the warp (TT = 32) or a half of it (TT = 16).
+// Every warp intrinsic runs on all 32 lanes (mask FULL; a mask of 16 lanes
+// costs several times the latency on this card) and each half unpacks its
+// own result: a ballot's half, or a reduction of values each shifted into
+// its half's 16 bits (OR, and sums that stay below 2^16), or, for the
+// maximum, one reduction a half. A loop over slots that a mask names runs
+// over both halves' union (`both`), so the warp runs it as one.
+struct Bits {
+    unsigned mine;     // the group's slots
+    unsigned both;     // the union with the other group of the warp
 };
 
-__device__ __forceinline__ ReadFlags read_flags(const Slot& x, bool succ,
-                                                bool supp, int limit, int j,
-                                                int T) {
+template <int TT>
+struct Group {
+    static constexpr unsigned BITS = TT == 32 ? FULL : 0xFFFFu;
+    int base;          // its first lane
+    __device__ __forceinline__ Group() : base((threadIdx.x & 31) & ~(TT - 1)) {}
+    // the group's bits of a full-warp value, and both groups' union
+    __device__ __forceinline__ Bits bits(unsigned r) const {
+        return {(r >> base) & BITS, TT == 32 ? r : (r | r >> 16) & BITS};
+    }
+    // a predicate of every lane as a bit of its slot
+    __device__ __forceinline__ Bits ballot(bool p) const {
+        return bits(__ballot_sync(FULL, p));
+    }
+    // the OR and the sum over the group, of values (and sums) below 2^TT
+    __device__ __forceinline__ Bits any(unsigned x) const {
+        return bits(__reduce_or_sync(FULL, x << base));
+    }
+    __device__ __forceinline__ unsigned sum(unsigned x) const {
+        return (__reduce_add_sync(FULL, x << base) >> base) & BITS;
+    }
+    __device__ __forceinline__ int max(int x) const {
+        if constexpr (TT == 32) {
+            return __reduce_max_sync(FULL, x);
+        } else {
+            const int m0 = __reduce_max_sync(FULL, base ? INT_MIN : x);
+            const int m1 = __reduce_max_sync(FULL, base ? x : INT_MIN);
+            return base ? m1 : m0;
+        }
+    }
+    // x of the group's lane for slot k
+    __device__ __forceinline__ int at(int x, int k) const {
+        return __shfl_sync(FULL, x, base + k);
+    }
+};
+
+// dedupe by (orient, end): a valid slot loses to a valid slot of the same
+// key of higher score, or of equal score and lower index. A read's slots
+// ahead of slot j and the same-key ones among them, as slot bits, one
+// other slot y (slot k) at a time; the representatives' rank is the number
+// of representatives ahead (the rank of another slot is never read)
+struct Ahead {
+    unsigned ahead = 0, beaten = 0;
+};
+
+template <typename P>
+__device__ __forceinline__ void dedupe_step(Ahead& d, const Rec<P>& y,
+                                            bool valid, const Slot<P>& x,
+                                            int k, int j) {
+    const bool bet = valid & ((y.s > x.s) | ((y.s == x.s) & (k < j)));
+    d.ahead |= (unsigned)bet << k;
+    d.beaten |= (unsigned)(bet & (y.o == x.o) & (y.hi == x.hi)) << k;
+}
+
+// a read's -D fast flags under the pair's suppression, from one packed
+// sum of its exact, half and seed hits over its slots
+struct ReadFlags {
+    bool att;          // this slot attempted
+    bool head;         // this slot a head (an attempted representative)
+    bool hostneed;     // not fast, or a suppressed read with half hits
+};
+
+template <typename P, int TT>
+__device__ __forceinline__ ReadFlags read_flags(const Slot<P>& x, bool rep,
+                                                bool supp, int limit,
+                                                const Group<TT>& g) {
+    constexpr int F = TT == 32 ? 8 : 5;   // a count's bits (TT < 2^F)
     const bool half_ok = x.half && (!supp || x.mm <= 1);
-    const int nex = __popc(__ballot_sync(FULL, x.occ && x.exact));
-    const int nhf = __popc(__ballot_sync(FULL, x.occ && half_ok && !x.exact));
-    const int nsd = __popc(__ballot_sync(FULL, x.occ && !x.exact && !x.half));
+    ReadFlags f;
+    f.att = x.occ && (!supp || x.exact || half_ok);
+    f.head = rep && f.att;
+    const unsigned n = g.sum((unsigned)(x.occ && x.exact)
+                             | (unsigned)(x.occ && half_ok && !x.exact) << F
+                             | (unsigned)(x.occ && !x.exact && !x.half)
+                               << (2 * F));
+    const int nex = n & ((1 << F) - 1), nhf = (n >> F) & ((1 << F) - 1);
+    const int nsd = n >> (2 * F);
     const bool fast = limit < 0 ||
         (nex <= limit && nhf <= limit && (supp || nsd <= limit));
-    const bool att = x.occ && (!supp || x.exact || half_ok);
-    const bool head = j < T && x.rep && att;
-    ReadFlags f;
     f.hostneed = !fast || (supp && nhf > 0);
-    f.suc = att && succ;
-    f.head_key = j < T ? ((head ? x.rank : NORANK) << 5) | j : 0x7FFFFFFF;
-    f.heads = __ballot_sync(FULL, head);
     return f;
 }
 
-// a read's two ranked heads: argmin of (rank, slot), the second with the
-// first masked to NORANK at its own slot; fields as the JAX op lists them
-__device__ __forceinline__ void write_heads(const Slot& x,
-                                            const ReadFlags& f, int j,
+// a read's two ranked heads: argmin of (rank, slot) over its slots, a
+// slot that is no head at a rank past every slot, and the second with the
+// first masked so at its own slot. The heads' ranks are distinct, so the
+// first is the head of least rank and the second the next, or slot 0 where
+// there is none (every other key is a masked one, the least slot 0's);
+// fields as the JAX op lists them
+template <typename P, int TT>
+__device__ __forceinline__ void write_heads(const Rec<P>* R, int rank,
+                                            bool head, bool real, int j,
                                             long long row, long long B,
+                                            const Group<TT>& g,
                                             int* __restrict__ rf) {
-    const int first = __reduce_min_sync(FULL, f.head_key);
-    const int fs = first & 31;
-    const int second = __reduce_min_sync(
-        FULL, j == fs ? (NORANK << 5) | j : f.head_key);
-    const int ss = second & 31;
-    const int v[READ_FIELDS] = {
-        __shfl_sync(FULL, x.cp, fs), __shfl_sync(FULL, x.o, fs),
-        (int)__shfl_sync(FULL, x.lo, fs), (int)__shfl_sync(FULL, x.hi, fs),
-        __shfl_sync(FULL, x.s, fs), (first >> 5) < NORANK,
-        __shfl_sync(FULL, x.cp, ss), __shfl_sync(FULL, x.s, ss),
-        (second >> 5) < NORANK, __popc(f.heads)};
-    if (j == 0) {
+    const unsigned ranks = g.any(head ? 1u << rank : 0u).mine;
+    const int nh = __popc(ranks);
+    const int r1 = __ffs((int)ranks) - 1;
+    const int r2 = __ffs((int)(ranks & (ranks - 1))) - 1;
+    const unsigned at1 = g.ballot(head && rank == r1).mine;
+    const unsigned at2 = g.ballot(head && rank == r2).mine;
+    if (real && j == 0) {
+        const Rec<P>& x = R[nh >= 1 ? __ffs((int)at1) - 1 : 0];
+        const Rec<P>& y = R[nh >= 2 ? __ffs((int)at2) - 1 : 0];
+        const int v[READ_FIELDS] = {
+            x.cp, x.o, (int)x.lo, (int)x.hi, x.s, nh >= 1,
+            y.cp, y.s, nh >= 2, nh};
         #pragma unroll
         for (int q = 0; q < READ_FIELDS; ++q) rf[q * B + row] = v[q];
     }
 }
 
-// the first combination of largest key (argmax's first index), over every
-// lane's combinations; `masked`, a flat index to read as KMIN (or -1)
-__device__ __forceinline__ int best_combo(const Slot& m1, const Slot& m2,
-                                          unsigned keep, int sh, int masked,
-                                          int j, int T) {
-    int key = -2147483647 - 1, flat = 0x7FFFFFFF;
-    for (int k = 0; k < T; ++k) {
-        const int s2 = __shfl_sync(FULL, m2.s, k);
-        const int rk2 = __shfl_sync(FULL, m2.rank, k);
-        const int f = j * T + k;
-        int kk = KMIN;
-        if (((keep >> k) & 1u) && f != masked)
-            kk = (int)(((unsigned)wadd(m1.s, s2) << (2 * sh))
-                       - ((unsigned)m1.rank << sh) - (unsigned)rk2);
-        if (j < T && (k == 0 || kk > key)) {
-            key = kk;
-            flat = f;
-        }
-    }
-    argmax_warp(key, flat);
-    return flat;
+// a combination of the pair: its key and flat index i T + k, ordered as
+// argmax's first index (the larger key, then the smaller index)
+struct Combo {
+    int key, flat;
+};
+
+__device__ __forceinline__ bool before(Combo a, Combo b) {
+    return (a.key > b.key) | ((a.key == b.key) & (a.flat < b.flat));
 }
 
-template <typename P>
-__global__ void __launch_bounds__(WARPS * 32)
+// the first of the group's combinations, one a lane: the largest key's
+// least index is the lowest lane's holding that key; `lane`, that lane
+template <int TT>
+__device__ __forceinline__ Combo argmax(const Group<TT>& g, Combo c,
+                                        int& lane) {
+    const int top = g.max(c.key);
+    lane = __ffs((int)g.ballot(c.key == top).mine) - 1;
+    return {top, g.at(c.flat, lane)};
+}
+
+// The best and the second combination of the pair over its T x T ones,
+// keyed (S1 + S2 << 2 shift) - (rank1 << shift) - rank2 where kept, KMIN
+// elsewhere: argmax, then argmax with the best's key masked to KMIN at its
+// own index. Lane i holds the combinations (i, k): the kept ones (bits of
+// `keep`, visited over `any`, the warp's union of keep), whose best two it
+// finds in one pass, and the KMIN ones, of which the first stands for all.
+// `b1` and `s1`: the two combinations' mate-1 slots.
+template <typename P, int TT>
+__device__ __forceinline__ void best_two(const Rec<P>* R2, int s1,
+                                         int rank1, unsigned keep,
+                                         unsigned any, unsigned live,
+                                         int sh, int j, int T,
+                                         const Group<TT>& g, Combo& best,
+                                         int& b1, Combo& second, int& b2) {
+    constexpr Combo NONE{INT_MIN, INT_MAX};
+    Combo top = NONE, next = NONE;
+    for (unsigned m = any; m; m &= m - 1) {
+        const int k = __ffs((int)m) - 1;
+        const Combo c{(int)(((unsigned)wadd(s1, R2[k].s) << (2 * sh))
+                            - ((unsigned)rank1 << sh)
+                            - (unsigned)R2[k].rank),
+                      j * T + k};
+        const bool kept = (keep >> k) & 1u;
+        const bool up1 = kept & before(c, top);
+        const bool up2 = kept & !up1 & before(c, next);
+        next = up1 ? top : (up2 ? c : next);
+        top = up1 ? c : top;
+    }
+    const unsigned rest = ~keep & live;
+    const int first = rest ? __ffs((int)rest) - 1 : 32;
+    const Combo kmin = ((live >> j) & 1u) && rest ? Combo{KMIN, j * T + first}
+                                                   : NONE;
+    const bool kept_best = before(top, kmin);
+    const Combo mine = kept_best ? top : kmin;
+    best = argmax<TT>(g, mine, b1);
+    // the best's lane, its best (a kept one) masked
+    Combo mine2 = mine;
+    if (j == b1 && kept_best) {
+        const Combo masked{KMIN, j * T + min(first, top.flat - j * T)};
+        mine2 = before(next, masked) ? next : masked;
+    }
+    second = argmax<TT>(g, mine2, b2);
+}
+
+template <typename P, int TT>
+__global__ void __launch_bounds__(THREADS)
 pairing_kernel(In in, Pairing pr, int Bp, int T, int* __restrict__ rf,
                int* __restrict__ pf) {
-    const int p = blockIdx.x * WARPS + threadIdx.x / 32;
-    if (p >= Bp) return;                 // whole warps leave together
-    const int j = threadIdx.x & 31;
+    constexpr int PAIRS = THREADS / TT;
+    // a pair's records, mate 1's TT slots then mate 2's, and one record of
+    // padding, so the two pairs of a warp read different banks
+    __shared__ Rec<P> recs[PAIRS][2 * TT + 1];
+    const int gi = threadIdx.x / TT;
+    const int p = blockIdx.x * PAIRS + gi;
+    // whole warps leave together; a half-warp past the last pair runs with
+    // no slots and writes nothing
+    if (blockIdx.x * PAIRS + (int)(threadIdx.x & ~31u) / TT >= Bp) return;
+    const bool real = p < Bp;
+    const int Tp = real ? T : 0;
+    const Group<TT> g;
+    const int j = threadIdx.x % TT;
+    const unsigned live = Tp >= 32 ? FULL : (1u << Tp) - 1u;
     const long long B = 2LL * Bp;
-    const long long r1 = p, r2 = (long long)Bp + p;
-    Slot m1 = load_slot<P>(in, r1, j, T);
-    Slot m2 = load_slot<P>(in, r2, j, T);
-    dedupe_rank(m1, j, T);
-    dedupe_rank(m2, j, T);
+    const long long r1 = real ? p : 0, r2 = real ? (long long)Bp + p : 0;
+    const Slot<P> m1 = load_slot<P>(in, r1, j, T, Tp);
+    const Slot<P> m2 = load_slot<P>(in, r2, j, T, Tp);
+    // the read fields, loaded beside the slots
+    const int n1e = __ldg(in.ee_read + r1), n2e = __ldg(in.ee_read + r2);
+    const int inst1 = __ldg(in.inst_read + r1);
+    const int inst2 = __ldg(in.inst_read + r2);
+    const int snz1 = __ldg(in.seed_nz + r1), snz2 = __ldg(in.seed_nz + r2);
+    const bool both_ok = !__ldg(in.filtered + r1) & !__ldg(in.filtered + r2);
+    Rec<P>* R1 = recs[gi];
+    Rec<P>* R2 = recs[gi] + TT;
+    R1[j] = Rec<P>{m1.lo, m1.hi, m1.s, m1.o, m1.r, m1.cp, 0};
+    R2[j] = Rec<P>{m2.lo, m2.hi, m2.s, m2.o, m2.r, m2.cp, 0};
+    const Bits valid1 = g.ballot(m1.a), valid2 = g.ballot(m2.a);
+    __syncwarp();
+    Ahead d1, d2;
+    for (unsigned m = valid1.both | valid2.both; m; m &= m - 1) {
+        const int k = __ffs((int)m) - 1;
+        dedupe_step<P>(d1, R1[k], (valid1.mine >> k) & 1u, m1, k, j);
+        dedupe_step<P>(d2, R2[k], (valid2.mine >> k) & 1u, m2, k, j);
+    }
+    const bool rep1 = m1.a && d1.beaten == 0, rep2 = m2.a && d2.beaten == 0;
+    const Bits reps1 = g.ballot(rep1), reps2 = g.ballot(rep2);
+    const int rank1 = __popc(d1.ahead & reps1.mine);
+    const int rank2 = __popc(d2.ahead & reps2.mine);
+    R1[j].rank = rank1;
+    R2[j].rank = rank2;
+    __syncwarp();
 
     // concordant cross-products: lane i keeps mate-2 slots k as bits
     unsigned conc = 0;
-    bool succ2 = false;
-    for (int k = 0; k < T; ++k) {
-        const int rk = __shfl_sync(FULL, m2.r, k);
-        const bool repk = __shfl_sync(FULL, (int)m2.rep, k);
-        const long long lok = __shfl_sync(FULL, m2.lo, k);
-        const long long hik = __shfl_sync(FULL, m2.hi, k);
-        const int ok = __shfl_sync(FULL, m2.o, k);
-        const bool c = m1.rep && repk && m1.r == rk &&
-                       concordant<P>(pr, (P)m1.lo, (P)m1.hi, m1.o == 0,
-                                     (P)lok, (P)hik, ok == 0);
+    for (unsigned m = reps2.both; m; m &= m - 1) {
+        const int k = __ffs((int)m) - 1;
+        const Rec<P>& y = R2[k];
+        const bool c = ((reps2.mine >> k) & 1u) & rep1 & (m1.r == y.r) &
+                       concordant<P>(pr, m1.lo, m1.hi, m1.o == 0, y.lo,
+                                     y.hi, y.o == 0);
         conc |= (unsigned)c << k;
-        const unsigned any = __ballot_sync(FULL, c);
-        if (j == k) succ2 = any != 0;
     }
+    const unsigned conc2 = g.any(conc).mine;
 
     // zero-seed-round suppression (bt2_search.cpp:3948/:3968 `break`)
-    const int n1e = __ldg(in.ee_read + r1), n2e = __ldg(in.ee_read + r2);
     const bool swap = n1e > 0 && n2e > 0 && n1e > n2e;
-    const int inst_first = __ldg(in.inst_read + (swap ? r2 : r1));
-    const int snz_first = __ldg(in.seed_nz + (swap ? r2 : r1));
-    const bool both_ok = !__ldg(in.filtered + r1) && !__ldg(in.filtered + r2);
-    const bool supp = both_ok && (inst_first == 0 || snz_first == 0);
-    const ReadFlags f1 = read_flags(m1, conc != 0, supp, pr.limit, j, T);
-    const ReadFlags f2 = read_flags(m2, succ2, supp, pr.limit, j, T);
+    const bool supp = both_ok && ((swap ? inst2 : inst1) == 0 ||
+                                  (swap ? snz2 : snz1) == 0);
+    const ReadFlags f1 = read_flags<P, TT>(m1, rep1, supp, pr.limit, g);
+    const ReadFlags f2 = read_flags<P, TT>(m2, rep2, supp, pr.limit, g);
 
-    // kept combinations, keyed (SS << 2 shift) - (rank1 << shift) - rank2
-    // (KMIN where not kept): the best, then the best but the best's index
-    const unsigned suc2 = __ballot_sync(FULL, f2.suc);    // every lane
-    const unsigned keep = conc & (f1.suc ? FULL : suc2);
-    const int n_kept = (int)__reduce_add_sync(FULL, (unsigned)__popc(keep));
-    const int bflat = best_combo(m1, m2, keep, pr.shift, -1, j, T);
-    const int sflat = best_combo(m1, m2, keep, pr.shift, bflat, j, T);
-    const int b1 = bflat / T, b2 = bflat % T;
-    const int s1 = __shfl_sync(FULL, m1.s, b1), s2 = __shfl_sync(FULL, m2.s, b2);
-    const int v[PAIR_FIELDS] = {
-        n_kept > 0,
-        __shfl_sync(FULL, m1.cp, b1), __shfl_sync(FULL, m1.o, b1),
-        (int)__shfl_sync(FULL, m1.lo, b1), (int)__shfl_sync(FULL, m1.hi, b1),
-        s1,
-        __shfl_sync(FULL, m2.cp, b2), __shfl_sync(FULL, m2.o, b2),
-        (int)__shfl_sync(FULL, m2.lo, b2), (int)__shfl_sync(FULL, m2.hi, b2),
-        s2,
-        wadd(s1, s2),
-        wadd(__shfl_sync(FULL, m1.s, sflat / T),
-             __shfl_sync(FULL, m2.s, sflat % T)),
-        n_kept,
-        f1.hostneed || f2.hostneed};
-    if (j == 0) {
+    // kept combinations: concordant, and an attempted slot of either mate
+    // in a concordant combination; the best, then the best but the best's
+    // index
+    const bool suc1 = f1.att && conc != 0;
+    const unsigned suc2 = g.ballot(f2.att && ((conc2 >> j) & 1u)).mine;
+    const unsigned keep = conc & (suc1 ? FULL : suc2);
+    const int n_kept = (int)g.sum((unsigned)__popc(keep));
+    const unsigned any = g.any(keep).both;
+    Combo best, second;
+    int b1, s1;
+    best_two<P, TT>(R2, m1.s, rank1, keep, any, live, pr.shift, j, T, g,
+                    best, b1, second, s1);
+    if (real && j == 0) {
+        const Rec<P>& x = R1[b1];
+        const Rec<P>& y = R2[best.flat - b1 * T];
+        const int v[PAIR_FIELDS] = {
+            n_kept > 0, x.cp, x.o, (int)x.lo, (int)x.hi, x.s,
+            y.cp, y.o, (int)y.lo, (int)y.hi, y.s, wadd(x.s, y.s),
+            wadd(R1[s1].s, R2[second.flat - s1 * T].s), n_kept,
+            f1.hostneed || f2.hostneed};
         #pragma unroll
         for (int q = 0; q < PAIR_FIELDS; ++q) pf[(long long)q * Bp + p] = v[q];
     }
-    write_heads(m1, f1, j, r1, B, rf);
-    write_heads(m2, f2, j, r2, B, rf);
+    write_heads<P, TT>(R1, rank1, rep1 && f1.att, real, j, r1, B, g, rf);
+    write_heads<P, TT>(R2, rank2, rep2 && f2.att, real, j, r2, B, g, rf);
+}
+
+template <typename P, int TT>
+void launch(const In& in, const Pairing& pr, int Bp, int T, void* rf,
+            void* pf, void* stream) {
+    constexpr int PAIRS = THREADS / TT;
+    pairing_kernel<P, TT><<<(unsigned)((Bp + PAIRS - 1) / PAIRS), THREADS, 0,
+                            (cudaStream_t)stream>>>(in, pr, Bp, T, (int*)rf,
+                                                    (int*)pf);
 }
 
 }  // namespace
@@ -344,13 +479,11 @@ extern "C" int pe_pairing(const void* aok, const void* score,
           (const int*)inst_read, (const uint8_t*)filtered};
     Pairing pr{policy, minins, maxins, olap_ok, contain_ok, dove_ok, limit,
                shift};
-    const unsigned grid = (unsigned)((Bp + WARPS - 1) / WARPS);
     if (pos64)
-        pairing_kernel<long long><<<grid, WARPS * 32, 0,
-                                    (cudaStream_t)stream>>>(
-            in, pr, Bp, T, (int*)read_fields, (int*)pair_fields);
+        (T <= 16 ? launch<long long, 16> : launch<long long, 32>)(
+            in, pr, Bp, T, read_fields, pair_fields, stream);
     else
-        pairing_kernel<int><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-            in, pr, Bp, T, (int*)read_fields, (int*)pair_fields);
+        (T <= 16 ? launch<int, 16> : launch<int, 32>)(
+            in, pr, Bp, T, read_fields, pair_fields, stream);
     return (int)cudaGetLastError();
 }

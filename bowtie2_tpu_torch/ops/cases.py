@@ -1180,7 +1180,9 @@ class WindowCase(NamedTuple):
 
 
 WINDOW_WORDS = 200          # reference words a table (3,200 bp)
-WINDOW_WIDTHS = (1, 15, 17, 33, 189, 224, 533)
+# widths: 16, 32 and 48 are whole multiples of the unaligned kernel's
+# 16-code chunk, the others cut a chunk across rows (below 16 several)
+WINDOW_WIDTHS = (1, 15, 17, 33, 189, 224, 533, 16, 32, 48)
 WINDOW_KINDS = ("edges", "negative", "extremes", "large")
 WINDOW_BATCH = 23           # windows a case, a unit of scale
 # the N runs of the tables' N mask, [start, end) in bases: runs that cross
@@ -1283,8 +1285,10 @@ PAIRINGS = (("fr", 0, 500, True, True, False, 8),
             ("ff", 100, 400, False, True, True, None),
             ("rr", 0, 300, True, False, False, 2),
             ("rf", 50, 600, True, True, True, 1))
-PAIRING_TS = (16, 32)
-PAIRING_BATCH = 29          # pairs a case, a unit of scale
+# slot counts: the kernel's two-pairs-a-warp form (T <= 16) and its
+# one-pair-a-warp form (T <= 32), each with dead slots and full
+PAIRING_TS = (1, 8, 15, 16, 17, 32)
+PAIRING_BATCH = 29          # pairs a case at T >= 16, a unit of scale
 
 
 def _pairing_arrays(rng, Bp, T, base, ext):
@@ -1333,15 +1337,18 @@ def _pairing_arrays(rng, Bp, T, base, ext):
 
 def pairing_cases(seed: int = 0, scale: int = 1,
                   large: bool = False) -> List[PairingCase]:
-    """Every PAIRINGS pairing at T = 16 and 32 slots, int32 extents, or
-    with `large` int64 extents past 2^31 (written wrapped to int32)."""
+    """Every PAIRINGS pairing at every PAIRING_TS slot count, int32
+    extents, or with `large` int64 extents past 2^31 (written wrapped to
+    int32). A case of T < 16 slots has 16 // T times the pairs, so that it
+    holds concordant combinations too; the pair count is odd, so one
+    pair's group of lanes has no partner in its warp."""
     rng = np.random.default_rng(seed)
     out = []
-    Bp = PAIRING_BATCH * scale
     base, ext = ((1 << 31) + (1 << 24), np.int64) if large \
         else (1 << 20, np.int32)
     for pairing in PAIRINGS:
         for T in PAIRING_TS:
+            Bp = PAIRING_BATCH * scale * max(16 // T, 1) | 1
             out.append(PairingCase(
                 f"{pairing[0]}_lim{pairing[6]}_T{T}"
                 f"{'_large' if large else ''}@x{scale}", pairing,

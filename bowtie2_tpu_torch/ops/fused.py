@@ -644,8 +644,9 @@ def _pe_pairing(pairing, B, Bp, T_, aok, score, slot_or, rid, lo_p, hi_p,
     first-index argmax/argmin as the host numpy. Pairs that need the
     host's replay paths raise `hostneed`. Returns (read_fields
     (PE_READ_FIELDS, B), pair_fields (PE_PAIR_FIELDS, Bp)), int32. A CUDA
-    tensor launches `pe_pairing` (csrc/pe_pairing.cu, one warp a pair;
-    T <= 32, B = 2 Bp); CPU tensors take the plain version."""
+    tensor launches `pe_pairing` (csrc/pe_pairing.cu, two pairs a warp
+    at T <= 16, one at T <= 32; B = 2 Bp); CPU tensors take the plain
+    version."""
     args = (pairing, B, Bp, T_, aok, score, slot_or, rid, lo_p, hi_p, occ,
             exact, half, mmug, cpos, ee_read, seed_nz, inst_read, filtered)
     if on_cpu(score, "pe_pairing"):

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--reads 50000] [--batch 8192] [--seed 7]
                           [--pairs 50000] [--mixed 1024] [--long-reads 1024]
-                          [--compare-diag FILE] [--compare-rect FILE]
+                          [--compare-parent DIR]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -72,11 +72,9 @@ Phases, each of which exits non-zero when it fails:
    tensor on the card. Each DP entry gives the cells its data needs
    (`cells`) and those its kernel computes (`cells_launched`: the live
    lanes' rows up to their lengths, over the whole window). With
-   --compare-rect FILE (the parent's sw_rect.cu, e.g. copied under the
-   gitignored build/), the fused SE path's first DP call and the host
-   path's first are timed in turns with that design (parent, this, this,
-   parent; clocks.sm sampled beside each window), which is held to this
-   one's output (the `turns` of the `sw_rect` entry).
+   --compare-parent DIR holding another sw_rect.cu, the fused SE path's
+   first DP call and the host path's first are timed in turns with that
+   design (see below; the `turns` of the `sw_rect` entry).
 7. The E. coli-sim corpus: bench.py's gen_ecoli_corpus recipe (a 4.6-Mbp
    random genome, 100-bp reads and FR pairs at 0.5 % substitutions),
    --pairs of its 50,000 pairs; the genome, 8,192 of its SE reads and
@@ -111,9 +109,8 @@ Phases, each of which exits non-zero when it fails:
    768 bp 8,192 lanes of which 384 live, laid out as fused_pe lays out
    its DP lanes, and 512 lanes all live; one call at 1,536 and at 3,072
    bp), end to end and --local held to the plain version, end to end
-   timed; with --compare-rect, the first fused_pe call's origin DP (end
-   to end and --local) and those calls in turns with the parent's design
-   (parent, this, this, parent);
+   timed; with --compare-parent, the first fused_pe call's origin DP (end
+   to end and --local) and those calls in turns with the parent's design;
    K10's paired-end half, the device pairing (`_pe_pairing`, torch ops),
    timed as the gathers are.
 11. The CLI: `align -U` (8,192 reads) and `align -1/-2` (3,125 pairs) on
@@ -146,9 +143,8 @@ Phases, each of which exits non-zero when it fails:
    WINDOW_MS, with nvidia-smi's clocks.sm sampled beside it (cycles a DP
    row of the bucket, or a step of the longest walk), and after IDLE_S
    idle (the `kernel sw_diag @ L rows` lines, `buckets` in the JSON
-   entries). --compare-diag FILE builds another design's sw_diag.cu with
-   the same flags, holds it to this one's output on those calls and
-   times the two in turns (other, this, this, other; the `cmp_` keys).
+   entries). With --compare-parent, another design's sw_diag.cu is held
+   to this one's output on those calls and the two timed in turns.
 13. The large index mode (uint32 rows, int64 positions): (a) the four FM
    kernels' `_u32` entries on ops/cases.py `large_fm_case` (2^31 + 2^27 -
    1 rows: fm_blocks 0.86 GB, mark_rows 0.36 GB, offs 0.27 GB on the
@@ -248,12 +244,31 @@ Each is timed as in phase 6 at its main path's first call (phase 3's
 fused and host-path calls, phase 8's pairing, phase 14's sharded call;
 the unaligned form also at the long path's widest call, `wide`; the
 readout at the fused path's first call), and under torch.profiler
-(CUPTI) with its plain version (`cupti_ms`, `plain_cupti_ms`). One whole
+(CUPTI) with its plain version (`cupti_ms`, `plain_cupti_ms`). The
+unaligned gather and the pairing are also timed on one block's worth of
+their first call alone (`chain_ms`: the first windows that hold 2,048
+codes; the first 8 pairs). With --compare-parent, the unaligned gather
+on its first call and the long path's widest, the pairing on its first
+call, and each on those calls' one-block floors are timed in turns with
+the other design (`turns` in the JSON entries); and every shape of
+unaligned gather that the SE, PE and long main paths launched is timed
+in turns, weighted by its launches on the path (`launch_classes`: the
+launches below one block's worth of codes, 2,048, and the rest, with
+their summed times in each design). One whole
 fused_se batch and one fused_pe batch run under CUPTI too (the `CUPTI
 split` lines: device time by kernel and by region: fused `_core`, the
 gather, the SE readout, the pairing). Since the aligned gather
 reads sharded words itself, K12 (`take_sharded`) runs on no path; phase 14
 times it on the word indices of the sharded path's first gather.
+
+--compare-parent DIR (e.g. the parent commit's bowtie2_tpu_torch/csrc,
+unpacked under the gitignored build/): every CUDA source in DIR that
+differs from the port's own is built with the port's flags (DIR's headers
+first) and, where its kernel has a call to be timed on (sw_rect, sw_diag,
+ref_gather, pe_pairing), held to this design's output there and timed in
+turns with it: parent, this, this, parent, each window of about
+WINDOW_MS with clocks.sm sampled beside it, or TURN_REPS launches for a
+kernel too short for that, and each design after IDLE_S idle.
 
 The lines before the last are a JSON object {"kernels": [...]} and the
 card's name and power limit; the last line is
@@ -357,12 +372,23 @@ SPIN_REP = 1_000_000
 IDLE_S = 0.05
 # the least span of a timing window beside which clocks.sm is sampled
 WINDOW_MS = 800.0
+# launches of a timing in turns of a short kernel (--compare-parent): few
+# enough that the launch queue holds them all while the stream spins, so
+# the span holds device time and not the host's pace; such a window is too
+# short to sample clocks.sm in
+TURN_REPS = 200
+# the sources whose kernels --compare-parent times in turns on some call
+TURN_SOURCES = ("sw_rect", "sw_diag", "ref_gather", "pe_pairing")
+# codes a block of K7's unaligned form covers: 128 threads of 16 codes
+BLOCK_CODES = 2048
 
 # positions in the C call's arguments of the sizes that pick a kernel's
 # launch shape: backtrace (walks, Lmax, W, S), sa_resolve (rows); and of
 # the calls' sizes: fm_seed (seeds, seed length, K), fm_substring (states,
-# pattern columns), sw_diag (problems, Lmax), bt_diag (walks, Lmax, S)
+# pattern columns), sw_diag (problems, Lmax), bt_diag (walks, Lmax, S),
+# ref_gather (windows, width)
 SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,),
+              "ref_gather": (8, 9),
               "fm_seed": (8, 9, 10), "fm_substring": (6, 7),
               "sw_diag": (4, 5), "bt_diag": (10, 1, 12)}
 
@@ -674,7 +700,8 @@ class Holder:
     batch) and of the readout (each fused SE batch). `check` holds each
     kept call's kernel result to the plain version on the same inputs,
     after the phase has read its counts, and starts afresh; `first` keeps
-    each entry's first call."""
+    each entry's first call, and `kept` a call of each shape of the gathers
+    by phase, for good."""
 
     def __init__(self, ref, fused, align_mod, sw):
         i32 = torch.int32
@@ -689,6 +716,7 @@ class Holder:
                      "pe_pairing": fused._pe_pairing,
                      "diag_readout": fused.diag_readout}
         self.calls = {}            # entry -> {key: args}
+        self.kept = {}             # (label, entry) -> {key: args}, gathers
         self.first = {}            # entry -> (label, args)
         self.checks = {}           # entry -> {label: record}
         self.label = None
@@ -727,6 +755,9 @@ class Holder:
                 d = self.calls.setdefault(e, {})
                 key = self.key(name, a)
                 d.setdefault(len(d) if key is None else key, a)
+                if key is not None:
+                    self.kept.setdefault((self.label, e), {}).setdefault(
+                        key, a)
             return orig(*a, **k)
         setattr(mod, attr, wrapped)
 
@@ -1411,97 +1442,170 @@ def window_reps(fn, least):
     return max(least, min(4000, int(math.ceil(WINDOW_MS / max(est, 1e-3)))))
 
 
-def compare_lib(_build, path, flag="--compare-diag"):
-    """A CUDA source of another design (`--compare-diag`, `--compare-rect`),
-    built by nvcc with the port's flags into a temporary directory:
-    (library, ptxas)."""
-    tdir = tempfile.mkdtemp(prefix="cmp_")
-    so = os.path.join(tdir, "cmp.so")
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
-           "-o", so, path]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        fail(f"{flag} build: {r.stdout}{r.stderr}")
-    return ctypes.CDLL(so), _build.ptxas_usage(r.stdout + r.stderr)
+def parent_libs(_build, d):
+    """--compare-parent DIR: every CUDA source in DIR that differs from the
+    port's own csrc/ file of its name, built by nvcc with the port's flags
+    (DIR's headers before the port's) into a temporary directory:
+    {source name: library}."""
+    if not os.path.isdir(d):
+        fail(f"--compare-parent {d}: not a directory")
+    libs = {}
+    for fname in sorted(os.listdir(d)):
+        if not fname.endswith(".cu"):
+            continue
+        name, path = fname[:-3], os.path.join(d, fname)
+        own = os.path.join(_build.CSRC, fname)
+        with open(path, "rb") as f:
+            text = f.read()
+        if os.path.exists(own):
+            with open(own, "rb") as f:
+                if f.read() == text:
+                    log(f"--compare-parent {path}: the port's own source")
+                    continue
+        so = os.path.join(tempfile.mkdtemp(prefix="cmp_"), name + ".so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-I",
+               _build.CSRC, "-o", so, path]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"--compare-parent build of {path}: {r.stdout}{r.stderr}")
+        libs[name] = ctypes.CDLL(so)
+        log(f"--compare-parent {path}: built; ptxas "
+            f"{json.dumps(_build.ptxas_usage(r.stdout + r.stderr), sort_keys=True)}"
+            + ("" if name in TURN_SOURCES else
+               "; no call of its kernels is timed in turns"))
+    return libs
 
 
-def with_lib(build, lib, fn):
-    """fn() with `sw_diag`'s C entries taken from `lib`."""
-    saved = build._LIBS.get("sw_diag")
-    build._LIBS["sw_diag"] = lib
+def with_lib(build, lib, fn, name):
+    """fn() with the C entries of csrc/<name>.cu taken from `lib`."""
+    saved = build.lib(name)
+    build._LIBS[name] = lib
     try:
         return fn()
     finally:
-        build._LIBS["sw_diag"] = saved
+        build._LIBS[name] = saved
 
 
-# the C arguments of the rectangle DP's entries before the n_live count
-# (the parent's sw_rect.cu, for --compare-rect): six pointers, eleven
-# ints, the four outputs (and origin), the kernel it launched, the stream
-PARENT_RECT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 \
-    + [ctypes.c_void_p] * 4
+def turns(a, run, parent, err=result_err, reps=None, per=None, idle=True):
+    """run() (this design) timed alone, or in turns with parent() (the same
+    call through another build of its source, --compare-parent): parent,
+    this, this, parent; then, with `idle`, each after IDLE_S idle. `reps`
+    launches a window; None for a window of about WINDOW_MS with clocks.sm
+    sampled beside it (`*_mhz`, `*_clk_samples`, and with per=(unit, n)
+    the cycles a unit, `*_clk_<unit>`). parent()'s output is held to
+    run()'s by err(parent's, this)."""
+    sample = reps is None
+    res = {"reps": window_reps(run, a.reps) if sample else reps,
+           "max_abs_err": 0}
+    order = [("this", run)]
+    if parent is not None:
+        res["max_abs_err"] = err(parent(), run())
+        order = [("parent", parent), ("this", run), ("this", run),
+                 ("parent", parent)]
+    for tag, fn in order:
+        if sample:
+            ms, mhz, n = clock_window(fn, res["reps"])
+            res.setdefault(f"{tag}_mhz", []).append(
+                None if mhz is None else round(mhz, 1))
+            res.setdefault(f"{tag}_clk_samples", []).append(n)
+            if per is not None:
+                res.setdefault(f"{tag}_clk_{per[0]}", []).append(
+                    None if mhz is None else round(ms * mhz * 1e3 / per[1], 1))
+        else:
+            ms = time_cuda(fn, res["reps"])
+        res.setdefault(f"{tag}_ms", []).append(round(ms, 5))
+    if idle:
+        for tag, fn in dict(order).items():
+            res[f"{tag}_idle_ms"] = round(time_after_idle(fn, 5), 4)
+    return res
 
 
-def parent_rect(lib, sw, args, origin):
-    """The parent's sw_rect[_origin] on sw_args-form arguments: every lane,
-    every row up to Lmax (it has no n_live)."""
-    reads, mmpen, lens, refwins, p, rect_cols, col_lo, _n = args
-    B, Lmax = reads.shape
-    W = refwins.shape[1]
-    out = [torch.empty(B, dtype=torch.int32, device=reads.device)
-           for _ in range(3 + origin)]
-    dirs = torch.empty((Lmax, B, (W + 7) // 8), dtype=torch.int32,
-                       device=reads.device)
-    fn = getattr(lib, "sw_rect_origin" if origin else "sw_rect")
-    fn.argtypes = PARENT_RECT_ARGS + [ctypes.c_void_p] * (origin + 2)
-    fn.restype = ctypes.c_int
-    kind = ctypes.c_int(0)
-    err = fn(reads.data_ptr(), mmpen.data_ptr(), lens.data_ptr(),
-             refwins.data_ptr(), rect_cols.data_ptr(),
-             None if col_lo is None else col_lo.data_ptr(), B, Lmax, W,
-             p.match_bonus, p.n_pen, p.read_gap_open, p.read_gap_extend,
-             p.ref_gap_open, p.ref_gap_extend, p.gap_barrier, int(p.local),
-             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-             dirs.data_ptr(), *[o.data_ptr() for o in out[3:]],
-             ctypes.addressof(kind), torch.cuda.current_stream().cuda_stream)
-    if err:
-        fail(f"--compare-rect: the parent's sw_rect: CUDA error {err}")
-    return sw.SWResult(out[0], out[1], out[2], dirs,
-                       out[3] if origin else None)
-
-
-def rect_turns(a, m, label, kern, args, origin, parent_lib):
-    """--compare-rect: the DP call `args` timed in turns with the parent's
-    design (`parent_lib`): parent, this, this, parent, over windows of
-    about WINDOW_MS with clocks.sm sampled; clocks a row over the longest
-    live read's rows. The parent is held to this design's output over the
-    specified region (rect_err; the parent has no n_live, so its dead
-    lanes are not held to the fill)."""
-    sw = m.sw
-    want = kern(*args)
-    torch.cuda.synchronize()
+def rect_turns(a, m, label, kern, args, parent_lib):
+    """The DP call `args` in turns with the parent's build of sw_rect.cu,
+    held to this design's output over what the n_live contract specifies
+    (rect_err); clocks a row over the longest live read's rows."""
     n = live_count(args)
     rows = max(int(args[2][:n].max()) if n else 1, 1)
-    designs = {"this": lambda: kern(*args),
-               "parent": lambda: parent_rect(parent_lib, sw, args, origin)}
-    reps = window_reps(designs["this"], a.reps)
+
+    def run():
+        return kern(*args)
     res = {"call": label, "lanes": args[0].shape[0], "n_live": n,
            "rows": rows, "Lmax": args[0].shape[1], "W": args[3].shape[1],
-           "reps": reps,
-           "parent_vs_this_err": rect_err(designs["parent"](), want, args,
-                                          fills=False)}
-    for tag in ("parent", "this", "this", "parent"):
-        ms, mhz, ns = clock_window(designs[tag], reps)
-        res.setdefault(f"{tag}_ms", []).append(round(ms, 4))
-        res.setdefault(f"{tag}_mhz", []).append(
-            None if mhz is None else round(mhz, 1))
-        res.setdefault(f"{tag}_clk_row", []).append(
-            None if mhz is None else round(ms * mhz * 1e3 / rows, 1))
-    for tag in ("this", "parent"):
-        res[f"{tag}_idle_ms"] = round(time_after_idle(designs[tag], 5), 4)
-    res["max_abs_err"] = res["parent_vs_this_err"]
-    log(f"compare-rect {label}: {json.dumps(res)}")
+           **turns(a, run,
+                   lambda: with_lib(m._build, parent_lib, run, "sw_rect"),
+                   lambda got, want: rect_err(got, want, args),
+                   per=("row", rows))}
+    log(f"compare sw_rect {label}: {json.dumps(res)}")
     return res
+
+
+def gather_floor(args):
+    """One block's worth of a K7 unaligned call (BLOCK_CODES: 128 threads
+    of 16 codes): its first windows that hold 2,048 codes, at least one."""
+    w, n, starts, lo, hi, width = args
+    rows = max(1, BLOCK_CODES // max(width, 1))
+    return (w, n) + tuple(t[:rows].contiguous() for t in (starts, lo, hi)) \
+        + (width,)
+
+
+def pairing_floor(args, n=8):
+    """One block's worth of a K10 PE call (8 pairs at T <= 16): its first
+    n pairs, both mates."""
+    pairing, _B, Bp, T = args[:4]
+    n = min(n, Bp)
+    return (pairing, 2 * n, n, T) + tuple(
+        torch.cat([t[:n], t[Bp:Bp + n]]).contiguous() for t in args[4:])
+
+
+def short_turns(a, build, name, label, kern, args, floor_args, parent_lib):
+    """A call of a short kernel of csrc/<name>.cu (`kern` on `args`) and
+    its one-block floor (`floor_args`) in turns with the parent's build,
+    TURN_REPS launches a window."""
+    def timed(x, idle):
+        def run():
+            return kern(*x)
+        return turns(a, run, lambda: with_lib(build, parent_lib, run, name),
+                     reps=TURN_REPS, idle=idle)
+    res = {"call": label, **timed(args, True),
+           "floor": timed(floor_args, False)}
+    res["max_abs_err"] = max(res["max_abs_err"],
+                             res["floor"]["max_abs_err"])
+    log(f"compare {name} {label}: {json.dumps(res)}")
+    return res
+
+
+def gather_classes(a, build, kern, kept, counts, parent_lib):
+    """Each shape of unaligned gather that a main path launched (`counts`:
+    {(windows, width): [ms, launches]} from its device-time pass; `kept`:
+    {(windows, width): a call's arguments}) in turns with the parent's
+    build, TURN_REPS launches a window: by class, the launches below one
+    block's worth of codes (BLOCK_CODES) and the rest, with their summed
+    times in each design (launches x the mean of its two windows) and, by
+    shape, [windows, width, launches, this ms, parent ms] a launch."""
+    out = {c: dict(shapes=[], launches=0, this_ms=0.0, parent_ms=0.0,
+                   max_abs_err=0) for c in ("below_block", "rest")}
+    for (B, w), (_ms, n) in sorted(counts.items()):
+        args = kept.get((B, w))
+        if args is None:
+            fail(f"no call of ref_gather at {B} x {w} was kept")
+
+        def run():
+            return kern(*args)
+        t = turns(a, run, lambda: with_lib(build, parent_lib, run,
+                                           "ref_gather"),
+                  reps=TURN_REPS, idle=False)
+        c = out["below_block" if B * w < BLOCK_CODES else "rest"]
+        mean = {tag: sum(t[f"{tag}_ms"]) / 2 for tag in ("this", "parent")}
+        c["shapes"].append([B, w, n, round(mean["this"], 5),
+                            round(mean["parent"], 5)])
+        c["launches"] += n
+        for tag in ("this", "parent"):
+            c[f"{tag}_ms"] += n * mean[tag]
+        c["max_abs_err"] = max(c["max_abs_err"], t["max_abs_err"])
+    for c in out.values():
+        for tag in ("this", "parent"):
+            c[f"{tag}_ms"] = round(c[f"{tag}_ms"], 5)
+    return out
 
 
 def mutate(rng, codes, sub, indel=0.0):
@@ -1819,10 +1923,10 @@ def bucket_times(a, m, name, kern, plain_fn, firsts, first_args, first_got,
     """K11 `name` on the first call of each length bucket of the long-read
     path: held to its plain version (the path's first call already was),
     timed back to back over a window of about WINDOW_MS with clocks.sm
-    sampled beside it, and after IDLE_S idle; with cmp_lib (another
-    design's build) the two in turns (other, this, this, other), the other
-    held to this one's output. Cycles a row (sw_diag: the bucket's Lmax)
-    or a step (bt_diag: the longest walk's steps) are ms x MHz."""
+    sampled beside it, and after IDLE_S idle; with cmp_lib (another build
+    of sw_diag.cu) the two in turns (`turns`), the other held to this
+    one's output. Cycles a row (sw_diag: the bucket's Lmax) or a step
+    (bt_diag: the longest walk's steps) are ms x MHz."""
     out = []
     for L in sorted(firsts):
         args = firsts[L]
@@ -1841,27 +1945,11 @@ def bucket_times(a, m, name, kern, plain_fn, firsts, first_args, first_got,
 
         def run():
             return kern(*args)
-        reps = window_reps(run, a.reps)
-        turns = [("new", run)]
-        if cmp_lib is not None:
-            def other():
-                return with_lib(m._build, cmp_lib, run)
-            turns = [("cmp", other), ("new", run), ("new", run),
-                     ("cmp", other)]
-        res = {"rows": L, **size, "reps": reps, "max_abs_err": err}
-        for tag, fn in turns:
-            ms, mhz, n = clock_window(fn, reps)
-            res.setdefault(f"{tag}_ms", []).append(round(ms, 4))
-            res.setdefault(f"{tag}_mhz", []).append(
-                None if mhz is None else round(mhz, 1))
-            res.setdefault(f"{tag}_clk_{unit}", []).append(
-                None if mhz is None else round(ms * mhz * 1e3 / n_unit, 1))
-            res.setdefault(f"{tag}_clk_samples", []).append(n)
-        res["new_idle_ms"] = round(time_after_idle(run, 5), 4)
-        if cmp_lib is not None:
-            res["cmp_idle_ms"] = round(time_after_idle(other, 5), 4)
-            res["cmp_vs_new_err"] = result_err(other(), got)
-            res["max_abs_err"] = max(err, res["cmp_vs_new_err"])
+        other = None if cmp_lib is None else (
+            lambda: with_lib(m._build, cmp_lib, run, "sw_diag"))
+        res = {"rows": L, **size,
+               **turns(a, run, other, per=(unit, n_unit))}
+        res["max_abs_err"] = max(err, res["max_abs_err"])
         out.append(res)
         log(f"kernel {name} @ {L} rows: {json.dumps(res)}")
     return out
@@ -1874,11 +1962,7 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
     their end-to-end SAM groups on the card."""
     t_phase = time.time()
     sw, build = m.sw, m._build
-    cmp_lib = None
-    if a.compare_diag:
-        cmp_lib, cmp_ptxas = compare_lib(build, a.compare_diag)
-        log(f"--compare-diag {a.compare_diag}: built; ptxas "
-            f"{json.dumps(cmp_ptxas, sort_keys=True)}")
+    cmp_lib = m.parent_libs.get("sw_diag")
     rng = np.random.default_rng(a.seed)
     reads = long_corpus(egenome, rng, a.long_reads, LONG_LEN, LONG_SUB,
                         LONG_INDEL)
@@ -1968,6 +2052,7 @@ def long_phase(a, m, egenome, edata, pol, lpol, rec):
     timer.restore()
     dev_ms = timer.totals()
     m.long_dev_ms = dev_ms
+    m.long_gather_shapes = timer.totals(by_shape=True).get("ref_gather", {})
     busy = sum(v[0] for v in dev_ms.values()) / 1e3
     shapes = {k: {str(sh): [round(v[0], 4), v[1]] for sh, v in
                   sorted(d.items())}
@@ -3324,12 +3409,10 @@ def main() -> None:
                     help="pairs of the mixed-outcome batch")
     ap.add_argument("--long-reads", type=int, default=1024,
                     help="reads of 10-25 kbp on the long-read path")
-    ap.add_argument("--compare-diag", default=None,
-                    help="another design's sw_diag.cu: phase 12 builds it "
-                         "and times it in turns with the port's K11")
-    ap.add_argument("--compare-rect", default=None,
-                    help="the parent's sw_rect.cu: phases 6 and 10 build "
-                         "it and time it in turns with the port's DP")
+    ap.add_argument("--compare-parent", default=None, metavar="DIR",
+                    help="another design's CUDA sources (e.g. the parent "
+                         "commit's csrc/): each that differs from the "
+                         "port's is built and timed in turns with it")
     a = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3380,6 +3463,8 @@ def main() -> None:
     log(f"kernel build: {time.time() - t0:.1f} s "
         f"({', '.join(_build.SOURCES)})")
     log(f"ptxas: {json.dumps(_build.PTXAS, sort_keys=True)}")
+    parents = parent_libs(_build, a.compare_parent) if a.compare_parent \
+        else {}
 
     # ---------------- phase 2: corpus + index ----------------
     phase(2, "corpus + index")
@@ -3482,6 +3567,7 @@ def main() -> None:
     tlaunches = dict(_build.LAUNCHES)
     timer.restore()
     dev_ms = timer.totals()
+    se_gather_shapes = timer.totals(by_shape=True).get("ref_gather", {})
     shapes = {k: {str(sh): [round(v[0], 4), v[1]] for sh, v in sorted(d.items())}
               for k, d in timer.totals(by_shape=True).items()}
     busy_s = sum(v[0] for v in dev_ms.values()) / 1e3
@@ -3495,7 +3581,8 @@ def main() -> None:
         f"{'as the main path' if tlaunches == launches else tlaunches}")
     log(f"call shapes: {json.dumps(shapes)} (total ms, calls; backtrace by "
         f"(walks, Lmax, W, S), sa_resolve by rows, fm_seed by (seeds, "
-        f"seed length, K), fm_substring by (states, columns)); the card "
+        f"seed length, K), fm_substring by (states, columns), ref_gather by "
+        f"(windows, width)); the card "
         f"holds {threads} threads at once")
 
     # ---------------- phase 4: card vs CPU on the first batch -------------
@@ -3606,13 +3693,9 @@ def main() -> None:
         sw=sw, _build=_build, cases=cases, align_mod=align_mod,
         traj_replay=traj_replay, SeqRecord=SeqRecord,
         UnpairedAligner=UnpairedAligner,
-        PairedAligner=PairedAligner, bucket_groups=bucket_groups)
-    rect_lib = None
-    if a.compare_rect:
-        rect_lib, cmp_ptxas = compare_lib(_build, a.compare_rect,
-                                          "--compare-rect")
-        log(f"--compare-rect {a.compare_rect}: built; ptxas "
-            f"{json.dumps(cmp_ptxas, sort_keys=True)}")
+        PairedAligner=PairedAligner, bucket_groups=bucket_groups,
+        parent_libs=parents)
+    rect_lib = parents.get("sw_rect")
     for name, (src, repl) in KERNELS.items():
         args = e2e_args[name]
         kern = getattr(rec, "orig_" + name)
@@ -3708,7 +3791,7 @@ def main() -> None:
         kernels_out.append(entry)
         if name == "sw_rect" and rect_lib is not None:
             entry["turns"] = [
-                rect_turns(a, port_mods, label, kern, targs, False, rect_lib)
+                rect_turns(a, port_mods, label, kern, targs, rect_lib)
                 for label, targs in (("fused SE, first call", args),
                                      ("SE host path, first call",
                                       host_args))]
@@ -3759,6 +3842,23 @@ def main() -> None:
             launches.get(name, 0), dev_ms.get(name, [0.0, 0]), _build,
             win_sweep[name])
         kernels_out.append(k7_entries[name])
+    # the unaligned form's one-block floor; with --compare-parent, its
+    # first call and floor in turns with the parent's design
+    g_args = holder.first["ref_gather"][1]
+    g_kern = holder.kern_of("ref_gather")
+    k7u = k7_entries["ref_gather"]
+    g_floor = gather_floor(g_args)
+    k7u["chain_ms"] = round(time_cuda(lambda: g_kern(*g_floor), a.reps), 5)
+    log(f"kernel ref_gather: one block alone (chain_ms) {k7u['chain_ms']}"
+        f" on {g_floor[2].shape[0]} windows")
+    gather_lib = parents.get("ref_gather")
+    if gather_lib is not None:
+        k7u["turns"] = [short_turns(
+            a, _build, "ref_gather", "first SE host-path call", g_kern,
+            g_args, g_floor, gather_lib)]
+        k7u["max_abs_err"] = max(k7u["max_abs_err"],
+                                 k7u["turns"][0]["max_abs_err"])
+        k7u["equal"] = k7u["max_abs_err"] == 0
 
     # K10 SE, the gapless readout of the fused path: its first call on the
     # main path, every call the Holder kept, and every ops/cases.py
@@ -3901,6 +4001,7 @@ def main() -> None:
     ptwall = time.time() - t0
     ptimer.restore()
     pdev_ms = ptimer.totals()
+    pe_gather_shapes = ptimer.totals(by_shape=True).get("ref_gather", {})
     pbusy = sum(v[0] for v in pdev_ms.values()) / 1e3
     log(f"paired-end device time: "
         f"{json.dumps({k: [round(v[0], 4), v[1]] for k, v in sorted(pdev_ms.items())})}"
@@ -4075,7 +4176,7 @@ def main() -> None:
         if rect_lib is not None:
             buckets[tag]["turns"] = rect_turns(
                 a, port_mods, f"block origin, {tag}",
-                rec.orig_sw_rect_origin, cargs, True, rect_lib)
+                rec.orig_sw_rect_origin, cargs, rect_lib)
             ok &= buckets[tag]["turns"]["max_abs_err"] == 0
         berr = max(berr, max(errs))
     oentry["block"]["buckets"] = buckets
@@ -4085,7 +4186,7 @@ def main() -> None:
     if rect_lib is not None:
         oentry["turns"] = [
             rect_turns(a, port_mods, label, rec.orig_sw_rect_origin, targs,
-                       True, rect_lib)
+                       rect_lib)
             for label, targs in (("fused_pe, first call", oargs),
                                  ("fused_pe --local, first call",
                                   pe_local_args["sw_rect_origin"]))]
@@ -4120,10 +4221,25 @@ def main() -> None:
         f"{len(pair_sweep)} cases, max abs err "
         f"{max(e for _, e in pair_sweep)} ({time.time() - t0:.1f} s)")
     pargs = holder.first["pe_pairing"][1]
+    p_kern = holder.kern_of("pe_pairing")
+    p_floor = pairing_floor(pargs)
+    p_chain = time_cuda(lambda: p_kern(*p_floor), a.reps)
     kernels_out.append(new_entry(
         K10PE[0], *K10PE[1:], holder, pargs, pairing_work, a.reps,
         plaunches.get(K10PE[0], 0), pdev_ms.get(K10PE[0], [0.0, 0]),
-        _build, pair_sweep, more=dict(hostneed_pairs=n_hostneed)))
+        _build, pair_sweep, more=dict(hostneed_pairs=n_hostneed,
+                                      chain_ms=round(p_chain, 5))))
+    # with --compare-parent, the first call and its first 8 pairs in
+    # turns with the parent's design
+    pair_lib = parents.get("pe_pairing")
+    if pair_lib is not None:
+        pe = kernels_out[-1]
+        pe["turns"] = [short_turns(
+            a, _build, "pe_pairing", "first fused_pe call", p_kern, pargs,
+            p_floor, pair_lib)]
+        pe["max_abs_err"] = max(pe["max_abs_err"],
+                                pe["turns"][0]["max_abs_err"])
+        pe["equal"] = pe["max_abs_err"] == 0
     # one whole fused_pe batch (the first) under CUPTI
     split_pal = PairedAligner(edata, pol)
     pe_total, pe_by, pe_reg = cupti(
@@ -4133,7 +4249,8 @@ def main() -> None:
             (fused, "_core", "fused _core (phases 1-4)")))
     pe_ours = split_line(f"one fused_pe batch ({len(batch0)} pairs)",
                          pe_total, pe_by, pe_reg, _build)
-    kernels_out[-1]["batch_cupti_ms"] = pe_ours.get("pairing_kernel<int>")
+    kernels_out[-1]["batch_cupti_ms"] = round(sum(
+        v for k, v in pe_ours.items() if k.startswith("pairing_kernel")), 4)
 
     # ---------------- phase 11: the CLI, card vs --device cpu ------------
     phase(11, "the CLI, card vs --device cpu")
@@ -4181,6 +4298,28 @@ def main() -> None:
     log(f"kernel ref_gather at the long path's widest call: "
         f"{json.dumps(we['wide'])}; long path launches "
         f"{we['long_launches']} total_ms={we['long_total_ms']}")
+    if gather_lib is not None:
+        we["turns"].append(short_turns(
+            a, port_mods._build, "ref_gather", "long path's widest call",
+            holder.kern_of("ref_gather"), wide, gather_floor(wide),
+            gather_lib))
+        # every shape each main path launched, by class, in turns
+        we["launch_classes"] = {}
+        for label, counts in (("SE main path", se_gather_shapes),
+                              ("PE main path", pe_gather_shapes),
+                              ("long reads", port_mods.long_gather_shapes)):
+            kept = {k[:2]: v for k, v in
+                    holder.kept.get((label, "ref_gather"), {}).items()}
+            we["launch_classes"][label] = gather_classes(
+                a, port_mods._build, holder.kern_of("ref_gather"), kept,
+                counts, gather_lib)
+        log(f"compare ref_gather launch classes: "
+            f"{json.dumps(we['launch_classes'])}")
+        we["max_abs_err"] = max(
+            [we["max_abs_err"]] + [t["max_abs_err"] for t in we["turns"]]
+            + [c["max_abs_err"] for d in we["launch_classes"].values()
+               for c in d.values()])
+        we["equal"] = we["max_abs_err"] == 0
     holder.check("large index mode")
 
     # ---------------- phase 13: the large index mode ----------------

@@ -5,8 +5,10 @@ against the JAX package's `_pe_pairing` (bowtie2_tpu/ops/fused.py:721)
 called directly on every `ops/cases.py` pairing_cases case: the four
 policies, `limit` None and an int, pairs under the zero-seed-round
 suppression with need_mm1, tied scores (the first-index argmax and
-argmin), T = 16 and 32 slots, and int64 extents past 2^31 (with
-jax_enable_x64, put back after). Tolerance: exact (int32 fields)."""
+argmin), T = 1, 8, 15, 16, 17 and 32 slots (the kernel's two-pairs-a-warp
+and one-pair-a-warp forms, each with dead slots) at odd pair counts, and
+int64 extents past 2^31 (with jax_enable_x64, put back after).
+Tolerance: exact (int32 fields)."""
 
 import numpy as np
 import pytest
@@ -79,9 +81,10 @@ def test_pe_pairing_plain_matches_jax_large(case):
 
 
 def test_cases_reach_every_rule():
-    """Over the cases: every policy and both limits, T 16 and 32, pairs
-    with and without a kept combination, hostneed pairs, suppressed pairs
-    with half hits (need_mm1), tied best keys and tied ranked heads."""
+    """Over the cases: every policy and both limits, every PAIRING_TS slot
+    count, pairs with and without a kept combination, hostneed pairs,
+    suppressed pairs with half hits (need_mm1), tied best keys and tied
+    ranked heads."""
     seen = {"policy": set(), "limit": set(), "T": set(), "has": set(),
             "hostneed": 0, "need_mm1": 0, "ties": 0}
     for c in SMALL:

@@ -4,7 +4,9 @@ take; chip_smoke.py holds the kernel, csrc/ref_gather.cu, to them on the
 card) against the JAX package's ops on every `ops/cases.py` window_cases
 case: windows past either end of the table, negative starts (below -2^24
 for the unaligned form's clamp), N runs across word boundaries, widths
-that are not multiples of 16 or 32, int32 starts whose positions wrap,
+that are multiples of 16 or 32 and widths that are not (the unaligned
+kernel's 16-code chunks whole, and cut across rows), int32 starts whose
+positions wrap,
 int64 starts past 2^31 (with jax_enable_x64, put back after); and the
 aligned form over ShardedWords at 4 shards, against the JAX op under
 shard_map, at word indices no shard owns. Tolerance: exact (integer
@@ -87,6 +89,8 @@ def test_cases_reach_every_edge():
     assert (big > (1 << 31)).any() and (big > (1 << 32)).any()
     widths = {c.width for c in CASES}
     assert any(w % 16 for w in widths) and any(w % 32 for w in widths)
+    assert any(w % 16 == 0 for w in widths) and any(
+        w % 32 == 0 for w in widths)
     for c in CASES:
         n = 16 * c.ref_words.size
         assert c.refn_words.size != c.ref_words.size
