@@ -15,14 +15,28 @@
 //
 // Word sources: the flat tables, with each word index clipped to its own
 // table ([0, n - 1], as the JAX ops' take), or, in the aligned form, the
-// sharded index mode's word tables (fm_common.cuh ShardTab, one word a
-// row), not clipped: a word no shard owns reads as 0, as the JAX mode's
-// owner-computes psum gives it (ops/fm.py:55 _take_sharded).
+// sharded index mode's word tables (a device array of the S shards'
+// addresses, per words each), not clipped: a word no shard owns reads as
+// 0, as the JAX mode's owner-computes psum gives it (ops/fm.py:55
+// _take_sharded).
 //
 // Aligned form: a row starts at starts & ~31, so its 16-code groups are
-// whole reference words and its 32-code groups whole N words. One thread a
-// 16-code group: one reference word, the matching half of an N word, 16
-// codes written as four 16-byte stores.
+// whole reference words and its 32-code groups whole N words. A thread
+// takes one 16-code group of the flat B x (Wa / 16) groups: one reference
+// word, the matching half of an N word, and its in-bounds bits as one bit
+// field (lo is raised to starts, so one range test about the P wrap covers
+// both). Wa is a multiple of 16, so a warp's 32 groups are one contiguous
+// 2-KB run of the output: each lane takes the bit fields of group
+// 8 q + lane / 4 by two shuffles and writes its quarter as 16-byte piece
+// 32 q + lane of the run, so each of the warp's four stores is one 512-byte
+// row (a thread's own four 16-byte stores would leave each a 64-byte
+// stride). The group's row is one multiply and shift (a reciprocal of
+// Wa / 16 computed on the host; a call holds at most 2^31 groups, 128 GiB
+// of output), and in the sharded form a word's shard the same (a
+// reciprocal of the words a shard), so a thread waits on memory for its
+// row's start and then for its two words. Blocks
+// of 128 threads, as the unaligned form: a call of a few hundred windows
+// spreads over more SMs.
 //
 // Unaligned form: a window starts at `starts` itself. It keeps the JAX op's
 // word arithmetic: the word index is max(starts, -2^24) >> 4 plus the
@@ -50,22 +64,55 @@
 // the run as four 512-byte rows of 16-byte stores, where each thread's own
 // four stores would leave every row a pattern of half sectors and run the
 // store at half the rate.
-#include "fm_common.cuh"
+#include <cstdint>
+#include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;         // threads a block, both forms
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 template <typename P> struct Unsigned;
 template <> struct Unsigned<int> { using T = unsigned; };
 template <> struct Unsigned<long long> { using T = unsigned long long; };
 
-// a + b in P with the wrap of the JAX ops' adds
-template <typename P>
-__device__ __forceinline__ P wrap_add(P a, long long b) {
-    using U = typename Unsigned<P>::T;
-    return (P)((U)a + (U)b);
+// n / d for 0 <= n < 2^31 as a multiply and a shift: mul = ceil(2^(31 +
+// l) / d) with l = ceil(log2 d), shr = l - 1 (d = 1: n itself)
+struct Div {
+    unsigned d, mul, shr;
+};
+
+Div make_div(unsigned d) {
+    if (d <= 1) return Div{1u, 0u, 0u};
+    unsigned l = 0;
+    while ((1ull << l) < d) ++l;
+    return Div{d, (unsigned)(((1ull << (31 + l)) + d - 1) / d), l - 1};
 }
+
+__device__ __forceinline__ unsigned div_of(const Div& v, unsigned n) {
+    return v.d == 1u ? n : __umulhi(n, v.mul) >> v.shr;
+}
+
+// a word table split over shards: the device array of their addresses,
+// per words each, n = per * S words in all
+struct Shards {
+    const unsigned long long* __restrict__ p;
+    long long n;
+    unsigned per;
+    Div div;
+};
+
+// the flat tables and their lengths (the unaligned form's argument)
+struct Flat {
+    const uint32_t* w;
+    const uint32_t* nw;
+    long long n, nn;
+};
+
+struct Words {
+    Flat f;                 // flat
+    Shards ws, ns;          // sharded
+};
 
 __device__ __forceinline__ uint32_t flat_word(const uint32_t* t, long long n,
                                               long long i) {
@@ -74,75 +121,107 @@ __device__ __forceinline__ uint32_t flat_word(const uint32_t* t, long long n,
 }
 
 // a word of a sharded table, 0 where no shard owns it
-__device__ __forceinline__ uint32_t shard_word(const ShardTab& sh,
+__device__ __forceinline__ uint32_t shard_word(const Shards& sh,
                                                long long i) {
-    if (i < 0 || i >= (long long)sh.per * sh.S) return 0u;
-    bool held;
-    const uint32_t* p = shard_row(sh, (int)i, 1, held);
-    return held ? __ldg(p) : 0u;
+    if (i < 0 || i >= sh.n) return 0u;
+    const unsigned s = div_of(sh.div, (unsigned)i);
+    const uint32_t* base =
+        reinterpret_cast<const uint32_t*>(__ldg(sh.p + s));
+    return __ldg(base + ((unsigned)i - s * sh.per));
 }
-
-struct Words {
-    const uint32_t* w;      // flat: the tables and their lengths
-    const uint32_t* nw;
-    long long n, nn;
-    ShardTab ws, ns;        // sharded
-};
 
 template <bool SH>
 __device__ __forceinline__ uint32_t ref_word(const Words& t, long long i) {
     if constexpr (SH) return shard_word(t.ws, i);
-    else return flat_word(t.w, t.n, i);
+    else return flat_word(t.f.w, t.f.n, i);
 }
 
 template <bool SH>
 __device__ __forceinline__ uint32_t n_word(const Words& t, long long i) {
     if constexpr (SH) return shard_word(t.ns, i);
-    else return flat_word(t.nw, t.nn, i);
+    else return flat_word(t.f.nw, t.f.nn, i);
+}
+
+// the k low bits set, k in [0, 32]
+__device__ __forceinline__ uint32_t low_bits(int k) {
+    return k >= 32 ? 0xFFFFFFFFu : (1u << k) - 1u;
+}
+
+// The in-bounds bits of 16 consecutive positions p_i = m + x + i (wrapping
+// in U's width) of a range [m, m + R): bit i is set where (x + i) mod
+// 2^bits < R, i.e. the positions before x + i wraps to 0 and those from
+// there (w = -x, when below 16).
+template <typename U>
+__device__ __forceinline__ uint32_t in_bits16(U x, U R) {
+    uint32_t inb = x < R ? low_bits((int)(R - x < (U)16 ? R - x : (U)16))
+                         : 0u;
+    const U w = (U)0 - x;
+    if (x != 0 && w < (U)16) {
+        const int end = (int)(w + (R < (U)16 ? R : (U)16));
+        inb |= low_bits(end < 16 ? end : 16) & ~low_bits((int)w);
+    }
+    return inb;
 }
 
 template <typename P, bool SH>
 __global__ void __launch_bounds__(THREADS)
 aligned_kernel(Words t, const P* __restrict__ starts,
                const P* __restrict__ lo, const P* __restrict__ hi,
-               long long B, int Wa, int* __restrict__ out,
-               int* __restrict__ col_shift) {
-    const int groups = Wa / 16;
-    const long long total = B * groups;
-    for (long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
-         g < total; g += (long long)gridDim.x * THREADS) {
-        const long long b = g / groups;
-        const int k = (int)(g - b * groups);
-        const P s = __ldg(starts + b);
-        const P a = s & ~(P)31;
-        if (k == 0) col_shift[b] = (int)(s - a);
-        const uint32_t w = ref_word<SH>(t, (long long)(a >> 4) + k);
-        const uint32_t nb = n_word<SH>(t, (long long)(a >> 5) + (k >> 1))
-                            >> (16 * (k & 1));
-        const P l = __ldg(lo + b), h = __ldg(hi + b);
-        const P p0 = wrap_add(a, 16 * k);
-        int c[16];
-        #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-            const P p = wrap_add(p0, i);
-            const int code = ((nb >> i) & 1u) ? 4 : (int)((w >> (2 * i)) & 3u);
-            c[i] = (p < l || p >= h || p < s) ? 5 : code;
+               unsigned total, int groups, Div gdiv,
+               int* __restrict__ out, int* __restrict__ col_shift) {
+    using U = typename Unsigned<P>::T;
+    const int lane = threadIdx.x & 31;
+    // g0, the warp's first group, is the same in every lane: the loop and
+    // the shuffles run over the full warp (total <= 2^31 and the grid's
+    // threads <= 2^27, so g0 never wraps)
+    for (unsigned g0 = blockIdx.x * THREADS + (threadIdx.x & ~31u);
+         g0 < total; g0 += gridDim.x * THREADS) {
+        const unsigned g = g0 + lane;
+        // group g's crumbs, and its N bits (low half) and in-bounds bits
+        // (high half)
+        uint32_t crumbs = 0u, bits = 0u;
+        if (g < total) {
+            const unsigned b = div_of(gdiv, g);
+            const int k = (int)(g - b * (unsigned)groups);
+            const P s = __ldg(starts + b), l = __ldg(lo + b),
+                    h = __ldg(hi + b);
+            const P a = s & ~(P)31;
+            if (k == 0) col_shift[b] = (int)(s - a);
+            crumbs = ref_word<SH>(t, (long long)(a >> 4) + k);
+            const uint32_t nw = n_word<SH>(t, (long long)(a >> 5) + (k >> 1));
+            // code i (position p = a + 16 k + i, wrapping in P) is in
+            // bounds where l <= p < h and p >= s: p in [m, h), m = max(l, s)
+            const P m = l > s ? l : s;
+            const U R = h > m ? (U)h - (U)m : (U)0;
+            const U x = (U)a + (U)(16 * k) - (U)m;
+            bits = ((nw >> (16 * (k & 1))) & 0xFFFFu) | (in_bits16<U>(x, R)
+                                                         << 16);
         }
-        int4* o = reinterpret_cast<int4*>(out + b * Wa + 16 * k);
+        // 16-byte piece 32 q + lane of the warp's run: quarter lane % 4 of
+        // its group 8 q + lane / 4
+        int4* o = reinterpret_cast<int4*>(out) + 4 * (size_t)g0;
         #pragma unroll
-        for (int q = 0; q < 4; ++q)
-            o[q] = make_int4(c[4 * q], c[4 * q + 1], c[4 * q + 2],
-                             c[4 * q + 3]);
+        for (int q = 0; q < 4; ++q) {
+            const int src = 8 * q + (lane >> 2);
+            const uint32_t cr = __shfl_sync(FULL, crumbs, src);
+            const uint32_t bt = __shfl_sync(FULL, bits, src);
+            if (g0 + src < total) {
+                const int i0 = 4 * (lane & 3);
+                int c[4];
+                #pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int j = i0 + i;
+                    c[i] = !((bt >> (16 + j)) & 1u) ? 5
+                           : ((bt >> j) & 1u) ? 4
+                           : (int)((cr >> (2 * j)) & 3u);
+                }
+                o[32 * q + lane] = make_int4(c[0], c[1], c[2], c[3]);
+            }
+        }
     }
 }
 
 constexpr int CHUNK = 16;            // codes a thread of the unaligned form
-constexpr int U_THREADS = 128;       // threads a block of the unaligned form
-
-// the k low bits set, k in [0, 32]
-__device__ __forceinline__ uint32_t low_bits(int k) {
-    return k >= 32 ? 0xFFFFFFFFu : (1u << k) - 1u;
-}
 
 // Codes j .. j + 15 of window b (fewer are used at a row's end) as bit
 // fields from bit 0: the crumbs (two bits a code), the N bits and the
@@ -152,7 +231,7 @@ struct Piece {
 };
 
 template <typename P>
-__device__ __forceinline__ Piece row_piece(const Words& t,
+__device__ __forceinline__ Piece row_piece(const Flat& t,
                                            const P* __restrict__ starts,
                                            const P* __restrict__ lo,
                                            const P* __restrict__ hi,
@@ -179,31 +258,23 @@ __device__ __forceinline__ Piece row_piece(const Words& t,
         pc.nbits = d == 16 ? nr : (pc.nbits << d) | (nr & low_bits(d));
     }
     // code i is in bounds where (p_i - lo) mod 2^bits < hi - lo, p_i =
-    // s + j + i wrapping in P: the codes before a + i wraps to 0, and those
-    // from there (w = -a, when below 16)
-    const U a = (U)s + (U)j - (U)l;
-    const U R = h > l ? (U)h - (U)l : (U)0;
-    const U R16 = R < (U)16 ? R : (U)16;
-    pc.inb = a < R ? low_bits((int)(R - a < (U)16 ? R - a : (U)16)) : 0u;
-    const U w = (U)0 - a;
-    if (a != 0 && w < (U)16) {
-        const int end = (int)(w + R16);
-        pc.inb |= low_bits(end < 16 ? end : 16) & ~low_bits((int)w);
-    }
+    // s + j + i wrapping in P
+    pc.inb = in_bits16<U>((U)s + (U)j - (U)l,
+                          h > l ? (U)h - (U)l : (U)0);
     return pc;
 }
 
 template <typename P>
-__global__ void __launch_bounds__(U_THREADS)
-unaligned_kernel(Words t, const P* __restrict__ starts,
+__global__ void __launch_bounds__(THREADS)
+unaligned_kernel(Flat t, const P* __restrict__ starts,
                  const P* __restrict__ lo, const P* __restrict__ hi,
                  unsigned long long B, unsigned long long width,
                  int* __restrict__ out) {
     using G = unsigned long long;              // the flat index
-    __shared__ int4 stage[U_THREADS / 32][32 * 4];  // a warp's 512 codes
+    __shared__ int4 stage[THREADS / 32][32 * 4];  // a warp's 512 codes
     const G total = B * width;
-    for (G g = ((G)blockIdx.x * U_THREADS + threadIdx.x) * CHUNK;
-         g < total; g += (G)gridDim.x * U_THREADS * CHUNK) {
+    for (G g = ((G)blockIdx.x * THREADS + threadIdx.x) * CHUNK;
+         g < total; g += (G)gridDim.x * THREADS * CHUNK) {
         const int n = total - g < (G)CHUNK ? (int)(total - g) : CHUNK;
         G b = g / width, j = g - b * width;
         uint32_t crumbs = 0, nbits = 0, inb = 0;
@@ -284,11 +355,24 @@ int launch_aligned(const Words& t, const void* starts, const void* lo,
                    void* shift, void* stream) {
     if (Wa <= 0 || Wa % 32 != 0) return (int)cudaErrorInvalidValue;
     if (B <= 0) return (int)cudaGetLastError();
-    aligned_kernel<P, SH><<<grid_of(B * (Wa / 16)), THREADS, 0,
+    const int groups = Wa / 16;
+    // the row reciprocal's range: 2^31 groups are 128 GiB of output
+    if (B > (1LL << 31) / groups) return (int)cudaErrorInvalidValue;
+    const long long total = B * groups;
+    aligned_kernel<P, SH><<<grid_of(total), THREADS, 0,
                             (cudaStream_t)stream>>>(
-        t, (const P*)starts, (const P*)lo, (const P*)hi, B, Wa, (int*)out,
-        (int*)shift);
+        t, (const P*)starts, (const P*)lo, (const P*)hi, (unsigned)total,
+        groups, make_div((unsigned)groups), (int*)out, (int*)shift);
     return (int)cudaGetLastError();
+}
+
+// a sharded table's description; false where its words pass 2^31 (the
+// shard lookup's range)
+bool shards_of(const void* addrs, int per, int S, Shards& sh) {
+    if (per <= 0 || S <= 0 || (long long)per * S > (1LL << 31)) return false;
+    sh = Shards{(const unsigned long long*)addrs, (long long)per * S,
+                (unsigned)per, make_div((unsigned)per)};
+    return true;
 }
 
 }  // namespace
@@ -296,7 +380,7 @@ int launch_aligned(const Words& t, const void* starts, const void* lo,
 // win[b, :] (B x Wa int32 codes) and col_shift[b] of the aligned form over
 // the flat tables (words: n_words int32 words of 2-bit codes; nwords:
 // n_nwords N-bit words); starts, lo, hi: B positions, int64 when pos64 is
-// set, else int32. Wa: a multiple of 32.
+// set, else int32. Wa: a multiple of 32; B x Wa / 16 at most 2^31.
 extern "C" int ref_gather_aligned(const void* words, long long n_words,
                                   const void* nwords, long long n_nwords,
                                   const void* starts, const void* lo,
@@ -304,8 +388,8 @@ extern "C" int ref_gather_aligned(const void* words, long long n_words,
                                   int Wa, void* out, void* shift,
                                   void* stream) {
     if (n_words <= 0 || n_nwords <= 0) return (int)cudaErrorInvalidValue;
-    Words t{(const uint32_t*)words, (const uint32_t*)nwords, n_words,
-            n_nwords, {}, {}};
+    Words t{{(const uint32_t*)words, (const uint32_t*)nwords, n_words,
+             n_nwords}, {}, {}};
     return pos64 ? launch_aligned<long long, false>(t, starts, lo, hi, B, Wa,
                                                     out, shift, stream)
                  : launch_aligned<int, false>(t, starts, lo, hi, B, Wa, out,
@@ -313,18 +397,18 @@ extern "C" int ref_gather_aligned(const void* words, long long n_words,
 }
 
 // The same over sharded word tables: wshards / nshards, the device arrays
-// of the S (nS) shards' addresses, per (nper) words each.
+// of the S (nS) shards' addresses, per (nper) words each, at most 2^31
+// words a table.
 extern "C" int ref_gather_aligned_sh(const void* wshards, int per, int S,
                                      const void* nshards, int nper, int nS,
                                      const void* starts, const void* lo,
                                      const void* hi, int pos64, long long B,
                                      int Wa, void* out, void* shift,
                                      void* stream) {
-    if (per <= 0 || S <= 0 || nper <= 0 || nS <= 0)
+    Words t{{nullptr, nullptr, 0, 0}, {}, {}};
+    if (!shards_of(wshards, per, S, t.ws) ||
+        !shards_of(nshards, nper, nS, t.ns))
         return (int)cudaErrorInvalidValue;
-    Words t{nullptr, nullptr, 0, 0,
-            {(const unsigned long long*)wshards, per, S},
-            {(const unsigned long long*)nshards, nper, nS}};
     return pos64 ? launch_aligned<long long, true>(t, starts, lo, hi, B, Wa,
                                                    out, shift, stream)
                  : launch_aligned<int, true>(t, starts, lo, hi, B, Wa, out,
@@ -341,18 +425,18 @@ extern "C" int ref_gather(const void* words, long long n_words,
     if (n_words <= 0 || n_nwords <= 0 || width < 0)
         return (int)cudaErrorInvalidValue;
     if (B <= 0 || width == 0) return (int)cudaGetLastError();
-    Words t{(const uint32_t*)words, (const uint32_t*)nwords, n_words,
-            n_nwords, {}, {}};
+    Flat t{(const uint32_t*)words, (const uint32_t*)nwords, n_words,
+           n_nwords};
     const long long total = B * width;
-    const unsigned grid = grid_of((total + CHUNK - 1) / CHUNK, U_THREADS);
+    const unsigned grid = grid_of((total + CHUNK - 1) / CHUNK, THREADS);
     cudaStream_t st = (cudaStream_t)stream;
     using u64 = unsigned long long;
     if (pos64)
-        unaligned_kernel<long long><<<grid, U_THREADS, 0, st>>>(
+        unaligned_kernel<long long><<<grid, THREADS, 0, st>>>(
             t, (const long long*)starts, (const long long*)lo,
             (const long long*)hi, (u64)B, (u64)width, (int*)out);
     else
-        unaligned_kernel<int><<<grid, U_THREADS, 0, st>>>(
+        unaligned_kernel<int><<<grid, THREADS, 0, st>>>(
             t, (const int*)starts, (const int*)lo, (const int*)hi, (u64)B,
             (u64)width, (int*)out);
     return (int)cudaGetLastError();

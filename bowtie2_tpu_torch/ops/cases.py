@@ -534,7 +534,8 @@ class ReadoutCase(NamedTuple):
     reads: np.ndarray                # (Bc, Lmax) int32 codes 0..4
     quals: np.ndarray                # (Bc, Lmax) int32
     wins: np.ndarray                 # (Bc, Wf) int32 codes 0..5
-    rows: np.ndarray                 # (Bc,) int32 in 0..Lmax - 1
+    rows: np.ndarray                 # (Bc,) int32 in 0..Lmax - 1 (edge
+                                     # cases: -1 and past Lmax too)
     lanes: np.ndarray                # (Bc,) int32 window columns
     lens: np.ndarray                 # (Bc,) int32 in 0..Lmax
     params: dict                     # SWParams keywords (either package's)
@@ -542,7 +543,16 @@ class ReadoutCase(NamedTuple):
 
 READOUT_LMAXES = (1, 32, 33, 128)      # 128: the main path's bucket
 READOUT_BATCH = 45     # candidates a case, a unit of scale: not a multiple
-                       # of the kernel's 32-candidate tile
+                       # of the kernel's 32-candidate block nor of 16
+# the edge cases' candidates (a unit of scale): 1, 17 and 50 are not
+# multiples of 16 (byte stores of the op rows), 48 is one but not of 32 (a
+# part block of 16-byte stores); at scale 8: 8, 136, 400 (16 but not 32)
+# and 384 (whole blocks)
+READOUT_EDGE_BATCHES = (1, 17, 48, 50)
+# read lengths past the kernel's 256-step shared tile (the longest
+# LEN_BUCKETS value among them), at a few candidates
+READOUT_LONG_LMAXES = (768, 8192)
+READOUT_LONG_BATCH = 3
 READOUT_PARAMS = (("e2e", {}),
                   ("bonus", dict(match_bonus=2, mm_pen_max=5, mm_pen_min=1,
                                  n_pen=2)))
@@ -584,11 +594,44 @@ def _readout_case(rng, name, Bc, Lmax, Wf, params):
                        dict(params))
 
 
+def _readout_edge_case(rng, name, Bc, Lmax, Wf, params):
+    """A readout case whose best rows reach past the walk's ends (the
+    fused path never has them: there lens = rows + 1 <= Lmax): candidate
+    0 at row -1 (every step OP_NONE) on a diagonal wholly left of its
+    window (every live position out of it); then, in turn, a row past the
+    kernel's 256-step tile where Lmax allows (else Lmax - 1), past 2 Lmax
+    and Lmax (steps up to rows - Lmax + 1 repeat position Lmax - 1), rows
+    near -2^31 where rows - s wraps in int32 (-2^31: steps from 1 emit
+    position Lmax - 1; -2^31 + Lmax - 2: the last step does;
+    -2^31 + Lmax - 1: none does), -1 again, and the readout case's own
+    row. Each keeps its diagonal's start column."""
+    full = _readout_case(rng, name, max(Bc, 6), Lmax, Wf, params)
+    c = full._replace(**{f: getattr(full, f)[:Bc] for f in (
+        "reads", "quals", "wins", "rows", "lanes", "lens")})
+    base = c.lanes.astype(np.int64) - c.rows
+    rows = c.rows.astype(np.int64)
+    lens = c.lens.copy()
+    far = int(rng.integers(256, Lmax)) if Lmax > 256 else Lmax - 1
+    edge_rows = (-1, far, 2 * Lmax + 5, Lmax, -2**31, -2**31 + Lmax - 2,
+                 -2**31 + Lmax - 1, -1)
+    for b in range(Bc):
+        k = b % (len(edge_rows) + 1)
+        if k < len(edge_rows):
+            rows[b] = edge_rows[k]
+    base[0] = -Lmax - 2
+    lens[0] = Lmax
+    return c._replace(rows=rows.astype(np.int32),
+                      lanes=(base + rows).astype(np.int32), lens=lens)
+
+
 def readout_cases(seed: int = 0, scale: int = 1) -> List[ReadoutCase]:
     """The SE gapless readout (`diag_readout`): every read length of
     READOUT_LMAXES, a window wider than the read (the fused path's shape)
     and one narrower, each with the default scores and with a match bonus
-    and other penalties; `scale` multiplies the candidates of a case."""
+    and other penalties; the edge cases (`_readout_edge_case`: rows -1,
+    past Lmax and near -2^31) at each READOUT_EDGE_BATCHES count, and at the
+    READOUT_LONG_LMAXES lengths past the kernel's shared tile; `scale`
+    multiplies the candidates of a case."""
     rng = np.random.default_rng(seed + 4242)
     out = []
     for Lmax in READOUT_LMAXES:
@@ -597,6 +640,17 @@ def readout_cases(seed: int = 0, scale: int = 1) -> List[ReadoutCase]:
                 out.append(_readout_case(
                     rng, f"L{Lmax}_{wkind}_{pkind}", READOUT_BATCH * scale,
                     Lmax, Wf, params))
+    # rows past either end of the walk, at the fused path's shape (Lmax
+    # 128, window 224) and at an odd length, over READOUT_EDGE_BATCHES
+    for Bc in READOUT_EDGE_BATCHES:
+        for Lmax, Wf in ((128, 224), (33, 94)):
+            out.append(_readout_edge_case(
+                rng, f"edges_L{Lmax}_B{Bc}", Bc * scale, Lmax, Wf, {}))
+    # reads longer than one shared tile of steps
+    for Lmax in READOUT_LONG_LMAXES:
+        out.append(_readout_edge_case(
+            rng, f"long_L{Lmax}", READOUT_LONG_BATCH * scale, Lmax,
+            Lmax + 61, dict(READOUT_PARAMS[1][1])))
     return out
 
 
@@ -1183,7 +1237,7 @@ WINDOW_WORDS = 200          # reference words a table (3,200 bp)
 # widths: 16, 32 and 48 are whole multiples of the unaligned kernel's
 # 16-code chunk, the others cut a chunk across rows (below 16 several)
 WINDOW_WIDTHS = (1, 15, 17, 33, 189, 224, 533, 16, 32, 48)
-WINDOW_KINDS = ("edges", "negative", "extremes", "large")
+WINDOW_KINDS = ("edges", "negative", "extremes", "large", "ragged")
 WINDOW_BATCH = 23           # windows a case, a unit of scale
 # the N runs of the tables' N mask, [start, end) in bases: runs that cross
 # a reference word (16 bases) and an N word (32 bases), a whole N word and
@@ -1215,15 +1269,24 @@ def window_cases(seed: int = 0, scale: int = 1) -> List[WindowCase]:
       clamp) and near -2^31;
     - extremes: int32 starts near 2^31 - 1, whose positions wrap;
     - large: int64 starts past 2^31 (the large mode), references there,
-      the words clipped to the table's last."""
+      the words clipped to the table's last;
+    - ragged: 1, 3, 5, ... windows (times scale; the width's index 2 k +
+      1) as edges draws them, so that the aligned form's B x Wa / 16
+      16-code groups end inside a warp (at width 1, Wa = 32)."""
     rng = np.random.default_rng(seed)
     out = []
     words, nwords = _window_tables(rng)
     n = 16 * WINDOW_WORDS
     B = WINDOW_BATCH * scale
     for kind in WINDOW_KINDS:
-        for W in WINDOW_WIDTHS:
-            if kind == "edges":
+        for k, W in enumerate(WINDOW_WIDTHS):
+            if kind == "ragged":
+                Bk = (2 * k + 1) * scale
+                starts = rng.integers(-W - 64, n + 64, Bk)
+                lo = rng.integers(0, n // 2, Bk)
+                hi = np.minimum(lo + rng.integers(0, n, Bk), n)
+                dtype = np.int32
+            elif kind == "edges":
                 starts = rng.integers(-W - 64, n + 64, B)
                 starts[:4] = [-W - 5, -3, n - W // 2 - 1, n + 10]
                 lo = rng.integers(0, n, B)

@@ -243,18 +243,25 @@ record and reads no diagonal out), `_sh` in phase 14.
 Each is timed as in phase 6 at its main path's first call (phase 3's
 fused and host-path calls, phase 8's pairing, phase 14's sharded call;
 the unaligned form also at the long path's widest call, `wide`; the
-readout at the fused path's first call), and under torch.profiler
-(CUPTI) with its plain version (`cupti_ms`, `plain_cupti_ms`). The
-unaligned gather and the pairing are also timed on one block's worth of
-their first call alone (`chain_ms`: the first windows that hold 2,048
-codes; the first 8 pairs). With --compare-parent, the unaligned gather
-on its first call and the long path's widest, the pairing on its first
-call, and each on those calls' one-block floors are timed in turns with
-the other design (`turns` in the JSON entries); and every shape of
-unaligned gather that the SE, PE and long main paths launched is timed
-in turns, weighted by its launches on the path (`launch_classes`: the
-launches below one block's worth of codes, 2,048, and the rest, with
-their summed times in each design). One whole
+readout at the fused path's first call, and at a call of its shape for
+250-300-bp reads, Lmax 384, past the kernel's 256-step tile, `long`,
+held to the plain version too), and under torch.profiler
+(CUPTI) with its plain version (`cupti_ms`, `plain_cupti_ms`). Each is
+also timed on one block's worth of its first call alone (`chain_ms`: the
+gathers' first windows that hold 2,048 codes, the pairing's first 8
+pairs, the readout's first 32 candidates; the aligned gathers' and the
+readout's held to the plain version too, `chain_err`). With
+--compare-parent, the unaligned gather on its first call and the long
+path's widest, the aligned gather on the first fused SE and fused PE
+calls and over 4 shards on phase 14's first, the pairing and the
+readout on their first calls (the readout also on its Lmax 384 call),
+and each on those calls' one-block floors are timed in turns with the
+other design (`turns` in the JSON entries); and every shape of gather,
+in either form, that the SE, PE and (the unaligned form) long main paths
+launched, and of readout that the SE main path launched, is timed in
+turns, weighted by its launches on the path (`launch_classes`: the
+launches below one block's worth of codes, 2,048, or of candidates, 32,
+and the rest, with their summed times in each design). One whole
 fused_se batch and one fused_pe batch run under CUPTI too (the `CUPTI
 split` lines: device time by kernel and by region: fused `_core`, the
 gather, the SE readout, the pairing). Since the aligned gather
@@ -265,8 +272,8 @@ times it on the word indices of the sharded path's first gather.
 unpacked under the gitignored build/): every CUDA source in DIR that
 differs from the port's own is built with the port's flags (DIR's headers
 first) and, where its kernel has a call to be timed on (sw_rect, sw_diag,
-ref_gather, pe_pairing), held to this design's output there and timed in
-turns with it: parent, this, this, parent, each window of about
+ref_gather, pe_pairing, diag_readout), held to this design's output there
+and timed in turns with it: parent, this, this, parent, each window of about
 WINDOW_MS with clocks.sm sampled beside it, or TURN_REPS launches for a
 kernel too short for that, and each design after IDLE_S idle.
 
@@ -378,17 +385,24 @@ WINDOW_MS = 800.0
 # short to sample clocks.sm in
 TURN_REPS = 200
 # the sources whose kernels --compare-parent times in turns on some call
-TURN_SOURCES = ("sw_rect", "sw_diag", "ref_gather", "pe_pairing")
-# codes a block of K7's unaligned form covers: 128 threads of 16 codes
+TURN_SOURCES = ("sw_rect", "sw_diag", "ref_gather", "pe_pairing",
+                "diag_readout")
+# codes a block of K7 covers, either form: 128 threads of 16 codes
 BLOCK_CODES = 2048
+# candidates a block of K10 SE takes
+READOUT_BLOCK = 32
+# the LEN_BUCKETS length of the K10 SE call past its 256-step tile
+READOUT_LONG_LMAX = 384
 
 # positions in the C call's arguments of the sizes that pick a kernel's
 # launch shape: backtrace (walks, Lmax, W, S), sa_resolve (rows); and of
 # the calls' sizes: fm_seed (seeds, seed length, K), fm_substring (states,
 # pattern columns), sw_diag (problems, Lmax), bt_diag (walks, Lmax, S),
-# ref_gather (windows, width)
+# ref_gather (windows, width), ref_gather_aligned (windows, aligned width),
+# diag_readout (candidates, Lmax, window width)
 SHAPE_ARGS = {"backtrace": (10, 1, 11, 12), "sa_resolve": (8,),
-              "ref_gather": (8, 9),
+              "ref_gather": (8, 9), "ref_gather_aligned": (8, 9),
+              "diag_readout": (6, 7, 8),
               "fm_seed": (8, 9, 10), "fm_substring": (6, 7),
               "sw_diag": (4, 5), "bt_diag": (10, 1, 12)}
 
@@ -701,7 +715,8 @@ class Holder:
     kept call's kernel result to the plain version on the same inputs,
     after the phase has read its counts, and starts afresh; `first` keeps
     each entry's first call, and `kept` a call of each shape of the gathers
-    by phase, for good."""
+    and of the readout (candidates, Lmax, window width) by phase, for
+    good."""
 
     def __init__(self, ref, fused, align_mod, sw):
         i32 = torch.int32
@@ -716,7 +731,7 @@ class Holder:
                      "pe_pairing": fused._pe_pairing,
                      "diag_readout": fused.diag_readout}
         self.calls = {}            # entry -> {key: args}
-        self.kept = {}             # (label, entry) -> {key: args}, gathers
+        self.kept = {}             # (label, entry) -> {shape: args}
         self.first = {}            # entry -> (label, args)
         self.checks = {}           # entry -> {label: record}
         self.label = None
@@ -744,6 +759,13 @@ class Holder:
         return (starts.shape[0], args[5], str(starts.dtype).split(".")[-1],
                 args[0].words.S if hasattr(args[0], "words") else 1)
 
+    @staticmethod
+    def shape(name, args):
+        """The shape a kept call is filed under (None: not kept)."""
+        if name == "diag_readout":
+            return tuple(args[0].shape) + (args[2].shape[1],)
+        return None if name == "pe_pairing" else Holder.key(name, args)
+
     def _patch(self, mod, attr, name):
         orig = getattr(mod, attr)
 
@@ -755,9 +777,10 @@ class Holder:
                 d = self.calls.setdefault(e, {})
                 key = self.key(name, a)
                 d.setdefault(len(d) if key is None else key, a)
-                if key is not None:
+                shape = self.shape(name, a)
+                if shape is not None:
                     self.kept.setdefault((self.label, e), {}).setdefault(
-                        key, a)
+                        shape, a)
             return orig(*a, **k)
         setattr(mod, attr, wrapped)
 
@@ -1548,6 +1571,60 @@ def gather_floor(args):
         + (width,)
 
 
+def aligned_floor(args):
+    """One block's worth of a K7 aligned call (BLOCK_CODES codes): its
+    first windows of aligned width that hold 2,048 codes, at least one."""
+    w, n, starts, lo, hi, width = args
+    rows = max(1, BLOCK_CODES // (32 * ((width + 62) // 32)))
+    return (w, n) + tuple(t[:rows].contiguous() for t in (starts, lo, hi)) \
+        + (width,)
+
+
+def readout_floor(args):
+    """One block's worth of a K10 SE call: its first READOUT_BLOCK
+    candidates."""
+    return tuple(t[:READOUT_BLOCK].contiguous() for t in args[:6]) + \
+        (args[6],)
+
+
+def readout_call(Bc, Lmax, Wf, base, params, seed, dev):
+    """Inputs of a K10 SE call of the fused path's kind: Bc candidates of
+    the LEN_BUCKETS bucket Lmax, windows of width Wf and the diagonals'
+    start columns `base` (Bc,); reads of lengths over the bucket's range
+    copied off their diagonals with 1 % substitutions and 4 past their
+    ends, windows of random codes with 0.1 % Ns, quals 2-40, rows = lens -
+    1 and lens = rows + 1 as the fused path passes them."""
+    from bowtie2_tpu_torch.pipeline.align import LEN_BUCKETS
+    rng = np.random.default_rng(seed)
+    prev = max([b for b in LEN_BUCKETS if b < Lmax], default=0)
+    lens = rng.integers(prev + 1, Lmax + 1, Bc).astype(np.int32)
+    base = np.clip(np.asarray(base, np.int64), 0, Wf - Lmax)
+    wins = rng.integers(0, 4, (Bc, Wf)).astype(np.int32)
+    wins[rng.random((Bc, Wf)) < 0.001] = 4
+    reads = np.take_along_axis(wins, base[:, None] + np.arange(Lmax), 1)
+    sub = rng.random((Bc, Lmax)) < 0.01
+    reads[sub] = (reads[sub] + 1) % 4
+    past = np.arange(Lmax)[None, :] >= lens[:, None]
+    reads[past] = 4
+    quals = np.where(past, 0, rng.integers(2, 41, (Bc, Lmax)))
+    rows = lens - 1
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+                 for x in (reads, quals, wins, rows, base + rows, rows + 1)) \
+        + (params,)
+
+
+def long_readout_args(args, Lmax, seed):
+    """readout_call at the bucket Lmax (past the kernel's 256-step tile)
+    after a main-path call `args` (Lmax0, window Wf0): its candidates,
+    windows Lmax - Lmax0 wider (to a multiple of 32, as aligned_width
+    gives them), its diagonals' start columns."""
+    reads0, wins0, rows0, lanes0 = (args[k] for k in (0, 2, 3, 4))
+    Bc, L0 = reads0.shape
+    Wf = 32 * -(-(Lmax + wins0.shape[1] - L0) // 32)
+    base = (lanes0.long() - rows0.long()).cpu().numpy()
+    return readout_call(Bc, Lmax, Wf, base, args[6], seed, reads0.device)
+
+
 def pairing_floor(args, n=8):
     """One block's worth of a K10 PE call (8 pairs at T <= 16): its first
     n pairs, both mates."""
@@ -1557,10 +1634,12 @@ def pairing_floor(args, n=8):
         torch.cat([t[:n], t[Bp:Bp + n]]).contiguous() for t in args[4:])
 
 
-def short_turns(a, build, name, label, kern, args, floor_args, parent_lib):
+def short_turns(a, build, name, label, kern, args, floor_args, parent_lib,
+                plain=None):
     """A call of a short kernel of csrc/<name>.cu (`kern` on `args`) and
     its one-block floor (`floor_args`) in turns with the parent's build,
-    TURN_REPS launches a window."""
+    TURN_REPS launches a window; with `plain`, the floor's result is held
+    to the plain version's too (`floor.plain_err`)."""
     def timed(x, idle):
         def run():
             return kern(*x)
@@ -1568,36 +1647,65 @@ def short_turns(a, build, name, label, kern, args, floor_args, parent_lib):
                      reps=TURN_REPS, idle=idle)
     res = {"call": label, **timed(args, True),
            "floor": timed(floor_args, False)}
+    if plain is not None:
+        res["floor"]["plain_err"] = max_err(kern, plain, floor_args)[1]
+        res["floor"]["max_abs_err"] = max(res["floor"]["max_abs_err"],
+                                          res["floor"]["plain_err"])
     res["max_abs_err"] = max(res["max_abs_err"],
                              res["floor"]["max_abs_err"])
     log(f"compare {name} {label}: {json.dumps(res)}")
     return res
 
 
-def gather_classes(a, build, kern, kept, counts, parent_lib):
-    """Each shape of unaligned gather that a main path launched (`counts`:
-    {(windows, width): [ms, launches]} from its device-time pass; `kept`:
-    {(windows, width): a call's arguments}) in turns with the parent's
-    build, TURN_REPS launches a window: by class, the launches below one
-    block's worth of codes (BLOCK_CODES) and the rest, with their summed
-    times in each design (launches x the mean of its two windows) and, by
-    shape, [windows, width, launches, this ms, parent ms] a launch."""
+def floor_turns(a, build, entry, src, label, kern, plain, args, floor,
+                what, parent_lib):
+    """A held kernel's one-block floor (`floor`, `what` in words): timed
+    alone (`chain_ms`) and held to its plain version (`chain_err`); with
+    a parent build of csrc/<src>.cu, the call `args` and that floor in
+    turns with it (`turns`). Every error goes into the entry's
+    max_abs_err."""
+    entry["chain_ms"] = round(time_cuda(lambda: kern(*floor), a.reps), 5)
+    entry["chain_err"] = max_err(kern, plain, floor)[1]
+    log(f"kernel {entry['name']}: one block alone (chain_ms) "
+        f"{entry['chain_ms']} on {what}, max abs err {entry['chain_err']}")
+    if parent_lib is not None:
+        entry.setdefault("turns", []).append(short_turns(
+            a, build, src, label, kern, args, floor, parent_lib, plain))
+    entry["max_abs_err"] = max([entry["max_abs_err"], entry["chain_err"]]
+                               + [t["max_abs_err"]
+                                  for t in entry.get("turns", [])])
+    entry["equal"] = entry["max_abs_err"] == 0
+
+
+def gather_classes(a, build, kern, kept, counts, parent_lib,
+                   entry="ref_gather", src="ref_gather",
+                   below=lambda B, w: B * w < BLOCK_CODES):
+    """Each shape of call of `entry` (a kernel of csrc/<src>.cu: K7's
+    unaligned or aligned form, or K10 SE) that a main path launched
+    (`counts`: {shape: [ms, launches]} from its device-time pass, the
+    SHAPE_ARGS of the C call: (windows, width), the aligned width for the
+    aligned form, or (candidates, Lmax, window width); `kept`: {shape: a
+    call's arguments}) in turns with the parent's build, TURN_REPS
+    launches a window: by class, the launches below one block's worth of
+    work (`below(*shape)`: BLOCK_CODES codes, or READOUT_BLOCK candidates)
+    and the rest, with their summed times in each design (launches x the
+    mean of its two windows) and, by shape, [*shape, launches, this ms,
+    parent ms] a launch."""
     out = {c: dict(shapes=[], launches=0, this_ms=0.0, parent_ms=0.0,
                    max_abs_err=0) for c in ("below_block", "rest")}
-    for (B, w), (_ms, n) in sorted(counts.items()):
-        args = kept.get((B, w))
+    for shape, (_ms, n) in sorted(counts.items()):
+        args = kept.get(shape)
         if args is None:
-            fail(f"no call of ref_gather at {B} x {w} was kept")
+            fail(f"no call of {entry} at {shape} was kept")
 
         def run():
             return kern(*args)
-        t = turns(a, run, lambda: with_lib(build, parent_lib, run,
-                                           "ref_gather"),
+        t = turns(a, run, lambda: with_lib(build, parent_lib, run, src),
                   reps=TURN_REPS, idle=False)
-        c = out["below_block" if B * w < BLOCK_CODES else "rest"]
+        c = out["below_block" if below(*shape) else "rest"]
         mean = {tag: sum(t[f"{tag}_ms"]) / 2 for tag in ("this", "parent")}
-        c["shapes"].append([B, w, n, round(mean["this"], 5),
-                            round(mean["parent"], 5)])
+        c["shapes"].append(list(shape) + [n, round(mean["this"], 5),
+                                          round(mean["parent"], 5)])
         c["launches"] += n
         for tag in ("this", "parent"):
             c[f"{tag}_ms"] += n * mean[tag]
@@ -1840,16 +1948,30 @@ def pairing_work(args, out):
 
 
 def readout_work(args, out):
-    """K10 SE's (bytes, operations) on a call's inputs: the read codes
-    and quals, the Lmax window codes each candidate's diagonal touches,
-    rows, lanes and lengths read once; the (Lmax, Bc) op bytes and the
-    five per-candidate outputs (dscore, n_mm, n_refn, base, gapless_ok)
-    written once; OPS_READOUT_POS a read position."""
+    """K10 SE's (bytes, operations) on a call's inputs, as far as the data
+    needs them: rows, lanes and lengths read once; a candidate's read
+    codes, and its window codes where the diagonal lies in the window, at
+    the positions the function reads (below max(lens, rows + 1), at most
+    Lmax: the sums' live ones and the walk's; all Lmax where a wrapped
+    rows - s reaches position Lmax - 1); its quals only where a live
+    position is a mismatch, whose penalty they give; the (Lmax, Bc) op
+    bytes and the per-candidate outputs (four int32, one byte) written
+    once; OPS_READOUT_POS a position read."""
     reads, quals, wins, rows, lanes, lens, _p = args
     Bc, L = reads.shape
-    byt = nbytes(reads, quals, rows, lanes, lens) + \
-        Bc * L * wins.element_size() + Bc * L + 5 * 4 * Bc
-    return byt, Bc * L * OPS_READOUT_POS
+    r, n = rows.long(), lens.long()
+    ar = torch.arange(L, device=reads.device)[None, :]
+    top = torch.where(r >= 0, torch.clamp(r, max=L - 1) + 1,
+                      torch.where(r < -(1 << 31) + L - 1, L, 0))
+    need = ar < torch.maximum(torch.clamp(n, 0, L), top)[:, None]
+    idx = (lanes.long() - r)[:, None] + ar
+    inwin = (idx >= 0) & (idx < wins.shape[1])
+    diag = torch.where(inwin, wins.gather(
+        1, torch.clamp(idx, 0, wins.shape[1] - 1)), 5)
+    mism = (ar < n[:, None]) & (diag < 4) & (reads < 4) & (diag != reads)
+    byt = 4 * int(need.sum() + (need & inwin).sum() + mism.sum()) + \
+        nbytes(rows, lanes, lens) + Bc * L + (4 * 4 + 1) * Bc
+    return byt, int(need.sum()) * OPS_READOUT_POS
 
 
 def readout_sweep(cases, sw, holder, dev):
@@ -3098,6 +3220,16 @@ def shard_phase(a, m, ctx):
         sh_ms.get("ref_gather_aligned_sh", [0.0, 0]), build,
         ctx["win_sweep"]["ref_gather_aligned_sh"],
         more=dict(shards=k7_args[0].words.S)))
+    # its one-block floor (held to its plain version); with
+    # --compare-parent, the call and that floor in turns with the parent's
+    # design
+    s_floor = aligned_floor(k7_args)
+    floor_turns(a, build, entries[-1], "ref_gather",
+                "first sharded SE call (4 shards)",
+                holder.kern_of("ref_gather_aligned_sh"),
+                holder.plain_of("ref_gather_aligned_sh"), k7_args, s_floor,
+                f"{s_floor[2].shape[0]} windows",
+                m.parent_libs.get("ref_gather"))
     log(f"phase 14 checks (groups differing): {json.dumps(checks)}; "
         f"launches on the sharded paths {launch}; phase 14: "
         f"{time.time() - t_phase:.1f} s")
@@ -3568,6 +3700,9 @@ def main() -> None:
     timer.restore()
     dev_ms = timer.totals()
     se_gather_shapes = timer.totals(by_shape=True).get("ref_gather", {})
+    se_aligned_shapes = timer.totals(by_shape=True).get(
+        "ref_gather_aligned", {})
+    se_readout_shapes = timer.totals(by_shape=True).get(K10SE[0], {})
     shapes = {k: {str(sh): [round(v[0], 4), v[1]] for sh, v in sorted(d.items())}
               for k, d in timer.totals(by_shape=True).items()}
     busy_s = sum(v[0] for v in dev_ms.values()) / 1e3
@@ -3582,7 +3717,8 @@ def main() -> None:
     log(f"call shapes: {json.dumps(shapes)} (total ms, calls; backtrace by "
         f"(walks, Lmax, W, S), sa_resolve by rows, fm_seed by (seeds, "
         f"seed length, K), fm_substring by (states, columns), ref_gather by "
-        f"(windows, width)); the card "
+        f"(windows, width), ref_gather_aligned by (windows, aligned "
+        f"width)); the card "
         f"holds {threads} threads at once")
 
     # ---------------- phase 4: card vs CPU on the first batch -------------
@@ -3859,6 +3995,16 @@ def main() -> None:
         k7u["max_abs_err"] = max(k7u["max_abs_err"],
                                  k7u["turns"][0]["max_abs_err"])
         k7u["equal"] = k7u["max_abs_err"] == 0
+    # the aligned form's one-block floor (held to its plain version); with
+    # --compare-parent, the fused SE path's first call and that floor in
+    # turns with the parent's design (the PE path's first call follows in
+    # phase 12)
+    a_args = holder.first["ref_gather_aligned"][1]
+    a_floor = aligned_floor(a_args)
+    floor_turns(a, _build, k7_entries["ref_gather_aligned"], "ref_gather",
+                "first fused SE call", holder.kern_of("ref_gather_aligned"),
+                holder.plain_of("ref_gather_aligned"), a_args, a_floor,
+                f"{a_floor[2].shape[0]} windows", gather_lib)
 
     # K10 SE, the gapless readout of the fused path: its first call on the
     # main path, every call the Holder kept, and every ops/cases.py
@@ -3879,6 +4025,47 @@ def main() -> None:
                             "diagonal, masked sums and the transposed op "
                             "bytes)"),
         shape=list(ro_args[0].shape) + [ro_args[2].shape[1]]))
+    # its one-block floor (held to its plain version); with
+    # --compare-parent, its first call and that floor in turns with the
+    # parent's design
+    ro = kernels_out[-1]
+    ro_floor = readout_floor(ro_args)
+    ro_kern, ro_plain = holder.kern_of(K10SE[0]), holder.plain_of(K10SE[0])
+    ro_lib = parents.get(K10SE[0])
+    floor_turns(a, _build, ro, K10SE[0], "first fused SE call", ro_kern,
+                ro_plain, ro_args, ro_floor,
+                f"{ro_floor[0].shape[0]} candidates", ro_lib)
+    # a call past the 256-step tile, at the fused path's shape for
+    # 250-300-bp reads (bucket 384), held to its plain version and timed
+    # (with --compare-parent, in turns with the parent's design)
+    lg = long_readout_args(ro_args, READOUT_LONG_LMAX, a.seed)
+    lg_ms = time_cuda(lambda: ro_kern(*lg), a.reps)
+    lg_bytes, lg_ops = readout_work(lg, None)
+    ro["long"] = dict(shape=list(lg[0].shape) + [lg[2].shape[1]],
+                      ms=round(lg_ms, 5),
+                      bound_ms=round(max(lg_bytes / PEAK_BYTES_S,
+                                         lg_ops / PEAK_OPS_S) * 1e3, 5),
+                      max_abs_err=max_err(ro_kern, ro_plain, lg)[1])
+    log(f"kernel {K10SE[0]} at Lmax {READOUT_LONG_LMAX}: "
+        f"{json.dumps(ro['long'])}")
+    errs = [ro["long"]["max_abs_err"]]
+    if ro_lib is not None:
+        ro["turns"].append(short_turns(
+            a, _build, K10SE[0], f"Lmax {READOUT_LONG_LMAX} call", ro_kern,
+            lg, readout_floor(lg), ro_lib, ro_plain))
+        # every shape the SE main path launched, by class, in turns
+        ro["launch_classes"] = {"SE main path": gather_classes(
+            a, _build, ro_kern, holder.kept.get(("SE main path", K10SE[0]),
+                                                {}),
+            se_readout_shapes, ro_lib, entry=K10SE[0], src=K10SE[0],
+            below=lambda Bc, _L, _W: Bc <= READOUT_BLOCK)}
+        log(f"compare {K10SE[0]} launch classes: "
+            f"{json.dumps(ro['launch_classes'])}")
+        errs += [ro["turns"][-1]["max_abs_err"]] + [
+            c["max_abs_err"] for c in ro["launch_classes"][
+                "SE main path"].values()]
+    ro["max_abs_err"] = max([ro["max_abs_err"]] + errs)
+    ro["equal"] = ro["max_abs_err"] == 0
 
     # one whole fused_se batch (the main path's first) under CUPTI: device
     # time by kernel, and by the torch-op regions between the kernels
@@ -4002,6 +4189,8 @@ def main() -> None:
     ptimer.restore()
     pdev_ms = ptimer.totals()
     pe_gather_shapes = ptimer.totals(by_shape=True).get("ref_gather", {})
+    pe_aligned_shapes = ptimer.totals(by_shape=True).get(
+        "ref_gather_aligned", {})
     pbusy = sum(v[0] for v in pdev_ms.values()) / 1e3
     log(f"paired-end device time: "
         f"{json.dumps({k: [round(v[0], 4), v[1]] for k, v in sorted(pdev_ms.items())})}"
@@ -4320,6 +4509,34 @@ def main() -> None:
             + [c["max_abs_err"] for d in we["launch_classes"].values()
                for c in d.values()])
         we["equal"] = we["max_abs_err"] == 0
+        # the aligned form: the fused PE path's first call and its floor,
+        # and every shape the SE and PE main paths launched, in turns
+        ae = k7_entries["ref_gather_aligned"]
+        pe_kept = holder.kept.get(("PE main path", "ref_gather_aligned"))
+        if not pe_kept:
+            fail("the PE main path kept no ref_gather_aligned call")
+        pe_first = next(iter(pe_kept.values()))
+        ae["turns"].append(short_turns(
+            a, port_mods._build, "ref_gather", "first fused PE call",
+            holder.kern_of("ref_gather_aligned"), pe_first,
+            aligned_floor(pe_first), gather_lib,
+            holder.plain_of("ref_gather_aligned")))
+        ae["launch_classes"] = {}
+        for label, counts in (("SE main path", se_aligned_shapes),
+                              ("PE main path", pe_aligned_shapes)):
+            kept = {(k[0], 32 * ((k[1] + 62) // 32)): v for k, v in
+                    holder.kept.get((label, "ref_gather_aligned"),
+                                    {}).items()}
+            ae["launch_classes"][label] = gather_classes(
+                a, port_mods._build, holder.kern_of("ref_gather_aligned"),
+                kept, counts, gather_lib, entry="ref_gather_aligned")
+        log(f"compare ref_gather_aligned launch classes: "
+            f"{json.dumps(ae['launch_classes'])}")
+        ae["max_abs_err"] = max(
+            [ae["max_abs_err"]] + [t["max_abs_err"] for t in ae["turns"]]
+            + [c["max_abs_err"] for d in ae["launch_classes"].values()
+               for c in d.values()])
+        ae["equal"] = ae["max_abs_err"] == 0
     holder.check("large index mode")
 
     # ---------------- phase 13: the large index mode ----------------

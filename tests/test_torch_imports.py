@@ -55,7 +55,8 @@ def test_no_jax_import_in_port_sources():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|bowtie2_tpu)(\s|\.|$)",
                      re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _dirs, fs in os.walk(PKG):
+    for root, _dirs, fs in [*os.walk(PKG), *os.walk(os.path.join(REPO,
+                                                                  "probes"))]:
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     hits = []
     for f in files:

@@ -7,7 +7,8 @@ for the unaligned form's clamp), N runs across word boundaries, widths
 that are multiples of 16 or 32 and widths that are not (the unaligned
 kernel's 16-code chunks whole, and cut across rows), int32 starts whose
 positions wrap,
-int64 starts past 2^31 (with jax_enable_x64, put back after); and the
+int64 starts past 2^31 (with jax_enable_x64, put back after), a few
+windows whose aligned groups end inside a warp (ragged); and the
 aligned form over ShardedWords at 4 shards, against the JAX op under
 shard_map, at word indices no shard owns. Tolerance: exact (integer
 codes)."""
@@ -96,6 +97,24 @@ def test_cases_reach_every_edge():
         assert c.refn_words.size != c.ref_words.size
         if c.name.startswith("edges"):
             assert (c.starts < 0).any() and (c.starts + c.width > n).any()
+
+
+def test_ragged_cases_end_inside_a_warp():
+    """The ragged cases hold aligned calls whose B x Wa / 16 groups (a
+    thread of the aligned kernel each) end inside a warp, among them Wa =
+    32, at every scale the tests and chip_smoke.py use."""
+    for scale in (1, 4, 8):
+        rag = [c for c in cases.window_cases(seed=0, scale=scale)
+               if c.name.startswith("ragged")]
+        assert len(rag) == len(cases.WINDOW_WIDTHS)
+        groups = [c.starts.size * pref.aligned_width(c.width) // 16
+                  for c in rag]
+        assert any(g % 32 for g in groups)
+        assert any(pref.aligned_width(c.width) == 32 for c in rag)
+    assert all(g % 32 for g in [
+        c.starts.size * pref.aligned_width(c.width) // 16
+        for c in CASES if c.name.startswith("ragged") and
+        c.name.endswith("@x1")])
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)

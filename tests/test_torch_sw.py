@@ -274,6 +274,36 @@ def test_backtrace_and_diag_readout(local):
 READOUT_CASES = cases.readout_cases()
 
 
+def test_readout_cases_reach_the_kernels_edges():
+    """The readout cases hold rows -1 and past Lmax, rows near -2^31
+    where rows - s wraps in int32 onto position Lmax - 1 (from step 1, at
+    the last step only, and at no step) in every edge case of 17 or more
+    candidates a scale, reads past the kernel's 256-step tile with rows
+    past it, and candidate counts that are not multiples of 16 (byte
+    stores), or of 16 but not of the 32-candidate block, at scale 1 and
+    8."""
+    for scale in (1, 8):
+        cs = cases.readout_cases(scale=scale)
+        rows = np.concatenate([c.rows for c in cs])
+        assert (rows == -1).any()
+        edges = [c for c in cs if c.name.startswith("edges_")
+                 and c.reads.shape[0] >= 17 * scale]
+        assert edges
+        for d in (None, 2, 1):
+            assert all((c.rows.astype(np.int64) == -2**31 + (
+                0 if d is None else c.reads.shape[1] - d)).any()
+                for c in edges)
+        assert any((c.rows >= c.reads.shape[1]).any() for c in cs)
+        assert any((c.rows >= 2 * c.reads.shape[1]).any() for c in cs)
+        assert any(c.reads.shape[1] > 256 and
+                   ((c.rows >= 256) & (c.rows < c.reads.shape[1])).any()
+                   for c in cs)
+        assert {768, 8192} <= {c.reads.shape[1] for c in cs}
+        counts = {c.reads.shape[0] for c in cs}
+        assert any(n % 16 for n in counts)
+        assert any(n % 16 == 0 and n % 32 for n in counts)
+
+
 @pytest.mark.parametrize("k", range(len(READOUT_CASES)),
                          ids=[c.name for c in READOUT_CASES])
 def test_diag_readout_plain_matches_jax_on_cases(k):
