@@ -192,7 +192,9 @@ def _build_align_parser():
     ap.add_argument("--fullref", action="store_true",
                     help="print whole reference name (not just up to the "
                          "first whitespace)")
-    ap.add_argument("-t", "--time", dest="timing", action="store_true")
+    ap.add_argument("-t", "--time", dest="timing", action="store_true",
+                    help="print the wall time, and each of the port's spans "
+                         "with its calls, total and self seconds")
     ap.add_argument("--met-file", default=None)
     ap.add_argument("--met-stderr", action="store_true")
     ap.add_argument("--met", type=int, default=1)
@@ -572,7 +574,10 @@ def cmd_align(argv):
     alc_f = [_dump_open(args.al_conc.replace("%", str(m)))
              for m in (1, 2)] if args.al_conc else None
 
-    from bowtie2_tpu_torch.utils.metrics import MetricsSink
+    from bowtie2_tpu_torch.utils.metrics import TRACE, MetricsSink
+    if args.timing:
+        TRACE.clear()
+        TRACE.on = True
     met_sink = None
     if args.met_file or args.met_stderr:
         met_sink = MetricsSink(aligner.metrics,
@@ -580,7 +585,7 @@ def cmd_align(argv):
                                path=args.met_file, every=args.met)
 
     t0 = time.time()
-    nreads = 0
+    nreads = nbatches = 0
     window_n = args.batch * 8
     done = False
     while not done:
@@ -652,6 +657,7 @@ def cmd_align(argv):
         for chunk in chunks:
             pend.append((chunk,
                          aligner.submit([window[j] for j in chunk])))
+            nbatches += 1
             if len(pend) > DEPTH:
                 _drain()
         while pend:
@@ -712,15 +718,37 @@ def cmd_align(argv):
         met_sink.final()
     if not args.quiet:
         print(aligner.stats.summary(), file=sys.stderr)
+        _host_path_report(aligner.metrics.counters, nbatches)
     if args.timing:
         print(f"Time searching: {dt:.2f}s", file=sys.stderr)
         print(f"# {nreads} {'pairs' if paired else 'reads'} in {dt:.1f}s = "
               f"{nreads/max(dt,1e-9):.0f} /s", file=sys.stderr)
+        for name, (n, total, own) in TRACE.totals().items():
+            print(f"Span {name}: {n} calls, {total:.3f} s, self "
+                  f"{own:.3f} s", file=sys.stderr)
+        TRACE.on = False
     if args.out:
         bout.close()
     else:
         bout.flush()
     return 0
+
+
+def _host_path_report(counters, nbatches):
+    """The run's batches that left the fused device path, on stderr: those
+    over the fused DP budget, and those whose pairing was re-run on the
+    host."""
+    k = counters.get("overflow_batches", 0)
+    if k:
+        print(f"fused DP budget exceeded in {k} of {nbatches} batches "
+              f"({counters.get('overflow_dropped', 0)} candidates); they "
+              f"ran on the host path", file=sys.stderr)
+    k = counters.get("repair_batches", 0)
+    if k:
+        print(f"pairing re-run on the host in {k} of {nbatches} batches "
+              f"({counters.get('repair_pairs', 0)} pairs, of which the "
+              f"device pairing flagged "
+              f"{counters.get('hostneed_pairs', 0)})", file=sys.stderr)
 
 
 def cmd_inspect(argv):

@@ -46,7 +46,7 @@ from bowtie2_tpu_torch.ops.sw import (backtrace, backtrace_diag, bt_steps,
 from bowtie2_tpu_torch.pipeline.backtrace import cigar_md_from_packed
 from bowtie2_tpu_torch.pipeline.mapq import mapq_v2
 from bowtie2_tpu_torch.pipeline.policy import Policy
-from bowtie2_tpu_torch.utils.metrics import Metrics
+from bowtie2_tpu_torch.utils.metrics import TRACE, Metrics
 
 # length buckets of the rectangle DP (= the JAX package's)
 LEN_BUCKETS = (96, 128, 192, 384, 768, 1536, 3072, 8192)
@@ -126,8 +126,16 @@ def _round_batch(n: int, lo: int = 256) -> int:
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    """Device tensor → host numpy (the one place results leave the card)."""
-    return t.cpu().numpy()
+    """Device tensor → host numpy: the one place results leave the card,
+    so every wait of the host on it is a `fetch` span."""
+    with TRACE.span("fetch"):
+        return t.cpu().numpy()
+
+
+def _batch_of(h) -> int:
+    """The batch number `submit` gave a handle: a fused batch's field, or
+    the last item of a ("long", records, k) / ("host", pairs, k) tuple."""
+    return h[2] if isinstance(h, tuple) else h.batch
 
 
 @dataclass
@@ -649,12 +657,11 @@ class BatchAligner:
         ops_syn = np.where(pos >= 0, opb, OP_NONE).astype(np.uint8)
         return okg, ops_syn, g0 - pool.win_start[sel], nmm, nrefn
 
+    @TRACE.traced("host_backtrace")
     def _backtrace_sel(self, pool: DPPool, sel: np.ndarray):
         """Backtrace pool problems sel → {k: (opcol, scalars dict)}."""
         if sel.size == 0:
             return {}
-        import time as _time
-        _t = _time.time()
         Bc = _pow2_at_least(sel.size, lo=64)
         sel_pad = np.zeros(Bc, np.int32)
         sel_pad[:sel.size] = sel
@@ -689,8 +696,7 @@ class BatchAligner:
             out[k] = (ops_host[:, ci],
                       {f: int(sc_host[fi, ci])
                        for fi, f in enumerate(BT_FIELDS)})
-        self.metrics.add(t_backtrace=_time.time() - _t,
-                         backtraces=int(sel.size))
+        self.metrics.add(backtraces=int(sel.size))
         return out
 
     # ---------------- SAM record construction ----------------
@@ -818,6 +824,7 @@ class BatchAligner:
         return offs_all, valid_all
 
     # ------- host phase-by-phase path (fused DP-budget overflow) -------
+    @TRACE.traced("host_search")
     def _search_candidates(self, records: Sequence[SeqRecord],
                            paired: bool = False,
                            nrounds: int = 1) -> "CandSet":
@@ -841,8 +848,6 @@ class BatchAligner:
         cs = CandSet(B=B, Lmax=Lmax, lens=lens, fw=fw, qu=qu, rc=rc,
                      qu_r=qu_r, minsc=minsc, perfect=perfect,
                      filtered=filtered, yf=yf)
-        import time as _time
-        _t = _time.time()
 
         # long reads (over the rectangle buckets): the whole-read exact
         # sweep and the half-read search, Lmax-step searches, are skipped
@@ -923,10 +928,8 @@ class BatchAligner:
             seed_half = np.concatenate(
                 [seed_half, np.zeros_like(sh_off, dtype=bool)], axis=1)
         self.metrics.add(
-            t_search=_time.time() - _t,
             fm_lf_steps=2 * B * Lmax + seed_off.size * 12
             + 2 * B * (Lmax // 2))
-        _t = _time.time()
 
         # --nofw/--norc: suppressed orientation rows get empty SA ranges
         live_or = self._live_orient(B, paired)
@@ -966,9 +969,7 @@ class BatchAligner:
          cand_rwidth, jpos, seg) = (
             a[ok] for a in (cand_read, cand_or, cand_off, cand_exact,
                             cand_half, cand_rangej, cand_rwidth, jpos, seg))
-        self.metrics.add(t_resolve=_time.time() - _t,
-                         sa_resolves=int(jpos.size))
-        _t = _time.time()
+        self.metrics.add(sa_resolves=int(jpos.size))
         gpos = (self.data.seg_global_start[seg]
                 + (jpos - self.data.seg_joined_start[seg]))
         anchor = gpos - cand_off
@@ -1006,7 +1007,7 @@ class BatchAligner:
         # them only when the implied ungapped alignment has <= 1 mismatch
         valid &= ~(cand_half_only & (pool.mm_ug > 1))
         self.metrics.add(
-            t_dp=_time.time() - _t, dp_problems=n_cand,
+            dp_problems=n_cand,
             dp_cells=n_cand * Lmax * (Lmax + 2 * G + 1))
         cs.n_cand = n_cand
         cs.cand_read = cand_read
@@ -1238,6 +1239,7 @@ class FusedBatch:
     filtered: np.ndarray
     yf: np.ndarray               # (Bp,) int8 filter-reason codes (YF_*)
     blob: torch.Tensor           # device (S*Bc + 4*meta,) uint8
+    batch: int = -1              # submit's batch number (TRACE)
 
     @property
     def device(self) -> torch.device:
@@ -1338,14 +1340,18 @@ class UnpairedAligner(BatchAligner):
     def submit(self, records: Sequence[SeqRecord]) -> Optional[FusedBatch]:
         """Enqueue the fused device pipeline for one batch (no host sync).
         A batch with a read over the rectangle buckets is returned as
-        ("long", records): collect runs it on the host path in long mode."""
+        ("long", records, batch number): collect runs it on the host path
+        in long mode."""
         if not records:
             return None
-        self._take_turn()
-        if max(int(r.seq.size) for r in records) > LEN_BUCKETS[-1]:
-            return ("long", records)
-        import time as _time
-        _t = _time.time()
+        batch = TRACE.next_batch()
+        with TRACE.span("submit"):
+            self._take_turn()
+            if max(int(r.seq.size) for r in records) > LEN_BUCKETS[-1]:
+                return ("long", records, batch)
+            return self._submit_fused(records, batch)
+
+    def _submit_fused(self, records, batch: int) -> FusedBatch:
         pol = self.pol
         B = len(records)
         Bp = _round_batch(B, lo=256)
@@ -1397,7 +1403,7 @@ class UnpairedAligner(BatchAligner):
             NC=NC, n1=pol.seed_mms >= 1, no_1mm=getattr(pol, "no_1mm", False),
             no_exact=getattr(pol, "no_exact", False), NCDP=max(Bp, 512)))
         self.metrics.add(
-            t_search=_time.time() - _t, bases=int(lens[:B].sum()),
+            bases=int(lens[:B].sum()),
             unpaired=B, unf_reads=int((~filtered[:B]).sum()),
             unf_bases=int(lens[:B][~filtered[:B]].sum()),
             ex_attempts=int(live.sum()), seed_searches=int(live.sum()),
@@ -1406,18 +1412,17 @@ class UnpairedAligner(BatchAligner):
                           S=bt_steps(Lmax, W, pol.local), kk=kk, kk_bt=kk_bt,
                           lens=lens, fw=fw, qu=qu, rc=rc, qu_r=qu_r,
                           minsc=minsc, perfect=perfect, filtered=filtered,
-                          yf=yf, blob=res.blob)
+                          yf=yf, blob=res.blob, batch=batch)
 
     def _decode(self, fb: FusedBatch):
         """Read the batch's blob back and split it: (ops, meta, r_score,
         r_valid, chosen fields, replay overrides), or None when the fused
-        DP budget overflowed and the host path must take the batch."""
-        import time as _time
-        _t = _time.time()
+        DP budget overflowed and the host path must take the batch
+        (counted in `overflow_batches`, its dropped candidates in
+        `overflow_dropped`)."""
         kk, kk_bt, Bp, S = fb.kk, fb.kk_bt, fb.Bp, fb.S
         Bc = Bp * kk_bt
         blob = _np(fb.blob)
-        self.metrics.add(t_dp=_time.time() - _t)
         ops = blob[:S * Bc].reshape(S, Bc)
         meta = blob[S * Bc:].view(np.int32)
         r_score = meta[:kk * Bp].reshape(kk, Bp)
@@ -1428,9 +1433,8 @@ class UnpairedAligner(BatchAligner):
         if n_dropped > 0:
             # DP budget overflow: rerun the batch on the uncapped
             # phase-by-phase path (keeps output identical)
-            sys.stderr.write(
-                f"fused DP budget exceeded by {n_dropped}; falling back\n")
-            self.metrics.add(host_batches=1)
+            self.metrics.add(host_batches=1, overflow_batches=1,
+                             overflow_dropped=n_dropped)
             return None
         ovr = self._ee_replay_overrides(fb, meta)
         return ops, meta, r_score, r_valid, ch, ovr
@@ -1440,144 +1444,145 @@ class UnpairedAligner(BatchAligner):
         records as objects."""
         if fb is None:
             return []
-        self._use_batch(fb)
-        if isinstance(fb, tuple) and fb[0] == "long":
-            return self._align_batch_host(fb[1])
-        import time as _time
-        pol = self.pol
-        B, Bp, kk_bt = fb.B, fb.Bp, fb.kk_bt
-        Bc = Bp * kk_bt
-        dec = self._decode(fb)
-        if dec is None:
-            return self._align_batch_host(fb.records)
-        ops, meta, r_score, r_valid, ch, ovr = dec
-        _t = _time.time()
-        (ch_ok, ch_or, ch_rid, ch_roff, ch_rdstart, ch_rdend, ch_nmm,
-         ch_ngo, ch_ngc, ch_nrefn, ch_sccheck, ch_score) = ch
-        khits = 10**9 if pol.all_hits else pol.khits
-        st = AlignStats()
-        out: List[SamAlignment] = []
-        n_rank = r_valid.sum(axis=0)
-        from bowtie2_tpu_torch.pipeline.traj_replay import traj_overrides
-        ee = self._ee_meta(fb, meta)
-        tovr = traj_overrides(self, fb, n_rank, ovr, rep_ctx=ee[6] > ee[7])
+        TRACE.batch = _batch_of(fb)
+        with TRACE.span("collect"):
+            self._use_batch(fb)
+            if isinstance(fb, tuple) and fb[0] == "long":
+                return self._align_batch_host(fb[1])
+            pol = self.pol
+            B, Bp, kk_bt = fb.B, fb.Bp, fb.kk_bt
+            Bc = Bp * kk_bt
+            dec = self._decode(fb)
+            if dec is None:
+                return self._align_batch_host(fb.records)
+            ops, meta, r_score, r_valid, ch, ovr = dec
+            (ch_ok, ch_or, ch_rid, ch_roff, ch_rdstart, ch_rdend, ch_nmm,
+             ch_ngo, ch_ngc, ch_nrefn, ch_sccheck, ch_score) = ch
+            khits = 10**9 if pol.all_hits else pol.khits
+            st = AlignStats()
+            out: List[SamAlignment] = []
+            n_rank = r_valid.sum(axis=0)
+            from bowtie2_tpu_torch.pipeline.traj_replay import traj_overrides
+            ee = self._ee_meta(fb, meta)
+            tovr = traj_overrides(self, fb, n_rank, ovr, rep_ctx=ee[6] > ee[7])
 
-        # batched CIGAR/MD decode (native C; numpy fallback)
-        n_rep = np.minimum(np.minimum(n_rank, khits), kk_bt)
-        emit2 = (ch_ok.reshape(kk_bt, Bp).astype(bool)
-                 & (np.arange(kk_bt)[:, None] < n_rep[None, :])
-                 & (~fb.filtered & (np.arange(Bp) < B))[None, :]
-                 & (ch_sccheck == ch_score).reshape(kk_bt, Bp))
-        cis = np.nonzero(emit2.reshape(-1))[0].astype(np.int32)
-        ri_arr = cis % Bp
-        L_arr = fb.lens[ri_arr]
-        codes_n = np.where((ch_or[cis] == 0)[:, None],
-                           fb.fw[ri_arr], fb.rc[ri_arr])
-        bound_n = (ch_rdend[cis] - ch_rdstart[cis]) + ch_ngc[cis] + 1
-        decoded = np.full(Bc, -1, np.int32)
-        decoded[cis] = np.arange(cis.size, dtype=np.int32)
-        try:
-            from bowtie2_tpu_torch.native.samemit import cigar_md_batch
-            cigars, mds = cigar_md_batch(
-                ops, cis, ch_rdstart[cis], ch_rdend[cis], L_arr,
-                bound_n, codes_n, xeq=pol.xeq)
-        except Exception:
-            cigars, mds = [], []
-            for t, ci in enumerate(cis.tolist()):
-                co, md = cigar_md_from_packed(
-                    ops[:bound_n[t], ci], int(ch_rdstart[ci]),
-                    int(ch_rdend[ci]), int(L_arr[t]),
-                    read=codes_n[t, :L_arr[t]], xeq=pol.xeq)
-                cigars.append(cigar_string(co))
-                mds.append(md)
-        for ri in range(B):
-            rec = fb.records[ri]
-            st.reads += 1
-            L = int(fb.lens[ri])
-            if fb.filtered[ri]:
-                st.filtered += 1
-                st.unal += 1
-                out.append(self._unaligned(rec, self.YF_STR[int(fb.yf[ri])]))
-                continue
-            if ri in ovr:
-                recs_o, _maxed_o, _cnt_o, _tp_o = ovr[ri]
-                out.extend(self._synth_replay_group(
-                    rec, recs_o, _cnt_o, L, int(fb.minsc[ri]),
-                    lambda o, _ri=ri, _L=L: (fb.fw[_ri, :_L], fb.qu[_ri, :_L])
-                    if o == 0 else (fb.rc[_ri, :_L], fb.qu_r[_ri, :_L]),
-                    template=_tp_o))
-                st.al_multi += 1
-                continue
-            if ri in tovr:
-                t_recs, t_nalns = tovr[ri]
-                out.extend(t_recs)
-                if t_nalns == 0:
+            # batched CIGAR/MD decode (native C; numpy fallback)
+            n_rep = np.minimum(np.minimum(n_rank, khits), kk_bt)
+            emit2 = (ch_ok.reshape(kk_bt, Bp).astype(bool)
+                     & (np.arange(kk_bt)[:, None] < n_rep[None, :])
+                     & (~fb.filtered & (np.arange(Bp) < B))[None, :]
+                     & (ch_sccheck == ch_score).reshape(kk_bt, Bp))
+            cis = np.nonzero(emit2.reshape(-1))[0].astype(np.int32)
+            ri_arr = cis % Bp
+            L_arr = fb.lens[ri_arr]
+            codes_n = np.where((ch_or[cis] == 0)[:, None],
+                               fb.fw[ri_arr], fb.rc[ri_arr])
+            bound_n = (ch_rdend[cis] - ch_rdstart[cis]) + ch_ngc[cis] + 1
+            decoded = np.full(Bc, -1, np.int32)
+            decoded[cis] = np.arange(cis.size, dtype=np.int32)
+            try:
+                from bowtie2_tpu_torch.native.samemit import cigar_md_batch
+                cigars, mds = cigar_md_batch(
+                    ops, cis, ch_rdstart[cis], ch_rdend[cis], L_arr,
+                    bound_n, codes_n, xeq=pol.xeq)
+            except Exception:
+                cigars, mds = [], []
+                for t, ci in enumerate(cis.tolist()):
+                    co, md = cigar_md_from_packed(
+                        ops[:bound_n[t], ci], int(ch_rdstart[ci]),
+                        int(ch_rdend[ci]), int(L_arr[t]),
+                        read=codes_n[t, :L_arr[t]], xeq=pol.xeq)
+                    cigars.append(cigar_string(co))
+                    mds.append(md)
+            for ri in range(B):
+                rec = fb.records[ri]
+                st.reads += 1
+                L = int(fb.lens[ri])
+                if fb.filtered[ri]:
+                    st.filtered += 1
                     st.unal += 1
-                elif t_nalns > 1:
+                    out.append(self._unaligned(
+                        rec, self.YF_STR[int(fb.yf[ri])]))
+                    continue
+                if ri in ovr:
+                    recs_o, _maxed_o, _cnt_o, _tp_o = ovr[ri]
+                    out.extend(self._synth_replay_group(
+                        rec, recs_o, _cnt_o, L, int(fb.minsc[ri]),
+                        lambda o, _ri=ri, _L=L:
+                        (fb.fw[_ri, :_L], fb.qu[_ri, :_L]) if o == 0
+                        else (fb.rc[_ri, :_L], fb.qu_r[_ri, :_L]),
+                        template=_tp_o))
+                    st.al_multi += 1
+                    continue
+                if ri in tovr:
+                    t_recs, t_nalns = tovr[ri]
+                    out.extend(t_recs)
+                    if t_nalns == 0:
+                        st.unal += 1
+                    elif t_nalns > 1:
+                        st.al_multi += 1
+                    else:
+                        st.al_one += 1
+                    continue
+                nr = int(n_rank[ri])
+                if nr == 0:
+                    st.unal += 1
+                    out.append(self._unaligned(rec))
+                    continue
+                n_report = min(nr, khits, kk_bt)
+                n_emitted = 0
+                for j in range(n_report):
+                    ci = j * Bp + ri
+                    if not ch_ok[ci]:
+                        break
+                    best = int(ch_score[ci])
+                    if khits > 1:
+                        sec = int(r_score[1, ri]) if nr > 1 else None
+                        if j == 0 and sec is not None:
+                            per = int(fb.perfect[ri]) if pol.local else 0
+                            mq = self._mapq(best, sec, per, int(fb.minsc[ri]))
+                        else:
+                            mq = 255
+                    else:
+                        sec = int(r_score[1, ri]) if r_valid[1, ri] else None
+                        per = int(fb.perfect[ri]) if pol.local else 0
+                        mq = self._mapq(best, sec, per, int(fb.minsc[ri]))
+                    di = decoded[ci]
+                    if di < 0:
+                        continue   # backtrace inconsistency: skip (safety net)
+                    orient = int(ch_or[ci])
+                    if orient == 0:
+                        codes, quals = fb.fw[ri, :L], fb.qu[ri, :L]
+                    else:
+                        codes, quals = fb.rc[ri, :L], fb.qu_r[ri, :L]
+                    flag = (FLAG_REVERSE if orient else 0) \
+                        | (0x100 if n_emitted > 0 else 0)
+                    opts = [("AS", "i", best)]
+                    if sec is not None:
+                        opts.append(("XS", "i", sec))
+                    opts += [("XN", "i", int(ch_nrefn[ci])),
+                             ("XM", "i", int(ch_nmm[ci])),
+                             ("XO", "i", int(ch_ngo[ci])),
+                             ("XG", "i", int(ch_ngc[ci])),
+                             ("NM", "i", int(ch_nmm[ci] + ch_ngc[ci])),
+                             ("MD", "Z", mds[di]), ("YT", "Z", "UU")]
+                    out.append(SamAlignment(
+                        qname=rec.name, flag=flag,
+                        rname=self.data.ref_names[int(ch_rid[ci])],
+                        pos=int(ch_roff[ci]) + 1, mapq=mq,
+                        cigar=cigars[di],
+                        seq=decode_seq(codes.astype(np.uint8)).decode(),
+                        qual=qual_string(quals), opts=opts))
+                    n_emitted += 1
+                if n_emitted == 0:
+                    st.unal += 1
+                    out.append(self._unaligned(rec))
+                elif nr > 1:
                     st.al_multi += 1
                 else:
                     st.al_one += 1
-                continue
-            nr = int(n_rank[ri])
-            if nr == 0:
-                st.unal += 1
-                out.append(self._unaligned(rec))
-                continue
-            n_report = min(nr, khits, kk_bt)
-            n_emitted = 0
-            for j in range(n_report):
-                ci = j * Bp + ri
-                if not ch_ok[ci]:
-                    break
-                best = int(ch_score[ci])
-                if khits > 1:
-                    sec = int(r_score[1, ri]) if nr > 1 else None
-                    if j == 0 and sec is not None:
-                        per = int(fb.perfect[ri]) if pol.local else 0
-                        mq = self._mapq(best, sec, per, int(fb.minsc[ri]))
-                    else:
-                        mq = 255
-                else:
-                    sec = int(r_score[1, ri]) if r_valid[1, ri] else None
-                    per = int(fb.perfect[ri]) if pol.local else 0
-                    mq = self._mapq(best, sec, per, int(fb.minsc[ri]))
-                di = decoded[ci]
-                if di < 0:
-                    continue   # backtrace inconsistency: skip (safety net)
-                orient = int(ch_or[ci])
-                if orient == 0:
-                    codes, quals = fb.fw[ri, :L], fb.qu[ri, :L]
-                else:
-                    codes, quals = fb.rc[ri, :L], fb.qu_r[ri, :L]
-                flag = (FLAG_REVERSE if orient else 0) \
-                    | (0x100 if n_emitted > 0 else 0)
-                opts = [("AS", "i", best)]
-                if sec is not None:
-                    opts.append(("XS", "i", sec))
-                opts += [("XN", "i", int(ch_nrefn[ci])),
-                         ("XM", "i", int(ch_nmm[ci])),
-                         ("XO", "i", int(ch_ngo[ci])),
-                         ("XG", "i", int(ch_ngc[ci])),
-                         ("NM", "i", int(ch_nmm[ci] + ch_ngc[ci])),
-                         ("MD", "Z", mds[di]), ("YT", "Z", "UU")]
-                out.append(SamAlignment(
-                    qname=rec.name, flag=flag,
-                    rname=self.data.ref_names[int(ch_rid[ci])],
-                    pos=int(ch_roff[ci]) + 1, mapq=mq,
-                    cigar=cigars[di],
-                    seq=decode_seq(codes.astype(np.uint8)).decode(),
-                    qual=qual_string(quals), opts=opts))
-                n_emitted += 1
-            if n_emitted == 0:
-                st.unal += 1
-                out.append(self._unaligned(rec))
-            elif nr > 1:
-                st.al_multi += 1
-            else:
-                st.al_one += 1
-        self._merge_stats(st)
-        self.metrics.add(t_host=_time.time() - _t)
-        return out
+            self._merge_stats(st)
+            return out
 
     def align_batch(self, records: Sequence[SeqRecord]) -> List[SamAlignment]:
         return self.collect(self.submit(records))
@@ -1604,21 +1609,28 @@ class UnpairedAligner(BatchAligner):
         appended to every line (RG)."""
         if fb is None:
             return []
-        self._use_batch(fb)
-        if isinstance(fb, tuple) and fb[0] == "long":
-            return self._groups_from_objects(
-                fb[1], self._align_batch_host(fb[1]), suffix)
+        TRACE.batch = _batch_of(fb)
+        with TRACE.span("collect"):
+            self._use_batch(fb)
+            if isinstance(fb, tuple) and fb[0] == "long":
+                return self._groups_from_objects(
+                    fb[1], self._align_batch_host(fb[1]), suffix)
+            dec = self._decode(fb)
+            if dec is None:
+                return self._groups_from_objects(
+                    fb.records, self._align_batch_host(fb.records), suffix)
+            with TRACE.span("emit_fused"):
+                return self._emit_fused_raw(fb, dec, suffix)
+
+    def _emit_fused_raw(self, fb: FusedBatch, dec, suffix: bytes
+                        ) -> List[List[Tuple[int, bytes]]]:
+        """collect_raw's fused emission of a decoded batch: the replay
+        overrides, the native CIGAR/MD and line builder, the groups."""
         from bowtie2_tpu_torch.native.samemit import (RefNameTable, XS_OMIT,
                                                       sam_tails_batch)
-        import time as _time
         pol = self.pol
         B, Bp, kk, kk_bt = fb.B, fb.Bp, fb.kk, fb.kk_bt
-        dec = self._decode(fb)
-        if dec is None:
-            return self._groups_from_objects(
-                fb.records, self._align_batch_host(fb.records), suffix)
         ops, meta, r_score, r_valid, ch, ovr = dec
-        _t = _time.time()
         (ch_ok, ch_or, ch_rid, ch_roff, ch_rdstart, ch_rdend, ch_nmm,
          ch_ngo, ch_ngc, ch_nrefn, ch_sccheck, ch_score) = ch
 
@@ -1775,7 +1787,6 @@ class UnpairedAligner(BatchAligner):
         st.al_multi = int(multi.sum()) + len(ovr) + n_t_multi
         st.al_one = int(((n_emit > 0) & ~multi).sum()) + n_t_one
         self._merge_stats(st)
-        self.metrics.add(t_host=_time.time() - _t)
         return groups
 
     def _synth_replay_group(self, rec: SeqRecord, recs, cnt: int, L: int,
@@ -1866,6 +1877,7 @@ class UnpairedAligner(BatchAligner):
         if drop:
             cs.valid[np.array(drop, np.int64)] = False
 
+    @TRACE.traced("host_path")
     def _align_batch_host(self, records: Sequence[SeqRecord],
                           nrounds: int = 1,
                           _merge: bool = True) -> List[SamAlignment]:
@@ -1901,56 +1913,58 @@ class UnpairedAligner(BatchAligner):
                        np.int32)
         tb_of = self._backtrace_sel(cs.pool, sel) if chosen else {}
 
-        st = AlignStats()
-        out: List[SamAlignment] = []
-        # per-read class for the summary (0=unal, 1=unique, 2=multi);
-        # the group replacements below update it
-        cls = np.zeros(B, np.int8)
-        rd_start = np.zeros(len(records) + 1, np.int64)
-        for ri, rec in enumerate(records):
-            rd_start[ri] = len(out)
-            st.reads += 1
-            L = int(cs.lens[ri])
-            if cs.filtered[ri]:
-                st.filtered += 1
-                out.append(self._unaligned(rec, self.YF_STR[int(cs.yf[ri])]))
-                continue
-            ks = chosen.get(ri)
-            if not ks:
-                out.append(self._unaligned(rec))
-                continue
-            scores = cs.pool.scores
-            n_report = min(len(ks), khits)
-            n_emitted = 0
-            for rank, k in enumerate(ks[:n_report]):
-                best = int(scores[k])
-                if khits > 1:
-                    sec = int(scores[ks[1]]) if len(ks) > 1 else None
-                    if rank == 0 and sec is not None:
+        with TRACE.span("host_emit"):
+            st = AlignStats()
+            out: List[SamAlignment] = []
+            # per-read class for the summary (0=unal, 1=unique, 2=multi);
+            # the group replacements below update it
+            cls = np.zeros(B, np.int8)
+            rd_start = np.zeros(len(records) + 1, np.int64)
+            for ri, rec in enumerate(records):
+                rd_start[ri] = len(out)
+                st.reads += 1
+                L = int(cs.lens[ri])
+                if cs.filtered[ri]:
+                    st.filtered += 1
+                    out.append(self._unaligned(
+                        rec, self.YF_STR[int(cs.yf[ri])]))
+                    continue
+                ks = chosen.get(ri)
+                if not ks:
+                    out.append(self._unaligned(rec))
+                    continue
+                scores = cs.pool.scores
+                n_report = min(len(ks), khits)
+                n_emitted = 0
+                for rank, k in enumerate(ks[:n_report]):
+                    best = int(scores[k])
+                    if khits > 1:
+                        sec = int(scores[ks[1]]) if len(ks) > 1 else None
+                        if rank == 0 and sec is not None:
+                            per = int(cs.perfect[ri]) if pol.local else 0
+                            mq = self._mapq(best, sec, per, int(cs.minsc[ri]))
+                        else:
+                            mq = 255
+                    else:
+                        sec_k = ks[1] if len(ks) > 1 else None
+                        sec = int(scores[sec_k]) if sec_k is not None else None
                         per = int(cs.perfect[ri]) if pol.local else 0
                         mq = self._mapq(best, sec, per, int(cs.minsc[ri]))
-                    else:
-                        mq = 255
+                    orient = int(cs.cand_or[k])
+                    codes, quals = self._oriented(cs, ri, orient)
+                    flag_extra = 0x100 if n_emitted > 0 else 0
+                    rec_out = self._emit_aligned(
+                        rec, L, orient, codes, quals, cs.pool, k, tb_of[k],
+                        best, sec, mq, "UU", flag_extra)
+                    if rec_out is not None:
+                        out.append(rec_out)
+                        n_emitted += 1
+                if n_emitted == 0:
+                    out.append(self._unaligned(rec))
+                elif len(ks) > 1:
+                    cls[ri] = 2
                 else:
-                    sec_k = ks[1] if len(ks) > 1 else None
-                    sec = int(scores[sec_k]) if sec_k is not None else None
-                    per = int(cs.perfect[ri]) if pol.local else 0
-                    mq = self._mapq(best, sec, per, int(cs.minsc[ri]))
-                orient = int(cs.cand_or[k])
-                codes, quals = self._oriented(cs, ri, orient)
-                flag_extra = 0x100 if n_emitted > 0 else 0
-                rec_out = self._emit_aligned(rec, L, orient, codes, quals,
-                                             cs.pool, k, tb_of[k],
-                                             best, sec, mq, "UU", flag_extra)
-                if rec_out is not None:
-                    out.append(rec_out)
-                    n_emitted += 1
-            if n_emitted == 0:
-                out.append(self._unaligned(rec))
-            elif len(ks) > 1:
-                cls[ri] = 2
-            else:
-                cls[ri] = 1
+                    cls[ri] = 1
         rd_start[len(records)] = len(out)
         repl = {}
         for ri in ovr:

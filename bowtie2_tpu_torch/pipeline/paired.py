@@ -15,14 +15,14 @@ Batches whose fused DP budget overflows take the phase-by-phase host path
 (`hostneed`), and every batch under `force_host_pairing`, re-run the
 pairing on the host from the per-slot export (`_collect_fused_legacy`).
 A pair with a mate over 8192 bp takes the host path too: `submit` returns
-("host", pairs), and `collect` / `collect_raw` align it there with the
-long-read band DP (no mate rescue for long mates, as in the JAX package).
+("host", pairs, batch number), and `collect` / `collect_raw` align it
+there with the long-read band DP (no mate rescue for long mates, as in
+the JAX package).
 
 Entry points take device=None, meaning the CUDA card; device="cpu" runs the
 kernels' plain PyTorch versions (the tests do).
 """
 
-import sys
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,11 +37,12 @@ from bowtie2_tpu_torch.io.sam import (FLAG_MATE1, FLAG_MATE2,
 from bowtie2_tpu_torch.ops.fused import FusedPEResult
 from bowtie2_tpu_torch.pipeline.align import (LEN_BUCKETS,
                                               AlignStats, BatchAligner,
-                                              CandSet, DPPool, _bucket, _np,
-                                              _round_batch, _u32pos,
-                                              pad_reads)
+                                              CandSet, DPPool, _batch_of,
+                                              _bucket, _np, _round_batch,
+                                              _u32pos, pad_reads)
 from bowtie2_tpu_torch.pipeline.pe import (PE_DISCORD, pe_classify,
                                            rescue_window)
+from bowtie2_tpu_torch.utils.metrics import TRACE
 
 # the global coordinate from which the paired-end exports' int32 position
 # words are ambiguous (_u32pos)
@@ -77,6 +78,7 @@ class FusedPEBatch:
     res: FusedPEResult
     pairing: object = None      # static pairing tuple passed to fused_pe
                                 # (None = device pairing disabled)
+    batch: int = -1             # submit's batch number (TRACE)
 
     @property
     def device(self) -> torch.device:
@@ -116,16 +118,20 @@ class PairedAligner(BatchAligner):
     def submit(self, pairs) -> Optional[FusedPEBatch]:
         """Enqueue the fused PE device pipeline for one batch of pairs (no
         host sync). A batch with a mate over the rectangle buckets is
-        returned as ("host", pairs): collect runs it on align_batch_host,
-        whose search is then in long mode (the band DP)."""
+        returned as ("host", pairs, batch number): collect runs it on
+        align_batch_host, whose search is then in long mode (the band
+        DP)."""
         if not pairs:
             return None
-        self._take_turn()
-        if max(max(p[0].seq.size, p[1].seq.size) for p in pairs) \
-                > LEN_BUCKETS[-1]:
-            return ("host", pairs)
-        import time as _time
-        _t = _time.time()
+        batch = TRACE.next_batch()
+        with TRACE.span("submit"):
+            self._take_turn()
+            if max(max(p[0].seq.size, p[1].seq.size) for p in pairs) \
+                    > LEN_BUCKETS[-1]:
+                return ("host", pairs, batch)
+            return self._submit_fused(pairs, batch)
+
+    def _submit_fused(self, pairs, batch: int) -> FusedPEBatch:
         pol = self.pol
         B = len(pairs)
         Bp = _round_batch(B, lo=128)
@@ -177,12 +183,12 @@ class PairedAligner(BatchAligner):
             n1=pol.seed_mms >= 1, no_1mm=getattr(pol, "no_1mm", False),
             no_exact=getattr(pol, "no_exact", False), NCDP=max(B2, 512),
             pairing=pairing))
-        self.metrics.add(t_search=_time.time() - _t)
         return FusedPEBatch(
             pairs=pairs, B=B, Bp=Bp, B2=B2, Lmax=Lmax, T=T, NC=NC, G=G,
             lens=lens, fw=fw, qu=qu, rc=rc, qu_r=qu_r, minsc=minsc,
             perfect=perfect, filtered=filtered, yf=yf, inst_read=inst_read,
-            jboth=jboth, jquals=jquals, res=res, pairing=pairing)
+            jboth=jboth, jquals=jquals, res=res, pairing=pairing,
+            batch=batch)
 
     def _pe_pairing_static(self, minsc, perfect):
         """Static pairing tuple for the device-side fused-PE pairing, or
@@ -206,10 +212,12 @@ class PairedAligner(BatchAligner):
     def collect(self, h: Optional[FusedPEBatch]) -> List[SamAlignment]:
         if h is None:
             return []
-        self._use_batch(h)
-        if isinstance(h, tuple) and h[0] == "host":
-            return self.align_batch_host(h[1])
-        return self._collect_fused(h)
+        TRACE.batch = _batch_of(h)
+        with TRACE.span("collect"):
+            self._use_batch(h)
+            if isinstance(h, tuple) and h[0] == "host":
+                return self.align_batch_host(h[1])
+            return self._collect_fused(h)
 
     def collect_raw(self, h, suffix: bytes = b""
                     ) -> List[List[Tuple[int, bytes]]]:
@@ -220,20 +228,33 @@ class PairedAligner(BatchAligner):
         back to object records rendered to lines."""
         if h is None:
             return []
-        self._use_batch(h)
-        if isinstance(h, tuple) and h[0] == "host":
-            return self._pe_groups_from_objects(
-                len(h[1]), self.align_batch_host(h[1]), suffix)
+        TRACE.batch = _batch_of(h)
+        with TRACE.span("collect"):
+            self._use_batch(h)
+            if isinstance(h, tuple) and h[0] == "host":
+                return self._pe_groups_from_objects(
+                    len(h[1]), self.align_batch_host(h[1]), suffix)
+            dec = self._pe_decode(h)
+            if dec is None:    # DP budget overflow
+                return self._pe_groups_from_objects(
+                    len(h.pairs), self.align_batch_host(h.pairs), suffix)
+            rf, pf, ee, snz, cif = dec
+            if self._host_pairing(h, pf):
+                return self._pe_groups_from_objects(
+                    h.B, self._collect_fused_legacy(h, ee, snz, cif), suffix)
+            return self._collect_fused_fast_raw(h, rf, pf, cif, suffix)
+
+    def _host_pairing(self, h: FusedPEBatch, pf) -> bool:
+        """Whether a fused batch's pairing is re-run on the host
+        (`_collect_fused_legacy`): device pairing off, or some pair that
+        the device pairing flagged (counted in `hostneed_pairs`)."""
         from bowtie2_tpu_torch.ops.fused import PE_PAIR_FIELDS
-        dec = self._pe_decode(h)
-        if dec is None:    # DP budget overflow
-            return self._pe_groups_from_objects(
-                len(h.pairs), self.align_batch_host(h.pairs), suffix)
-        rf, pf, ee, snz, cif = dec
-        if h.pairing is None or pf[PE_PAIR_FIELDS - 1, :h.B].any():
-            return self._pe_groups_from_objects(
-                h.B, self._collect_fused_legacy(h, ee, snz, cif), suffix)
-        return self._collect_fused_fast_raw(h, rf, pf, cif, suffix)
+        if h.pairing is None:
+            return True
+        n = int(np.count_nonzero(pf[PE_PAIR_FIELDS - 1, :h.B]))
+        if n:
+            self.metrics.add(hostneed_pairs=n)
+        return n > 0
 
     @staticmethod
     def _pe_groups_from_objects(n_pairs, out, suffix):
@@ -276,6 +297,7 @@ class PairedAligner(BatchAligner):
             drain(pend.popleft())
         return len(pairs)
 
+    @TRACE.traced("host_path")
     def align_batch_host(self, pairs: Sequence[Tuple[SeqRecord, SeqRecord]]
                          ) -> List[SamAlignment]:
         if not pairs:
@@ -385,145 +407,151 @@ class PairedAligner(BatchAligner):
         if cs.Lmax > LEN_BUCKETS[-1]:
             rescue_specs = []      # long reads: no rect-kernel mate rescue
         if rescue_specs:
-            Lmax = cs.Lmax
-            Gr = max((pol.maxins + 32 - Lmax + 1) // 2,
-                     pol.band_halfwidth(Lmax))
-            r_read = np.array([s[2] for s in rescue_specs], np.int64)
-            r_or = np.array([s[3] for s in rescue_specs], np.int64)
-            r_wlo = np.array([s[4] for s in rescue_specs], np.int64)
-            r_rid = np.searchsorted(
-                self.data.ref_cum,
-                np.array([ext_lo[s[1]] for s in rescue_specs]),
-                side="right") - 1
-            rpool = self._run_dp(r_wlo, r_rid, r_read, r_or,
-                                 cs.jboth, cs.jquals, cs.lens,
-                                 Gr, Lmax, len(rescue_specs),
-                                 full_width=True)
-            r_valid = rpool.scores >= cs.minsc[r_read]
-            rsel = np.nonzero(r_valid)[0].astype(np.int32)
-            rtb = self._backtrace_sel(rpool, rsel)
-            # classify each rescue result against its anchor
-            for t in rsel.tolist():
-                (i, ak, opp_ri, opp_or, _) = rescue_specs[t]
-                if i in conc:
-                    continue  # another rescue already made this pair CP
-                rlo = int(rpool.win_start[t]) + rtb[t][1]["ref_start_win"]
-                rhi = int(rpool.end_pos(np.array([t]))[0])
-                if opp_ri >= B:  # opposite is mate 2 → anchor is mate 1
-                    typ = pe_classify(pol.mate_fw_rc,
-                                      ext_lo[ak], ext_hi[ak],
-                                      cs.cand_or[ak] == 0,
-                                      rlo, rhi, opp_or == 0,
-                                      pol.minins, pol.maxins, pol.olap_ok, pol.contain_ok, pol.dovetail_ok)
-                else:
-                    typ = pe_classify(pol.mate_fw_rc,
-                                      rlo, rhi, opp_or == 0,
-                                      ext_lo[ak], ext_hi[ak],
-                                      cs.cand_or[ak] == 0,
-                                      pol.minins, pol.maxins, pol.olap_ok, pol.contain_ok, pol.dovetail_ok)
-                if typ != PE_DISCORD:
-                    sc_sum = int(scores[ak] + rpool.scores[t])
-                    conc.setdefault(i, []).append(
-                        (sc_sum, ("r", ak, t, opp_ri, opp_or, rlo, rhi)))
-            for i in list(conc.keys()):
-                conc[i].sort(key=lambda c: -c[0])
+            with TRACE.span("rescue"):
+                Lmax = cs.Lmax
+                Gr = max((pol.maxins + 32 - Lmax + 1) // 2,
+                         pol.band_halfwidth(Lmax))
+                r_read = np.array([s[2] for s in rescue_specs], np.int64)
+                r_or = np.array([s[3] for s in rescue_specs], np.int64)
+                r_wlo = np.array([s[4] for s in rescue_specs], np.int64)
+                r_rid = np.searchsorted(
+                    self.data.ref_cum,
+                    np.array([ext_lo[s[1]] for s in rescue_specs]),
+                    side="right") - 1
+                rpool = self._run_dp(r_wlo, r_rid, r_read, r_or,
+                                     cs.jboth, cs.jquals, cs.lens,
+                                     Gr, Lmax, len(rescue_specs),
+                                     full_width=True)
+                r_valid = rpool.scores >= cs.minsc[r_read]
+                rsel = np.nonzero(r_valid)[0].astype(np.int32)
+                rtb = self._backtrace_sel(rpool, rsel)
+                # classify each rescue result against its anchor
+                for t in rsel.tolist():
+                    (i, ak, opp_ri, opp_or, _) = rescue_specs[t]
+                    if i in conc:
+                        continue  # another rescue already made this pair CP
+                    rlo = int(rpool.win_start[t]) + rtb[t][1]["ref_start_win"]
+                    rhi = int(rpool.end_pos(np.array([t]))[0])
+                    if opp_ri >= B:  # opposite is mate 2 → anchor is mate 1
+                        typ = pe_classify(pol.mate_fw_rc,
+                                          ext_lo[ak], ext_hi[ak],
+                                          cs.cand_or[ak] == 0,
+                                          rlo, rhi, opp_or == 0,
+                                          pol.minins, pol.maxins, pol.olap_ok,
+                                          pol.contain_ok, pol.dovetail_ok)
+                    else:
+                        typ = pe_classify(pol.mate_fw_rc,
+                                          rlo, rhi, opp_or == 0,
+                                          ext_lo[ak], ext_hi[ak],
+                                          cs.cand_or[ak] == 0,
+                                          pol.minins, pol.maxins, pol.olap_ok,
+                                          pol.contain_ok, pol.dovetail_ok)
+                    if typ != PE_DISCORD:
+                        sc_sum = int(scores[ak] + rpool.scores[t])
+                        conc.setdefault(i, []).append(
+                            (sc_sum, ("r", ak, t, opp_ri, opp_or, rlo, rhi)))
+                for i in list(conc.keys()):
+                    conc[i].sort(key=lambda c: -c[0])
 
         # ---- emit ----
-        st = AlignStats()
-        out: List[SamAlignment] = []
-        for i in range(B):
-            rec1, rec2 = pairs[i]
-            st.pairs += 1
-            st.reads += 2
-            l1 = _eff_ranked(i)
-            l2 = _eff_ranked(B + i)
+        with TRACE.span("host_emit"):
+            st = AlignStats()
+            out: List[SamAlignment] = []
+            for i in range(B):
+                rec1, rec2 = pairs[i]
+                st.pairs += 1
+                st.reads += 2
+                l1 = _eff_ranked(i)
+                l2 = _eff_ranked(B + i)
 
-            def _xs_leg(lst, krep):
-                # best attempted alignment EXCLUDING the reported one
-                # (reference bestUnp1/2 — may outscore the pair choice)
-                for k in lst:
-                    if k != krep:
-                        return int(scores[k])
-                return None
+                def _xs_leg(lst, krep):
+                    # best attempted alignment EXCLUDING the reported one
+                    # (reference bestUnp1/2 — may outscore the pair choice)
+                    for k in lst:
+                        if k != krep:
+                            return int(scores[k])
+                    return None
 
-            xs1 = _xs_leg(l1, l1[0] if l1 else -1)
-            xs2 = _xs_leg(l2, l2[0] if l2 else -1)
-            combos = conc.get(i)
-            if combos:
-                sec_sum = combos[1][0] if len(combos) > 1 else None
+                xs1 = _xs_leg(l1, l1[0] if l1 else -1)
+                xs2 = _xs_leg(l2, l2[0] if l2 else -1)
+                combos = conc.get(i)
+                if combos:
+                    sec_sum = combos[1][0] if len(combos) > 1 else None
 
-                def _unpack(combo):
-                    if isinstance(combo[1], tuple):   # rescue pair
-                        _, ak, t, opp_ri, opp_or, rlo, rhi = combo[1]
-                        anchor = (ak, cs.pool, tb_of[ak],
-                                  int(cs.cand_or[ak]), ext_lo[ak],
-                                  ext_hi[ak])
-                        resc = (t, rpool, rtb[t], opp_or, rlo, rhi)
-                        return (anchor, resc) if opp_ri >= B \
-                            else (resc, anchor)
-                    _, k1, k2 = combo
-                    return ((k1, cs.pool, tb_of[k1], int(cs.cand_or[k1]),
-                             ext_lo[k1], ext_hi[k1]),
-                            (k2, cs.pool, tb_of[k2], int(cs.cand_or[k2]),
-                             ext_lo[k2], ext_hi[k2]))
+                    def _unpack(combo):
+                        if isinstance(combo[1], tuple):   # rescue pair
+                            _, ak, t, opp_ri, opp_or, rlo, rhi = combo[1]
+                            anchor = (ak, cs.pool, tb_of[ak],
+                                      int(cs.cand_or[ak]), ext_lo[ak],
+                                      ext_hi[ak])
+                            resc = (t, rpool, rtb[t], opp_or, rlo, rhi)
+                            return (anchor, resc) if opp_ri >= B \
+                                else (resc, anchor)
+                        _, k1, k2 = combo
+                        return ((k1, cs.pool, tb_of[k1], int(cs.cand_or[k1]),
+                                 ext_lo[k1], ext_hi[k1]),
+                                (k2, cs.pool, tb_of[k2], int(cs.cand_or[k2]),
+                                 ext_lo[k2], ext_hi[k2]))
 
-                def _rep_ks(combo):
-                    if isinstance(combo[1], tuple):
-                        _, ak, t, opp_ri, *_r = combo[1]
-                        return (ak, -1) if opp_ri >= B else (-1, ak)
-                    return combo[1], combo[2]
+                    def _rep_ks(combo):
+                        if isinstance(combo[1], tuple):
+                            _, ak, t, opp_ri, *_r = combo[1]
+                            return (ak, -1) if opp_ri >= B else (-1, ak)
+                        return combo[1], combo[2]
 
-                # -k/-a: up to khits ranked pairs; secondaries get 0x100 +
-                # MAPQ 255, the primary a real MAPQ only when a second-best
-                # pair exists (unique.h:202 k-mode convention)
-                kmode = pol.all_hits or pol.khits > 1
-                npairs = len(combos) if pol.all_hits \
-                    else min(pol.khits, len(combos))
-                rank0_ok = False
-                # XS excludes the PRIMARY selection's slot; same value on
-                # every rank (selectByScore computes bestUnchosenP1/2 once
-                # from select[0], aln_sink.cpp)
-                kr1, kr2 = _rep_ks(combos[0])
-                xs1p, xs2p = _xs_leg(l1, kr1), _xs_leg(l2, kr2)
-                for r in range(npairs):
-                    if r > 0 and not rank0_ok:
-                        break
-                    fmq = None
-                    if kmode:
-                        fmq = 255 if (r > 0 or sec_sum is None) else None
-                    marg1, marg2 = _unpack(combos[r])
+                    # -k/-a: up to khits ranked pairs; secondaries get 0x100 +
+                    # MAPQ 255, the primary a real MAPQ only when a second-best
+                    # pair exists (unique.h:202 k-mode convention)
+                    kmode = pol.all_hits or pol.khits > 1
+                    npairs = len(combos) if pol.all_hits \
+                        else min(pol.khits, len(combos))
+                    rank0_ok = False
+                    # XS excludes the PRIMARY selection's slot; same value on
+                    # every rank (selectByScore computes bestUnchosenP1/2 once
+                    # from select[0], aln_sink.cpp)
+                    kr1, kr2 = _rep_ks(combos[0])
+                    xs1p, xs2p = _xs_leg(l1, kr1), _xs_leg(l2, kr2)
+                    for r in range(npairs):
+                        if r > 0 and not rank0_ok:
+                            break
+                        fmq = None
+                        if kmode:
+                            fmq = 255 if (r > 0 or sec_sum is None) else None
+                        marg1, marg2 = _unpack(combos[r])
+                        ok = self._emit_pair(st, out, cs, i, rec1, rec2,
+                                             marg1, marg2,
+                                             combos[r][0], sec_sum, "CP", True,
+                                             xs1=xs1p, xs2=xs2p,
+                                             secondary=r > 0, force_mq=fmq)
+                        if r == 0:
+                            rank0_ok = ok
+                    if rank0_ok:
+                        if len(combos) > 1:
+                            st.conc_multi += 1
+                        else:
+                            st.conc_one += 1
+                        continue
+                # discordant: both mates aligned uniquely (any reference;
+                # cross-chromosome pairs are discordant by construction)
+                if not pol.no_discordant and len(l1) == 1 and len(l2) == 1:
+                    k1, k2 = l1[0], l2[0]
                     ok = self._emit_pair(st, out, cs, i, rec1, rec2,
-                                         marg1, marg2,
-                                         combos[r][0], sec_sum, "CP", True,
-                                         xs1=xs1p, xs2=xs2p,
-                                         secondary=r > 0, force_mq=fmq)
-                    if r == 0:
-                        rank0_ok = ok
-                if rank0_ok:
-                    if len(combos) > 1:
-                        st.conc_multi += 1
-                    else:
-                        st.conc_one += 1
-                    continue
-            # discordant: both mates aligned uniquely (any reference;
-            # cross-chromosome pairs are discordant by construction)
-            if not pol.no_discordant and len(l1) == 1 and len(l2) == 1:
-                k1, k2 = l1[0], l2[0]
-                ok = self._emit_pair(st, out, cs, i, rec1, rec2,
-                                     (k1, cs.pool, tb_of[k1],
-                                      int(cs.cand_or[k1]), ext_lo[k1], ext_hi[k1]),
-                                     (k2, cs.pool, tb_of[k2],
-                                      int(cs.cand_or[k2]), ext_lo[k2], ext_hi[k2]),
-                                     int(scores[k1] + scores[k2]), None,
-                                     "DP", False,
-                                     force_mq=255 if (pol.all_hits or
-                                                      pol.khits > 1)
-                                     else None)
-                if ok:
-                    st.disc += 1
-                    continue
-            # mixed / unaligned
-            self._emit_mixed(st, out, cs, i, rec1, rec2, l1, l2, tb_of)
+                                         (k1, cs.pool, tb_of[k1],
+                                          int(cs.cand_or[k1]), ext_lo[k1],
+                                          ext_hi[k1]),
+                                         (k2, cs.pool, tb_of[k2],
+                                          int(cs.cand_or[k2]), ext_lo[k2],
+                                          ext_hi[k2]),
+                                         int(scores[k1] + scores[k2]), None,
+                                         "DP", False,
+                                         force_mq=255 if (pol.all_hits or
+                                                          pol.khits > 1)
+                                         else None)
+                    if ok:
+                        st.disc += 1
+                        continue
+                # mixed / unaligned
+                self._emit_mixed(st, out, cs, i, rec1, rec2, l1, l2, tb_of)
         self._merge_stats(st)
         return out
 
@@ -540,25 +568,23 @@ class PairedAligner(BatchAligner):
         suppression 1mm-legality or non-fast -D replay (the device flags
         those via `hostneed`); it re-runs the full pairing from the
         per-slot export, byte-identical by construction."""
-        from bowtie2_tpu_torch.ops.fused import PE_PAIR_FIELDS
         dec = self._pe_decode(fpb)
         if dec is None:
             # DP budget overflow: rerun on the uncapped host path (rare)
             return self.align_batch_host(fpb.pairs)
         rf, pf, ee, snz, cif = dec
-        if fpb.pairing is None or pf[PE_PAIR_FIELDS - 1, :fpb.B].any():
+        if self._host_pairing(fpb, pf):
             return self._collect_fused_legacy(fpb, ee, snz, cif)
         return self._collect_fused_fast(fpb, rf, pf, cif)
 
     def _pe_decode(self, fpb: FusedPEBatch):
-        """Pull + split the compact fused-PE blob. None on DP overflow."""
+        """Pull + split the compact fused-PE blob. None on DP overflow
+        (counted in `overflow_batches`, its dropped candidates in
+        `overflow_dropped`)."""
         from bowtie2_tpu_torch.ops.fused import (PE_CI_FIELDS, PE_PAIR_FIELDS,
                                            PE_READ_FIELDS)
-        import time as _time
         B2, Bp, NC = fpb.B2, fpb.Bp, fpb.NC
-        _t = _time.time()
         meta = _np(fpb.res.blob)
-        self.metrics.add(t_dp=_time.time() - _t)
         rf = meta[:PE_READ_FIELDS * B2].reshape(PE_READ_FIELDS, B2)
         off = PE_READ_FIELDS * B2
         pf = meta[off:off + PE_PAIR_FIELDS * Bp].reshape(PE_PAIR_FIELDS, Bp)
@@ -569,11 +595,13 @@ class PairedAligner(BatchAligner):
         off += B2
         cif = meta[off:off + PE_CI_FIELDS * NC].reshape(PE_CI_FIELDS, NC)
         off += PE_CI_FIELDS * NC
-        if int(meta[off]) > 0:
-            sys.stderr.write("fused PE DP budget exceeded; falling back\n")
+        n_dropped = int(meta[off])
+        if n_dropped > 0:
+            self.metrics.add(overflow_batches=1, overflow_dropped=n_dropped)
             return None
         return rf, pf, ee, snz, cif
 
+    @TRACE.traced("repair_host")
     def _collect_fused_legacy(self, fpb: FusedPEBatch, ee, snz, cif
                               ) -> List[SamAlignment]:
         """Full host pairing from the per-slot export: pair candidates
@@ -589,13 +617,10 @@ class PairedAligner(BatchAligner):
         from bowtie2_tpu_torch.pipeline.pe import pe_classify_np
         from bowtie2_tpu_torch.pipeline.pe_effort import (pe_streak_limit,
                                                     simulate_mate)
-        import time as _time
         pol = self.pol
         B, Bp, B2, T, NC = fpb.B, fpb.Bp, fpb.B2, fpb.T, fpb.NC
-        _t = _time.time()
+        self.metrics.add(repair_batches=1, repair_pairs=B)
         sf = _np(fpb.res.slots)
-        self.metrics.add(t_dp=_time.time() - _t)
-        _t = _time.time()
         large = self.idx.fw.large
         OCC = sf[0].astype(bool)
         AOK = sf[1].astype(bool)
@@ -802,47 +827,51 @@ class PairedAligner(BatchAligner):
                          # so a unique anchor + unique rescued mate emit as
                          # a discordant pair at finishRead
         if rescue_specs:
-            Lmax = fpb.Lmax
-            Gr = max((pol.maxins + 32 - Lmax + 1) // 2,
-                     pol.band_halfwidth(Lmax))
-            r_read = np.array([s[3] for s in rescue_specs], np.int64)
-            r_or = np.array([s[4] for s in rescue_specs], np.int64)
-            r_wlo = np.array([s[5] for s in rescue_specs], np.int64)
-            r_rid = np.searchsorted(
-                self.data.ref_cum,
-                np.array([int(LO[s[1], s[2]]) for s in rescue_specs]),
-                side="right") - 1
-            self.metrics.add(mate_dps=len(rescue_specs))
-            rpool = self._run_dp(r_wlo, r_rid, r_read, r_or,
-                                 fpb.jboth, fpb.jquals, fpb.lens,
-                                 Gr, Lmax, len(rescue_specs),
-                                 full_width=True)
-            r_valid = rpool.scores >= fpb.minsc[r_read]
-            rsel = np.nonzero(r_valid)[0].astype(np.int32)
-            rtb = self._backtrace_sel(rpool, rsel)
-            for t in rsel.tolist():
-                (i, ari, ak_s, opp_ri, opp_or, _) = rescue_specs[t]
-                if i in rconc:
-                    continue
-                rlo = int(rpool.win_start[t]) + rtb[t][1]["ref_start_win"]
-                rhi = int(rpool.end_pos(np.array([t]))[0])
-                alo, ahi = int(LO[ari, ak_s]), int(HI[ari, ak_s])
-                afw = OR[ari, ak_s] == 0
-                if opp_ri >= Bp:     # opposite is mate 2 → anchor is mate 1
-                    typr = pe_classify(pol.mate_fw_rc, alo, ahi, afw,
-                                       rlo, rhi, opp_or == 0,
-                                       pol.minins, pol.maxins, pol.olap_ok, pol.contain_ok, pol.dovetail_ok)
-                else:
-                    typr = pe_classify(pol.mate_fw_rc, rlo, rhi,
-                                       opp_or == 0, alo, ahi, afw,
-                                       pol.minins, pol.maxins, pol.olap_ok, pol.contain_ok, pol.dovetail_ok)
-                sc_sum = int(S[ari, ak_s]) + int(rpool.scores[t])
-                payload = ("r", int(CPOS[ari, ak_s]), t, opp_ri,
-                           opp_or, rlo, rhi, sc_sum, ari, int(ak_s))
-                if typr != PE_DISCORD:
-                    rconc[i] = payload
-                elif i not in rdisc:
-                    rdisc[i] = payload
+            with TRACE.span("rescue"):
+                Lmax = fpb.Lmax
+                Gr = max((pol.maxins + 32 - Lmax + 1) // 2,
+                         pol.band_halfwidth(Lmax))
+                r_read = np.array([s[3] for s in rescue_specs], np.int64)
+                r_or = np.array([s[4] for s in rescue_specs], np.int64)
+                r_wlo = np.array([s[5] for s in rescue_specs], np.int64)
+                r_rid = np.searchsorted(
+                    self.data.ref_cum,
+                    np.array([int(LO[s[1], s[2]]) for s in rescue_specs]),
+                    side="right") - 1
+                self.metrics.add(mate_dps=len(rescue_specs))
+                rpool = self._run_dp(r_wlo, r_rid, r_read, r_or,
+                                     fpb.jboth, fpb.jquals, fpb.lens,
+                                     Gr, Lmax, len(rescue_specs),
+                                     full_width=True)
+                r_valid = rpool.scores >= fpb.minsc[r_read]
+                rsel = np.nonzero(r_valid)[0].astype(np.int32)
+                rtb = self._backtrace_sel(rpool, rsel)
+                for t in rsel.tolist():
+                    (i, ari, ak_s, opp_ri, opp_or, _) = rescue_specs[t]
+                    if i in rconc:
+                        continue
+                    rlo = int(rpool.win_start[t]) + rtb[t][1]["ref_start_win"]
+                    rhi = int(rpool.end_pos(np.array([t]))[0])
+                    alo, ahi = int(LO[ari, ak_s]), int(HI[ari, ak_s])
+                    afw = OR[ari, ak_s] == 0
+                    # opposite is mate 2 → anchor is mate 1
+                    if opp_ri >= Bp:
+                        typr = pe_classify(pol.mate_fw_rc, alo, ahi, afw,
+                                           rlo, rhi, opp_or == 0,
+                                           pol.minins, pol.maxins, pol.olap_ok,
+                                           pol.contain_ok, pol.dovetail_ok)
+                    else:
+                        typr = pe_classify(pol.mate_fw_rc, rlo, rhi,
+                                           opp_or == 0, alo, ahi, afw,
+                                           pol.minins, pol.maxins, pol.olap_ok,
+                                           pol.contain_ok, pol.dovetail_ok)
+                    sc_sum = int(S[ari, ak_s]) + int(rpool.scores[t])
+                    payload = ("r", int(CPOS[ari, ak_s]), t, opp_ri,
+                               opp_or, rlo, rhi, sc_sum, ari, int(ak_s))
+                    if typr != PE_DISCORD:
+                        rconc[i] = payload
+                    elif i not in rdisc:
+                        rdisc[i] = payload
 
         # ---- ranked combo list per pair (top-k; default k=1 keeps the
         # vectorized argmax result, no per-pair argsort) ----
@@ -892,8 +921,6 @@ class PairedAligner(BatchAligner):
             sel = np.asarray(sel, np.int32)
         if sel.size:
             tb_of.update(self._backtrace_sel(pool, sel))
-        self.metrics.add(t_host=_time.time() - _t)
-        _t = _time.time()
 
         # ---- per-pair emission ----
         st = AlignStats()
@@ -1022,7 +1049,6 @@ class PairedAligner(BatchAligner):
                 l2.append(int(CPOS[ri2, sec_slot[ri2]]))
             self._emit_mixed(st, out, cs, i, rec1, rec2, l1, l2, tb_of)
         self._merge_stats(st)
-        self.metrics.add(t_host=_time.time() - _t)
         return out
 
     def _pe_fast_prep(self, fpb: FusedPEBatch, rf, pf, cif):
@@ -1102,49 +1128,51 @@ class PairedAligner(BatchAligner):
         rconc = {}
         rdisc = {}
         if rescue_specs:
-            Lmax = fpb.Lmax
-            Gr = max((pol.maxins + 32 - Lmax + 1) // 2,
-                     pol.band_halfwidth(Lmax))
-            r_read = np.array([s[2] for s in rescue_specs], np.int64)
-            r_or = np.array([s[3] for s in rescue_specs], np.int64)
-            r_wlo = np.array([s[4] for s in rescue_specs], np.int64)
-            r_rid = np.searchsorted(
-                self.data.ref_cum,
-                np.array([int(r_flo[s[1]]) for s in rescue_specs]),
-                side="right") - 1
-            self.metrics.add(mate_dps=len(rescue_specs))
-            rpool = self._run_dp(r_wlo, r_rid, r_read, r_or,
-                                 fpb.jboth, fpb.jquals, fpb.lens,
-                                 Gr, Lmax, len(rescue_specs),
-                                 full_width=True)
-            r_valid = rpool.scores >= fpb.minsc[r_read]
-            rsel = np.nonzero(r_valid)[0].astype(np.int32)
-            rtb = self._backtrace_sel(rpool, rsel)
-            for t in rsel.tolist():
-                (i, ari, opp_ri, opp_or, _) = rescue_specs[t]
-                if i in rconc:
-                    continue
-                rlo = int(rpool.win_start[t]) + rtb[t][1]["ref_start_win"]
-                rhi = int(rpool.end_pos(np.array([t]))[0])
-                alo, ahi = int(r_flo[ari]), int(r_fhi[ari])
-                afw = r_fo[ari] == 0
-                if opp_ri >= Bp:     # opposite is mate 2 → anchor is mate 1
-                    typr = pe_classify(pol.mate_fw_rc, alo, ahi, afw,
-                                       rlo, rhi, opp_or == 0,
-                                       pol.minins, pol.maxins, pol.olap_ok,
-                                       pol.contain_ok, pol.dovetail_ok)
-                else:
-                    typr = pe_classify(pol.mate_fw_rc, rlo, rhi,
-                                       opp_or == 0, alo, ahi, afw,
-                                       pol.minins, pol.maxins, pol.olap_ok,
-                                       pol.contain_ok, pol.dovetail_ok)
-                sc_sum = int(r_fs[ari]) + int(rpool.scores[t])
-                payload = ("r", int(r_fc[ari]), t, opp_ri, opp_or, rlo, rhi,
-                           sc_sum, ari)
-                if typr != PE_DISCORD:
-                    rconc[i] = payload
-                elif i not in rdisc:
-                    rdisc[i] = payload
+            with TRACE.span("rescue"):
+                Lmax = fpb.Lmax
+                Gr = max((pol.maxins + 32 - Lmax + 1) // 2,
+                         pol.band_halfwidth(Lmax))
+                r_read = np.array([s[2] for s in rescue_specs], np.int64)
+                r_or = np.array([s[3] for s in rescue_specs], np.int64)
+                r_wlo = np.array([s[4] for s in rescue_specs], np.int64)
+                r_rid = np.searchsorted(
+                    self.data.ref_cum,
+                    np.array([int(r_flo[s[1]]) for s in rescue_specs]),
+                    side="right") - 1
+                self.metrics.add(mate_dps=len(rescue_specs))
+                rpool = self._run_dp(r_wlo, r_rid, r_read, r_or,
+                                     fpb.jboth, fpb.jquals, fpb.lens,
+                                     Gr, Lmax, len(rescue_specs),
+                                     full_width=True)
+                r_valid = rpool.scores >= fpb.minsc[r_read]
+                rsel = np.nonzero(r_valid)[0].astype(np.int32)
+                rtb = self._backtrace_sel(rpool, rsel)
+                for t in rsel.tolist():
+                    (i, ari, opp_ri, opp_or, _) = rescue_specs[t]
+                    if i in rconc:
+                        continue
+                    rlo = int(rpool.win_start[t]) + rtb[t][1]["ref_start_win"]
+                    rhi = int(rpool.end_pos(np.array([t]))[0])
+                    alo, ahi = int(r_flo[ari]), int(r_fhi[ari])
+                    afw = r_fo[ari] == 0
+                    # opposite is mate 2 → anchor is mate 1
+                    if opp_ri >= Bp:
+                        typr = pe_classify(pol.mate_fw_rc, alo, ahi, afw,
+                                           rlo, rhi, opp_or == 0,
+                                           pol.minins, pol.maxins, pol.olap_ok,
+                                           pol.contain_ok, pol.dovetail_ok)
+                    else:
+                        typr = pe_classify(pol.mate_fw_rc, rlo, rhi,
+                                           opp_or == 0, alo, ahi, afw,
+                                           pol.minins, pol.maxins, pol.olap_ok,
+                                           pol.contain_ok, pol.dovetail_ok)
+                    sc_sum = int(r_fs[ari]) + int(rpool.scores[t])
+                    payload = ("r", int(r_fc[ari]), t, opp_ri, opp_or, rlo,
+                               rhi, sc_sum, ari)
+                    if typr != PE_DISCORD:
+                        rconc[i] = payload
+                    elif i not in rdisc:
+                        rdisc[i] = payload
 
         return SimpleNamespace(
             fpb=fpb, pool=pool, cs=cs, cand_read=cand_read, ci_or=ci_or,
@@ -1296,20 +1324,16 @@ class PairedAligner(BatchAligner):
         Byte-identical to _collect_fused_legacy (same decision math,
         mirrored on device in ops/fused.py _pe_pairing; cross-checked by
         tests/test_pe_devpair.py and the golden corpora)."""
-        import time as _time
-        _t = _time.time()
         ns = self._pe_fast_prep(fpb, rf, pf, cif)
         tb_of = self._fast_tb(ns, self._fast_need(ns, range(fpb.B)))
-        self.metrics.add(t_host=_time.time() - _t)
-        _t = _time.time()
         st = AlignStats()
         out: List[SamAlignment] = []
         for i in range(fpb.B):
             self._emit_fast_pair(ns, i, st, out, tb_of)
         self._merge_stats(st)
-        self.metrics.add(t_host=_time.time() - _t)
         return out
 
+    @TRACE.traced("emit_fast")
     def _collect_fused_fast_raw(self, fpb: FusedPEBatch, rf, pf, cif,
                                 suffix: bytes
                                 ) -> List[List[Tuple[int, bytes]]]:
@@ -1321,11 +1345,9 @@ class PairedAligner(BatchAligner):
         rescue/discordant/mixed pairs and score-check failures take the
         per-pair object path. Returns one [(flag, line bytes)] group per
         pair."""
-        import time as _time
         from bowtie2_tpu_torch.native.samemit import (RefNameTable, XS_OMIT,
                                                 sam_tails_pe_batch)
         pol = self.pol
-        _t = _time.time()
         B, Bp = fpb.B, fpb.Bp
         ns = self._pe_fast_prep(fpb, rf, pf, cif)
         pool = ns.pool
@@ -1543,7 +1565,6 @@ class PairedAligner(BatchAligner):
                 groups[i] = [(r.flag, r.line().encode() + suffix)
                              for r in out]
         self._merge_stats(st)
-        self.metrics.add(t_host=_time.time() - _t)
         return groups
 
     # ------------------------------------------------------------------

@@ -34,6 +34,7 @@ import numpy as np
 from bowtie2_tpu_torch.io.sam import SamAlignment
 from bowtie2_tpu_torch.pipeline.rng import select_by_score
 from bowtie2_tpu_torch.pipeline.seed_replay import Aln, ReadReplay, ReplayAbort
+from bowtie2_tpu_torch.utils.metrics import TRACE
 
 # Master switch (tests can flip). When False the aligner behaves exactly
 # as in round 4 (canonical selection for the trajectory class).
@@ -67,6 +68,7 @@ class _Pred:
         self.unal = unal
 
 
+@TRACE.traced("replay")
 def run_replays(aligner, records, ris) -> Dict[int, _Pred]:
     """Run ReplayBuilder + ReadReplay for the cohort; returns
     {ri: _Pred} for reads whose trajectory fit the model."""

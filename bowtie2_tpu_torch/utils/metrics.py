@@ -17,10 +17,21 @@ whose counters exist in this pipeline are filled with real values:
   MemPeak (host RSS). Counters tied to reference-internal mechanisms that
   do not exist here (SSE 8-bit lane, cache hits, checkpoint fixups,
   mini-fill rejections) stay 0 — structurally absent, not unmeasured.
+
+`TRACE` is the process's span recorder: where the aligners do their work
+per batch (submit, the blob's readback, the emission, the host path and
+its phases, the replay) they open a span, and while tracing is on each
+span is kept in memory as a record and shows in torch.profiler's trace as
+a `bt2x:<name>` range, on the clock of the kernels and copies. Off, a
+span costs two attribute tests.
 """
 
+import contextlib
+import functools
 import threading
 import time
+
+import torch.autograd.profiler as _tprof
 
 HEADER = (
     "Time Read Base SameRead SameReadBase UnfilteredRead UnfilteredBase "
@@ -68,13 +79,6 @@ COLMAP = {
     "backtraces": "DP16ExBt",
     "mate_dps": "DP16MateDps",
 }
-
-# kept for library users / internal timing reports
-FIELDS = ("secs", "reads", "unal", "al_one", "al_multi",
-          "fm_lf_steps", "sa_resolves", "dp_problems", "dp_cells",
-          "backtraces",
-          "t_search", "t_resolve", "t_dp", "t_backtrace", "t_host")
-
 
 class Metrics:
     def __init__(self):
@@ -132,3 +136,128 @@ class MetricsSink:
             return
         self.f.write(self.metrics.report_line() + "\n")
         self.f.flush()
+
+
+SPAN_PREFIX = "bt2x:"       # the spans' record_function ranges
+
+
+_NULL_SPAN = contextlib.nullcontext()    # the span of a recorder that is off
+
+
+class _Span:
+    __slots__ = ("tr", "rec", "rf")
+
+    def __init__(self, tr, name):
+        self.tr = tr
+        self.rec = [name, 0, 0, tr._stack[-1] if tr._stack else -1,
+                    tr.batch]
+
+    def __enter__(self):
+        tr, rec = self.tr, self.rec
+        tr._stack.append(len(tr.records))
+        tr.records.append(rec)
+        self.rf = _tprof.record_function(SPAN_PREFIX + rec[0])
+        self.rf.__enter__()
+        rec[1] = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.rec[2] = time.perf_counter_ns()
+        self.rf.__exit__(*exc)
+        self.tr._stack.pop()
+        return False
+
+
+class Tracer:
+    """Spans of the port's host work, one recorder a process (`TRACE`),
+    as `ops/_build.LAUNCHES` is one launch counter a process.
+
+    Tracing is on while `on` is set (the CLI's -t) or while
+    torch.profiler records, so a profiled run gets the port's spans
+    beside its kernels with no switch of its own. Each span is a record
+    [name, start ns, end ns, parent record (-1 for none), batch number]
+    on time.perf_counter_ns. `submit` numbers every batch
+    (`next_batch`) and makes it the current one, as `collect_raw` does
+    for the batch it collects, so every span of one batch carries its
+    number. Spans go at batch level only, never inside a per-read loop,
+    and are opened from one thread at a time."""
+
+    def __init__(self):
+        self.on = False
+        self.records = []
+        self.batch = -1
+        self._stack = []
+        self._batches = 0
+
+    def span(self, name: str):
+        """A context manager: the span `name` while tracing is on, else a
+        shared one that records nothing."""
+        if not (self.on or _tprof._is_profiler_enabled):
+            return _NULL_SPAN
+        return _Span(self, name)
+
+    def traced(self, name: str):
+        """Decorator: the function's every call is a span `name`."""
+        def deco(fn):
+            @functools.wraps(fn)
+            def run(*a, **k):
+                with self.span(name):
+                    return fn(*a, **k)
+            return run
+        return deco
+
+    def next_batch(self) -> int:
+        """The next batch's number, made the current one."""
+        self.batch = self._batches
+        self._batches += 1
+        return self.batch
+
+    def clear(self) -> None:
+        self.records = []
+        self._stack = []
+
+    @staticmethod
+    def _bounds(t0, t1):
+        """[t0, t1] in seconds of time.perf_counter, as ns (None: open)."""
+        return (-1 << 62 if t0 is None else int(t0 * 1e9),
+                1 << 62 if t1 is None else int(t1 * 1e9))
+
+    @staticmethod
+    def _clip(rec, a, b):
+        return max(0, min(rec[2], b) - max(rec[1], a))
+
+    def seconds(self, name: str, t0=None, t1=None) -> float:
+        """Wall seconds inside [t0, t1] (time.perf_counter seconds) of the
+        spans `name` that no span of the same name encloses."""
+        a, b = self._bounds(t0, t1)
+        recs = self.records
+        tot = 0
+        for rec in recs:
+            if rec[0] != name:
+                continue
+            p = rec[3]
+            while p >= 0 and recs[p][0] != name:
+                p = recs[p][3]
+            if p < 0:
+                tot += self._clip(rec, a, b)
+        return tot * 1e-9
+
+    def self_seconds(self, name: str, t0=None, t1=None) -> float:
+        """Self time of the spans `name` inside [t0, t1]: each span's time
+        less what its child spans cover."""
+        a, b = self._bounds(t0, t1)
+        recs = self.records
+        own = {i for i, r in enumerate(recs) if r[0] == name}
+        tot = sum(self._clip(recs[i], a, b) for i in own)
+        tot -= sum(self._clip(r, a, b) for r in recs if r[3] in own)
+        return tot * 1e-9
+
+    def totals(self):
+        """{name: (count, total seconds, self seconds)} over every
+        record."""
+        names = sorted({r[0] for r in self.records})
+        return {n: (sum(1 for r in self.records if r[0] == n),
+                    self.seconds(n), self.self_seconds(n)) for n in names}
+
+
+TRACE = Tracer()

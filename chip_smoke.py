@@ -82,7 +82,7 @@ Phases, each of which exits non-zero when it fails:
    is built there by the port's CLI (`build`) and loaded.
 8. The paired-end path: after one warm-up batch, `PairedAligner.
    align_pairs_fast(pairs, batch=3125, raw=True)` as bench.py drives the
-   JAX package, at --sensitive; pairs/s, the host timers and the launch
+   JAX package, at --sensitive; pairs/s, the port's spans and the launch
    counts, set to 0 just before and read just after: the origin DP
    (`sw_rect_origin`) and the block DP kernel at the 533-column
    mate-rescue windows (`sw_rect@block`, as the DP's C entry reports the
@@ -836,6 +836,13 @@ def host_timers(targets):
                 acc[_name] = acc.get(_name, 0.0) + time.perf_counter() - t0
         setattr(obj, attr, timed)
     return acc
+
+
+def span_totals(trace):
+    """The port's spans (utils/metrics.py TRACE) of a run: {name: [calls,
+    total s, self s]}."""
+    return {n: [c, round(t, 3), round(s, 3)]
+            for n, (c, t, s) in trace.totals().items()}
 
 
 class LaunchTimer:
@@ -3568,6 +3575,7 @@ def main() -> None:
         from bowtie2_tpu_torch.index.fmindex import ShardedFMHalf
         from bowtie2_tpu_torch.dist.sharded import shard_index
         from bowtie2_tpu_torch.ops import ref as ref_mod
+        from bowtie2_tpu_torch.utils.metrics import TRACE
         mrc = load_repcorpus()
     except (ImportError, FileNotFoundError) as e:
         fail(f"the port is not beside this script: {e}")
@@ -3646,6 +3654,8 @@ def main() -> None:
         return groups, firsts
 
     _build.reset_counts()
+    TRACE.clear()
+    TRACE.on = True
     t0 = time.time()
     try:
         groups, chunks = run(aligner, records)
@@ -3653,18 +3663,18 @@ def main() -> None:
     except Exception as e:
         fail(f"main path: {type(e).__name__}: {e}")
     wall = time.time() - t0
+    TRACE.on = False
     launches = dict(_build.LAUNCHES)
     plain = dict(_build.PLAIN_CALLS)
     n_groups = sum(len(g) for g in groups)
     aligned = sum(1 for gs in groups for g in gs if not g[0][0] & 4)
-    timers = {k: round(v, 3) for k, v in aligner.metrics.counters.items()
-              if k.startswith("t_")}
+    timers = span_totals(TRACE)
     log(f"main path: {len(records)} reads in {wall:.2f} s = "
         f"{len(records) / wall:.1f} reads/s; {aligned} aligned; "
         f"host-path batches {aligner.metrics.counters.get('host_batches', 0)}"
         f" of {len(chunks)}; trajectory overrides "
         f"{aligner.metrics.counters.get('traj_overridden', 0)}; "
-        f"launches {launches}; plain calls {plain}; host timers {timers}; "
+        f"launches {launches}; plain calls {plain}; port spans {timers}; "
         f"wall s in {({k: round(v, 2) for k, v in spent.items()})}; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -4144,6 +4154,8 @@ def main() -> None:
     pal.collect_raw = keep_first
     torch.cuda.synchronize()
     _build.reset_counts()
+    TRACE.clear()
+    TRACE.on = True
     t0 = time.time()
     try:
         pal.align_pairs_fast(pairs, batch=PE_BATCH, raw=True)
@@ -4151,16 +4163,17 @@ def main() -> None:
     except Exception as e:
         fail(f"paired-end path: {type(e).__name__}: {e}")
     pwall = time.time() - t0
+    TRACE.on = False
     plaunches = dict(_build.LAUNCHES)
     pplain = dict(_build.PLAIN_CALLS)
     pc = pal.metrics.counters
-    ptimers = {k: round(v, 3) for k, v in pc.items() if k.startswith("t_")}
+    ptimers = span_totals(TRACE)
     log(f"paired-end path: {len(pairs)} pairs in {pwall:.2f} s = "
         f"{len(pairs) / pwall:.1f} pairs/s; {pal.stats.conc_one} + "
         f"{pal.stats.conc_multi} concordant, {pal.stats.disc} discordant; "
         f"host-path batches {pc.get('host_batches', 0)}; mate DPs "
         f"{pc.get('mate_dps', 0)}; launches {plaunches}; plain calls "
-        f"{pplain}; host timers {ptimers}; wall s in "
+        f"{pplain}; port spans {ptimers}; wall s in "
         f"{({k: round(v, 2) for k, v in pspent.items()})}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     pe_args = rec.take()
