@@ -156,34 +156,49 @@ static int decode_one(const uint8_t *ops_col, long stride, int bound,
  * ops: (S, Bc) uint8, C-contiguous (stride Bc between walk steps).
  * cols/read_start/read_end/read_len/bound: (n,) int32 per record.
  * reads: (n, Lmax) int8 oriented read codes.
- * cigar_out/md_out: (n, *_stride) char buffers (NUL-terminated rows).
- * Returns 0 or the number of overflowed records (their rows are ""). */
+ * cigar_out/md_out: the records' strings packed back to back, record r's
+ * starting where record r-1's ends; their lengths go to cigar_len/md_len.
+ * The caller sizes cigar_out at sum(2b + 48) bytes and md_out at
+ * sum(3b + 48), b = min(bound, S): a walk of b steps holds at most b ops,
+ * a CIGAR run takes at most two chars an op and an MD event three, so
+ * every record's string fits in the room left. The work arrays come from
+ * the heap at the batch's largest b.
+ * Returns 0 or the number of records that failed (their lengths are 0);
+ * n if the work arrays cannot be had. */
 int cigar_md_batch(const uint8_t *ops, int64_t S, int64_t Bc,
                    const int32_t *cols, const int32_t *read_start,
                    const int32_t *read_end, const int32_t *read_len,
                    const int32_t *bound, const int8_t *reads, int64_t Lmax,
                    int64_t n, int xeq,
-                   char *cigar_out, int64_t cigar_stride,
-                   char *md_out, int64_t md_stride) {
-    int bad = 0;
-    /* work buffers sized by the max possible walk length */
-    enum { MAXOPS = 32768 };
-    uint8_t opsk[MAXOPS], refc[MAXOPS], ismatch[MAXOPS];
+                   char *cigar_out, int32_t *cigar_len,
+                   char *md_out, int32_t *md_len) {
+    int bmax = 1;
     for (int64_t r = 0; r < n; r++) {
-        int b = bound[r];
-        if (b > (int)S) b = (int)S;
-        if (b > MAXOPS) { bad++; cigar_out[r * cigar_stride] = 0;
-                          md_out[r * md_stride] = 0; continue; }
+        int b = bound[r] < (int)S ? bound[r] : (int)S;
+        if (b > bmax) bmax = b;
+    }
+    uint8_t *work = (uint8_t *)malloc(3 * (size_t)bmax);
+    if (!work) return (int)n;
+    uint8_t *opsk = work, *refc = work + bmax, *ismatch = work + 2 * bmax;
+    int bad = 0;
+    char *cp = cigar_out, *mp = md_out;
+    for (int64_t r = 0; r < n; r++) {
+        int b = bound[r] < (int)S ? bound[r] : (int)S;
+        int bb = b > 0 ? b : 0;
         if (decode_one(ops + cols[r], Bc, b, read_start[r], read_end[r],
                        read_len[r], reads + r * Lmax, xeq,
                        opsk, refc, ismatch,
-                       cigar_out + r * cigar_stride, (int)cigar_stride,
-                       md_out + r * md_stride, (int)md_stride) != 0) {
+                       cp, 2 * bb + 48, mp, 3 * bb + 48) != 0) {
             bad++;
-            cigar_out[r * cigar_stride] = 0;
-            md_out[r * md_stride] = 0;
+            cigar_len[r] = md_len[r] = 0;
+            continue;
         }
+        cigar_len[r] = (int32_t)strlen(cp);
+        md_len[r] = (int32_t)strlen(mp);
+        cp += cigar_len[r];
+        mp += md_len[r];
     }
+    free(work);
     return bad;
 }
 

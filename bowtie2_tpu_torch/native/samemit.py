@@ -22,7 +22,7 @@ _lib.cigar_md_batch.argtypes = [
     _u8p, ctypes.c_int64, ctypes.c_int64,
     _i32p, _i32p, _i32p, _i32p, _i32p, _i8p, ctypes.c_int64,
     ctypes.c_int64, ctypes.c_int,
-    ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+    _u8p, _i32p, _u8p, _i32p,
 ]
 
 
@@ -35,36 +35,40 @@ def cigar_md_batch(ops: np.ndarray, cols: np.ndarray,
 
     ops: (S, Bc) uint8 device backtrace output; cols: (n,) column per
     record; reads: (n, Lmax) int8 oriented codes. Returns (cigars, mds).
+    The output buffers are sized from the records' own bounds (a walk of
+    b steps gives at most 2b + 48 CIGAR and 3b + 48 MD:Z bytes) and are
+    neither cleared nor copied whole: C packs the strings back to back and
+    returns their lengths.
     """
     n = int(cols.size)
     if n == 0:
         return [], []
     ops = np.ascontiguousarray(ops)
     reads = np.ascontiguousarray(reads, dtype=np.int8)
-    Lmax = reads.shape[1]
-    cigar_stride = 8 * Lmax // 2 + 64
-    md_stride = 4 * Lmax + 64
-    cig = ctypes.create_string_buffer(n * cigar_stride)
-    md = ctypes.create_string_buffer(n * md_stride)
+    bound = np.ascontiguousarray(bound, np.int32)
+    b = np.clip(bound, 0, ops.shape[0]).astype(np.int64)
+    cig = np.empty(int((2 * b + 48).sum()), np.uint8)
+    md = np.empty(int((3 * b + 48).sum()), np.uint8)
+    cig_len = np.empty(n, np.int32)
+    md_len = np.empty(n, np.int32)
     bad = _lib.cigar_md_batch(
         ops, ops.shape[0], ops.shape[1],
         np.ascontiguousarray(cols, np.int32),
         np.ascontiguousarray(read_start, np.int32),
         np.ascontiguousarray(read_end, np.int32),
         np.ascontiguousarray(read_len, np.int32),
-        np.ascontiguousarray(bound, np.int32),
-        reads, Lmax, n, int(xeq), cig, cigar_stride, md, md_stride)
+        bound, reads, reads.shape[1], n, int(xeq),
+        cig, cig_len, md, md_len)
     if bad:
         raise RuntimeError(f"cigar_md_batch: {bad} records overflowed")
-    raw_c, raw_m = cig.raw, md.raw
-    cigars = []
-    mds = []
-    for r in range(n):
-        o = r * cigar_stride
-        cigars.append(raw_c[o:raw_c.index(b"\0", o)].decode("ascii"))
-        o = r * md_stride
-        mds.append(raw_m[o:raw_m.index(b"\0", o)].decode("ascii"))
-    return cigars, mds
+    return _split(cig, cig_len), _split(md, md_len)
+
+
+def _split(buf: np.ndarray, lens: np.ndarray) -> List[str]:
+    """The n strings packed back to back at the head of buf."""
+    ends = np.cumsum(lens).tolist()
+    s = buf[:ends[-1]].tobytes().decode("ascii")
+    return [s[o:e] for o, e in zip([0] + ends[:-1], ends)]
 
 
 _lib.sam_tails_batch.restype = ctypes.c_int

@@ -41,8 +41,8 @@ from bowtie2_tpu_torch.ops import fm
 from bowtie2_tpu_torch.ops.fused import (CHOSEN_FIELDS, SegTables, fused_pe,
                                          fused_se)
 from bowtie2_tpu_torch.ops.ref import gather_windows
-from bowtie2_tpu_torch.ops.sw import (backtrace, backtrace_diag, bt_steps,
-                                      sw_banded, sw_banded_diag)
+from bowtie2_tpu_torch.ops.sw import (OP_NONE, backtrace, backtrace_diag,
+                                      bt_steps, sw_banded, sw_banded_diag)
 from bowtie2_tpu_torch.pipeline.backtrace import cigar_md_from_packed
 from bowtie2_tpu_torch.pipeline.mapq import mapq_v2
 from bowtie2_tpu_torch.pipeline.policy import Policy
@@ -638,7 +638,7 @@ class BatchAligner:
 
         Returns (okg, ops_syn (nsel, Lmax) uint8 walk rows,
         ref_start_win, nmm, nrefn)."""
-        from bowtie2_tpu_torch.ops.sw import OP_M, OP_NONE
+        from bowtie2_tpu_torch.ops.sw import OP_M
         if sel.size == 0 or self.pol.local:
             z = np.zeros(0, np.int64)
             return (np.zeros(0, bool),
@@ -705,13 +705,20 @@ class BatchAligner:
                       tb, best: int, sec: Optional[int], mapq: int,
                       yt: str, flag_extra: int = 0, rnext: str = "*",
                       pnext: int = 0, tlen: int = 0,
-                      ys: Optional[int] = None) -> Optional[SamAlignment]:
+                      ys: Optional[int] = None,
+                      pending: Optional[list] = None
+                      ) -> Optional[SamAlignment]:
+        """One aligned record. pending: a list that takes the records
+        whose CIGAR and MD:Z need the walk decoded, left blank for
+        _decode_pending to fill in with one native call for the batch;
+        without it such a record is decoded here on its own."""
         opcol, sc = tb
         if sc["score_check"] != int(pool.scores[k]):
             return None
         read_end = int(pool.rows_end[k]) + 1
+        walk = None
         if "cigar_ops" in sc:      # host gapless fast path (_gapless_tb)
-            cigar_ops, md = sc["cigar_ops"], sc["md"]
+            cigar, md = cigar_string(sc["cigar_ops"]), sc["md"]
         elif sc["n_mm"] == 0 and sc["n_gc"] == 0 and sc["n_refn"] == 0:
             span = read_end - sc["read_start"]
             cigar_ops = []
@@ -720,14 +727,14 @@ class BatchAligner:
             cigar_ops.append(("=" if self.pol.xeq else "M", span))
             if read_end < L:
                 cigar_ops.append(("S", L - read_end))
-            md = str(span)
+            cigar, md = cigar_string(cigar_ops), str(span)
         else:
             bound = (read_end - sc["read_start"]) + sc["n_gc"] + 1
-            cigar_ops, md = cigar_md_from_packed(opcol[:bound],
-                                                 sc["read_start"],
-                                                 read_end, L,
-                                                 read=read_codes,
-                                                 xeq=self.pol.xeq)
+            walk = (opcol[:bound], sc["read_start"], read_end, L, read_codes)
+            if pending is None:
+                cigar, md = self._decode_one(*walk)
+            else:
+                cigar = md = None
         r_id = int(pool.rid[k])
         g_start = int(pool.win_start[k]) + sc["ref_start_win"]
         roff = g_start - int(self.data.ref_cum[r_id])
@@ -744,13 +751,60 @@ class BatchAligner:
         if ys is not None:
             opts.append(("YS", "i", ys))
         opts.append(("YT", "Z", yt))
-        return SamAlignment(
+        out = SamAlignment(
             qname=rec.name, flag=flag, rname=self.data.ref_names[r_id],
-            pos=roff + 1, mapq=mapq, cigar=cigar_string(cigar_ops),
+            pos=roff + 1, mapq=mapq, cigar=cigar,
             rnext=rnext, pnext=pnext, tlen=tlen,
             seq=decode_seq(read_codes.astype(np.uint8)).decode(),
             qual=qual_string(read_quals), opts=opts,
             raw_tags=getattr(rec, "tags", None))
+        if cigar is None:
+            pending.append((out, walk))
+        return out
+
+    def _decode_one(self, opcol, read_start, read_end, L, read_codes):
+        """(CIGAR, MD:Z) of one walk by the per-record decoder."""
+        self.metrics.add(host_decode_numpy=1)
+        cigar_ops, md = cigar_md_from_packed(opcol, read_start, read_end, L,
+                                             read=read_codes,
+                                             xeq=self.pol.xeq)
+        return cigar_string(cigar_ops), md
+
+    def _decode_pending(self, pending: list) -> None:
+        """Fill in the CIGAR and MD:Z of the records _emit_aligned left
+        blank in pending: their walks, gathered into one op matrix, are
+        decoded by one native cigar_md_batch call (by the per-record
+        decoder where the native library cannot be built)."""
+        if not pending:
+            return
+        walks = [w for _r, w in pending]
+        try:
+            from bowtie2_tpu_torch.native.samemit import cigar_md_batch
+        except Exception:
+            strs = [self._decode_one(*w) for w in walks]
+        else:
+            n = len(walks)
+            bound = np.array([w[0].size for w in walks], np.int32)
+            L = np.array([w[3] for w in walks], np.int32)
+            S = max(int(bound.max()), 1)
+            ops = np.full((n, S), OP_NONE, np.uint8)
+            reads = np.full((n, max(int(L.max()), 1)), 4, np.int8)
+            for i, (col, _rs, _re, Li, codes) in enumerate(walks):
+                ops[i, :col.size] = col
+                reads[i, :Li] = codes
+            # one walk a row: as an (n * S, 1) op matrix the walk of record
+            # i starts at row i * S and its steps lie one byte apart
+            strs = zip(*cigar_md_batch(
+                ops.reshape(-1, 1), np.arange(n) * S,
+                np.array([w[1] for w in walks]),
+                np.array([w[2] for w in walks]), L, bound, reads,
+                xeq=self.pol.xeq))
+            self.metrics.add(host_decode_native=n)
+        for (rec, _w), (cigar, md) in zip(pending, strs):
+            rec.cigar = cigar
+            rec.opts = [("MD", "Z", md) if t == "MD" else (t, ty, v)
+                        for t, ty, v in rec.opts]
+        pending.clear()
 
     def _unaligned(self, rec: SeqRecord, yf: Optional[str] = None,
                    yt: str = "UU", flag_extra: int = 0, rname: str = "*",
@@ -1916,6 +1970,7 @@ class UnpairedAligner(BatchAligner):
         with TRACE.span("host_emit"):
             st = AlignStats()
             out: List[SamAlignment] = []
+            pending: list = []
             # per-read class for the summary (0=unal, 1=unique, 2=multi);
             # the group replacements below update it
             cls = np.zeros(B, np.int8)
@@ -1955,7 +2010,7 @@ class UnpairedAligner(BatchAligner):
                     flag_extra = 0x100 if n_emitted > 0 else 0
                     rec_out = self._emit_aligned(
                         rec, L, orient, codes, quals, cs.pool, k, tb_of[k],
-                        best, sec, mq, "UU", flag_extra)
+                        best, sec, mq, "UU", flag_extra, pending=pending)
                     if rec_out is not None:
                         out.append(rec_out)
                         n_emitted += 1
@@ -1965,6 +2020,7 @@ class UnpairedAligner(BatchAligner):
                     cls[ri] = 2
                 else:
                     cls[ri] = 1
+            self._decode_pending(pending)
         rd_start[len(records)] = len(out)
         repl = {}
         for ri in ovr:

@@ -457,6 +457,7 @@ class PairedAligner(BatchAligner):
         with TRACE.span("host_emit"):
             st = AlignStats()
             out: List[SamAlignment] = []
+            pending: list = []
             for i in range(B):
                 rec1, rec2 = pairs[i]
                 st.pairs += 1
@@ -522,7 +523,8 @@ class PairedAligner(BatchAligner):
                                              marg1, marg2,
                                              combos[r][0], sec_sum, "CP", True,
                                              xs1=xs1p, xs2=xs2p,
-                                             secondary=r > 0, force_mq=fmq)
+                                             secondary=r > 0, force_mq=fmq,
+                                             pending=pending)
                         if r == 0:
                             rank0_ok = ok
                     if rank0_ok:
@@ -546,12 +548,14 @@ class PairedAligner(BatchAligner):
                                          "DP", False,
                                          force_mq=255 if (pol.all_hits or
                                                           pol.khits > 1)
-                                         else None)
+                                         else None, pending=pending)
                     if ok:
                         st.disc += 1
                         continue
                 # mixed / unaligned
-                self._emit_mixed(st, out, cs, i, rec1, rec2, l1, l2, tb_of)
+                self._emit_mixed(st, out, cs, i, rec1, rec2, l1, l2, tb_of,
+                                 pending)
+            self._decode_pending(pending)
         self._merge_stats(st)
         return out
 
@@ -1671,7 +1675,7 @@ class PairedAligner(BatchAligner):
 
     def _emit_pair(self, st, out, cs, i, rec1, rec2, m1, m2, sc_sum,
                    sec_sum, yt, proper, xs1=None, xs2=None,
-                   secondary=False, force_mq=None) -> bool:
+                   secondary=False, force_mq=None, pending=None) -> bool:
         """Emit both mates of a concordant/discordant pair. Returns False if
         a backtrace consistency check failed (caller falls through).
 
@@ -1680,7 +1684,7 @@ class PairedAligner(BatchAligner):
         emitted on CP/DP records too, not just unpaired ones). secondary
         sets 0x100; force_mq overrides the computed MAPQ (k-mode
         conventions, unique.h:202: secondaries 255, primary real only when
-        a second-best pair exists)."""
+        a second-best pair exists). pending: as in _emit_aligned."""
         pol = self.pol
         (k1, p1, t1, o1, lo1, hi1) = m1
         (k2, p2, t2, o2, lo2, hi2) = m2
@@ -1737,21 +1741,25 @@ class PairedAligner(BatchAligner):
             | (FLAG_MATE_REVERSE if o1 else 0) | sec_fl
         codes1, quals1 = self._oriented(cs, i, o1)
         codes2, quals2 = self._oriented(cs, B + i, o2)
+        n_pending = len(pending) if pending is not None else 0
         r1 = self._emit_aligned(rec1, L1, o1, codes1, quals1, p1, k1, t1,
                                 s1, xs1, mq, yt, fl1, rnext1,
                                 lo2 - int(self.data.ref_cum[rid2]) + 1,
-                                tlen1, ys=s2)
+                                tlen1, ys=s2, pending=pending)
         r2 = self._emit_aligned(rec2, L2, o2, codes2, quals2, p2, k2, t2,
                                 s2, xs2, mq, yt, fl2, rnext2,
                                 lo1 - int(self.data.ref_cum[rid1]) + 1,
-                                tlen2, ys=s1)
+                                tlen2, ys=s1, pending=pending)
         if r1 is None or r2 is None:
+            if pending is not None:    # neither record is emitted
+                del pending[n_pending:]
             return False
         out.append(r1)
         out.append(r2)
         return True
 
-    def _emit_mixed(self, st, out, cs, i, rec1, rec2, l1, l2, tb_of):
+    def _emit_mixed(self, st, out, cs, i, rec1, rec2, l1, l2, tb_of,
+                    pending=None):
         """No concordant/discordant pair: report mates individually
         (--no-mixed disables the aligned records). Field conventions for
         half-mapped pairs follow the reference (sam.cpp): the unmapped
@@ -1763,7 +1771,8 @@ class PairedAligner(BatchAligner):
         first (its unpaired alignment is reported before the unaligned
         leftover record), mate 1 first otherwise (verified against the
         binary on reads_1/2.fq: all 290 mate2-first pairs are exactly
-        the aligned-mate2 + unaligned-mate1 class)."""
+        the aligned-mate2 + unaligned-mate1 class). pending: as in
+        _emit_aligned."""
         pol = self.pol
         B = len(cs.lens) // 2
         scores = cs.pool.scores
@@ -1809,7 +1818,8 @@ class PairedAligner(BatchAligner):
                 r = self._emit_aligned(rec, int(cs.lens[ri]), orient, codes,
                                        quals, cs.pool, best_k, tb_of[best_k],
                                        best, sec, mq, "UP", fl,
-                                       rnext=rnext, pnext=pnext)
+                                       rnext=rnext, pnext=pnext,
+                                       pending=pending)
                 if r is not None:
                     if own_echo:
                         r.pnext = r.pos

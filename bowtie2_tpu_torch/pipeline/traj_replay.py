@@ -252,6 +252,7 @@ def _emit_gapped(aligner, fb, gapped) -> Dict[int, List[SamAlignment]]:
     sel = np.nonzero(ok)[0]
     tbs = aligner._backtrace_sel(pool, sel)
     out: Dict[int, List[SamAlignment]] = {}
+    pending: list = []
     for t, (ri, pred) in enumerate(gapped):
         if t not in tbs:
             aligner.metrics.add(traj_scorefail=1)
@@ -264,11 +265,12 @@ def _emit_gapped(aligner, fb, gapped) -> Dict[int, List[SamAlignment]]:
         mq = aligner._mapq(a.score, pred.xs, 0, int(fb.minsc[ri]))
         r = aligner._emit_aligned(
             rec, L, int(orient[t]), codes, quals, pool, t, tbs[t],
-            a.score, pred.xs, mq, "UU")
+            a.score, pred.xs, mq, "UU", pending=pending)
         if r is None:
             aligner.metrics.add(traj_scorefail=1)
             continue
         out[ri] = [r]
+    aligner._decode_pending(pending)
     return out
 
 
