@@ -14,6 +14,9 @@ drawn from (reference/dp.py). Three numbers come out:
 - `miss_pct`: the share of the sampled reads that can align (the band's
   best reaches the minimum score and the read's Ns pass the N ceiling)
   whose record is unaligned or scores below the band's best.
+
+In local mode (the configuration's `local`) the records are local
+alignments with soft clips, and the band's best is the best local score.
 """
 
 import numpy as np
@@ -84,8 +87,8 @@ def forward(reads):
 
 
 def band_best(reads, genome, sc, pad):
-    """The best end-to-end score of each read in a band of +-pad
-    diagonals around its origin."""
+    """The best score of each read (end to end, or local) in a band of
+    +-pad diagonals around its origin."""
     return banded(*forward(reads), genome, sc, pad)[0]
 
 
@@ -95,7 +98,7 @@ class Judge:
 
     def __init__(self, genome, config, traffic, paired):
         self.genome = genome
-        self.sc = Scoring(config["scoring"])
+        self.sc = Scoring(config["scoring"], config.get("local", False))
         self.pe = config.get("pe")
         self.pad = int(traffic["ref_band"])
         self.size = int(traffic["check_units"])

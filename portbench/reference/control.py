@@ -4,16 +4,15 @@ states quality-aware mismatch penalties (`mp` MX,MN: MN + floor((MX - MN)
 * min(Q, 40) / 40)); the control scores every mismatch at MX whatever its
 quality, as a DP that drops the quality lookup would, aligns each read in
 the band around its origin, and prints the records the program would
-print for that alignment. `check.Judge` must find it not correct."""
-
-import re
+print for that alignment (in local mode a local alignment, its soft clips
+included). `check.Judge` must find it not correct."""
 
 import numpy as np
 
 from portbench.reference.check import forward, reads_of
 from portbench.reference.dp import banded
-from portbench.reference.sam import LETTERS, Record, recompute, revcomp
-from portbench.reference.score import mapq_v2
+from portbench.reference.sam import (LETTERS, Record, cigar_ops, extent,
+                                     recompute, revcomp)
 
 
 def _aligned_line(name, flag, read, pos, cigar, score, mapq, genome, sc,
@@ -31,11 +30,6 @@ def _aligned_line(name, flag, read, pos, cigar, score, mapq, genome, sc,
     tags = (f"AS:i:{score}\tXN:i:0\tXM:i:{f['XM']}\tXO:i:{f['XO']}\t"
             f"XG:i:{f['XG']}\tNM:i:{f['NM']}\tMD:Z:{f['MD']}{extra}")
     return line + b"\t" + tags.encode()
-
-
-def _ref_len(cigar):
-    return sum(int(n) for n, op in re.findall(r"(\d+)([MID])", cigar)
-               if op in "MD")
 
 
 def _unaligned_line(name, flag, read, extra):
@@ -61,16 +55,20 @@ def control_groups(units, names, genome, judge):
             continue
         if not judge.paired:
             s, (pos, cig), r = al[0]
-            mq = mapq_v2(s, None, 0, sc.min_score(r[0].size))
+            L = r[0].size
+            mq = sc.mapq(s, None, sc.perfect(L), sc.min_score(L))
             out.append([(16 * r[3], _aligned_line(
                 name, 16 * r[3], r, pos, cig, s, mq, genome, sc,
                 extra="\tYT:Z:UU"))])
             continue
         (s1, (p1, c1), m1), (s2, (p2, c2), m2) = al
-        frag = max(p1 + _ref_len(c1), p2 + _ref_len(c2)) - min(p1, p2)
-        mq = mapq_v2(s1 + s2, None, 0, sc.min_score(m1[0].size) +
-                     sc.min_score(m2[0].size))
-        first1 = p1 < p2 or (p1 == p2 and not m1[3])
+        (b1, e1), (b2, e2) = (extent(p, cigar_ops(c.encode()))
+                              for p, c in ((p1, c1), (p2, c2)))
+        frag = max(e1, e2) - min(b1, b2)
+        L1, L2 = m1[0].size, m2[0].size
+        mq = sc.mapq(s1 + s2, None, sc.perfect(L1) + sc.perfect(L2),
+                     sc.min_score(L1) + sc.min_score(L2))
+        first1 = b1 < b2 or (b1 == b2 and not m1[3])
         grp = []
         for me, other, mate, first, ys, (s, (p, c), r) in (
                 (0x40, m2, p2, first1, s2, al[0]),

@@ -1,12 +1,15 @@
-"""A plain banded end-to-end DP: the best score a read can have around a
-known origin on the genome, under a configuration's scoring (affine
-gaps, quality-aware mismatches, N penalty, gap barrier), and the
-alignment that reaches it.
+"""A plain banded DP: the best score a read can have around a known
+origin on the genome, under a configuration's scoring (affine gaps,
+quality-aware mismatches, N penalty, gap barrier, and in local mode the
+match bonus), and the alignment that reaches it.
 
 Cell (i, k) pairs read base i with genome position origin + i + k - pad.
-Every read base is aligned (end to end); the alignment may start and end
-at any column of the band. A band of +-pad diagonals around the origin
-gives a lower bound on the best alignment over the whole genome."""
+End to end every read base is aligned; the alignment may start and end
+at any column of the band. In local mode (the scoring's `local`) a cell
+never scores below 0, an alignment starts and ends at any cell of the
+band, and the read bases before and after it are soft-clipped. A band
+of +-pad diagonals around the origin gives a lower bound on the best
+alignment over the whole genome."""
 
 import numpy as np
 
@@ -21,7 +24,8 @@ def banded(reads, quals, lens, origin, genome, sc, pad, flat=False,
     the genome position of each read's first base; sc a Scoring. flat:
     every mismatch costs the largest penalty whatever its quality (the
     control). Returns the best score of each read (NEG: none) and, with
-    trace, each read's (first genome position, CIGAR string)."""
+    trace, each read's (genome position of its first aligned base, CIGAR
+    string, soft clips included)."""
     n, Lmax = reads.shape
     Wb = 2 * pad + 1
     G = genome.size
@@ -34,7 +38,9 @@ def banded(reads, quals, lens, origin, genome, sc, pad, flat=False,
     fgo, fge = sc.rfg_open + sc.rfg_ext, sc.rfg_ext      # 'I', down a column
     h = np.zeros((n, Wb), np.int64)
     e = np.full((n, Wb), NEG, np.int64)
+    local = sc.local
     best = np.full(n, NEG, np.int64)
+    best_i = lens - 1
     best_k = np.zeros(n, np.int64)
     negcol = np.full((n, 1), NEG, np.int64)
     ext_e = kk[None, :] * rge
@@ -43,6 +49,7 @@ def banded(reads, quals, lens, origin, genome, sc, pad, flat=False,
         from_f = np.zeros((Lmax, n, Wb), bool)      # h took 'D'
         e_ext = np.zeros((Lmax, n, Wb), bool)
         f_ext = np.zeros((Lmax, n, Wb), bool)
+        zero = np.zeros((Lmax, n, Wb), bool)        # local: starts after it
     for i in range(Lmax):
         pos = col0 + i
         inb = (pos >= 0) & (pos < G)
@@ -68,7 +75,10 @@ def banded(reads, quals, lens, origin, genome, sc, pad, flat=False,
             - sc.rdg_open
         f_cur = np.where(bar[:, None], NEG, f_cur)
         h_cur = np.maximum(np.maximum(h_nof, f_cur), NEG)
+        if local:
+            h_cur = np.maximum(h_cur, 0)
         if trace:
+            zero[i] = h_cur <= 0
             src[i] = np.where(e_cur > hd, VERT, DIAG)
             from_f[i] = f_cur > h_nof
             e_ext[i] = e_more > e_open
@@ -78,12 +88,19 @@ def banded(reads, quals, lens, origin, genome, sc, pad, flat=False,
         active = (lens > i)[:, None]
         h = np.where(active, h_cur, h)
         e = np.where(active, e_cur, e)
+        if local:
+            rb = np.where(active[:, 0], h_cur.max(axis=1), NEG)
+            up = rb > best
+            best = np.where(up, rb, best)
+            best_i = np.where(up, i, best_i)
+            best_k = np.where(up, h_cur.argmax(axis=1), best_k)
+            continue
         last = lens - 1 == i
         if last.any():
             rb = h_cur.max(axis=1)
             best = np.where(last, rb, best)
             best_k = np.where(last, h_cur.argmax(axis=1), best_k)
-    best = np.where(best <= NEG // 2, NEG, best)
+    best = np.where(best <= (0 if local else NEG // 2), NEG, best)
     if not trace:
         return best, None
     alns = []
@@ -92,21 +109,27 @@ def banded(reads, quals, lens, origin, genome, sc, pad, flat=False,
             alns.append(None)
             continue
         alns.append(_walk(src[:, r], from_f[:, r], e_ext[:, r], f_ext[:, r],
-                          int(lens[r]) - 1, int(best_k[r]),
-                          int(origin[r]) - pad))
+                          zero[:, r] if local else None, int(best_i[r]),
+                          int(best_k[r]), int(origin[r]) - pad,
+                          int(lens[r])))
     return best, alns
 
 
-def _walk(src, from_f, e_ext, f_ext, i, k, base):
-    """The CIGAR from cell (i, k) back to row -1, and its first genome
-    position (base + i + k at the first aligned base)."""
-    ops = []
+def _walk(src, from_f, e_ext, f_ext, zero, i, k, base, length):
+    """The CIGAR from cell (i, k) back to row -1 or, in local mode (zero:
+    the cells that score 0), to the first cell after one that scores 0,
+    and the genome position of the first aligned base (base + i + k
+    there). Read bases outside the alignment are soft-clipped."""
+    ops = ["S"] * (length - 1 - i)
     state = HORIZ if from_f[i, k] else src[i, k]
     while i >= 0:
         if state == DIAG:
             ops.append("M")
             start = base + i + k
             i -= 1
+            if i >= 0 and zero is not None and zero[i, k]:
+                ops += ["S"] * (i + 1)
+                break
             if i >= 0:
                 state = HORIZ if from_f[i, k] else src[i, k]
         elif state == VERT:

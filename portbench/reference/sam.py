@@ -1,16 +1,18 @@
-"""What a SAM record of an end-to-end Bowtie 2 alignment must say, worked
-out again from the genome, the read and the record's own position,
-strand and CIGAR: the score (AS), the edits (NM, XM, XO, XG), the MD
-string, the sequence and qualities as printed, and the MAPQ."""
+"""What a SAM record of a Bowtie 2 alignment, end to end or local, must
+say, worked out again from the genome, the read and the record's own
+position, strand and CIGAR: the score (AS), the edits (NM, XM, XO, XG),
+the MD string, the sequence and qualities as printed, the MAPQ, and a
+pair's fields. A local alignment's soft clips are the read bases at
+either end that it leaves out: they score nothing, POS is its first
+aligned base, and SEQ and QUAL still hold the whole read."""
 
 import re
 
 import numpy as np
 
-from portbench.reference.score import mapq_v2
-
 LETTERS = np.frombuffer(b"ACGTN", np.uint8)
 _CIGAR = re.compile(rb"(\d+)([MIDNSHP=X])")
+_MD = re.compile(r"(\d+)|\^([A-Z]+)|([A-Z])")     # MD:Z's three kinds
 
 
 def revcomp(codes):
@@ -46,12 +48,75 @@ class Record:
         return not self.flag & 4
 
     def ops(self):
-        return [(int(n), op.decode()) for n, op in _CIGAR.findall(self.cigar)]
+        return cigar_ops(self.cigar)
 
     def span(self):
-        """(first, end) genome positions, 0-based, end exclusive."""
+        """(first, end) genome positions of the aligned bases, 0-based,
+        end exclusive."""
         ref = sum(n for n, op in self.ops() if op in "MD=XN")
         return self.pos - 1, self.pos - 1 + ref
+
+    def extent(self):
+        """span() widened by the soft clips at either end: where the read
+        would lie with its clipped bases aligned too."""
+        return extent(self.pos - 1, self.ops())
+
+
+def cigar_ops(cigar):
+    """A CIGAR string (bytes) as [(length, op)]."""
+    return [(int(n), op.decode()) for n, op in _CIGAR.findall(cigar)]
+
+
+def clipped(ops):
+    """(bases soft-clipped before, the ops between, bases clipped after).
+    Raises ValueError on an S op anywhere but at either end."""
+    lead = ops[0][0] if ops and ops[0][1] == "S" else 0
+    trail = ops[-1][0] if len(ops) > 1 and ops[-1][1] == "S" else 0
+    core = ops[bool(lead):len(ops) - bool(trail)]
+    if not core or any(op == "S" for _n, op in core):
+        raise ValueError("a soft clip not at an end of the CIGAR")
+    return lead, core, trail
+
+
+def extent(first, ops):
+    """The genome extent, 0-based and end exclusive, of an alignment whose
+    first aligned base is at `first`, with its soft-clipped bases counted
+    as if aligned: Bowtie 2's fragment in local mode (TLEN includes soft
+    clips unless --soft-clipped-unmapped-tlen)."""
+    lead, core, trail = clipped(ops)
+    ref = sum(n for n, op in core if op in "MD=XN")
+    return first - lead, first + ref + trail
+
+
+def ref_from_md(ops, seq, md):
+    """The reference codes under an alignment's M and D ops, from the
+    aligned read bases (`seq`, codes, soft clips left out) and its MD:Z
+    string: a read base where MD counts a match, MD's base elsewhere."""
+    code = {chr(c): j for j, c in enumerate(LETTERS)}
+    items = []          # per M base: None (a match) or its reference code;
+    for k, d, x in _MD.findall(md):       # per deletion: its codes, a list
+        items += [None] * int(k) if k else \
+            [[code[c] for c in d]] if d else [code[x]]
+    ref, i, j = [], 0, 0                  # read base, MD item
+    for n, op in ops:
+        if op == "I":
+            i += n
+        elif op == "D":
+            if j >= len(items) or not isinstance(items[j], list) or \
+                    len(items[j]) != n:
+                raise ValueError(f"MD {md!r} lacks a deletion of {n}")
+            ref += items[j]
+            j += 1
+        else:
+            got = items[j:j + n]
+            if len(got) != n or any(isinstance(v, list) for v in got):
+                raise ValueError(f"MD {md!r} does not fit {n}M")
+            ref += [int(seq[i + t]) if v is None else v
+                    for t, v in enumerate(got)]
+            i, j = i + n, j + n
+    if j != len(items):
+        raise ValueError(f"MD {md!r} is longer than the alignment")
+    return np.asarray(ref, np.int64)
 
 
 def recompute(rec, codes, quals, genome, sc):
@@ -59,7 +124,7 @@ def recompute(rec, codes, quals, genome, sc):
     genome.py Genome) and the read (codes and quals as generated): a dict
     of AS, NM, XM, XO, XG, MD. Raises ValueError on an RNAME that is not
     one of the genome's references, or a CIGAR that does not fit the read
-    or its reference."""
+    or its reference, or soft-clips an end-to-end alignment."""
     r = np.asarray(codes, np.int64)
     q = np.asarray(quals, np.int64)
     if rec.flag & 16:
@@ -67,9 +132,11 @@ def recompute(rec, codes, quals, genome, sc):
     ops = rec.ops()
     if b"".join(b"%d%s" % (n, op.encode()) for n, op in ops) != rec.cigar:
         raise ValueError(f"CIGAR {rec.cigar!r} does not parse")
-    if any(op not in "MID" for _n, op in ops):
-        raise ValueError(f"CIGAR {rec.cigar!r}: end-to-end takes M, I, D")
-    qlen = sum(n for n, op in ops if op in "MI")
+    lead, core, trail = clipped(ops) if sc.local else (0, ops, 0)
+    if any(op not in "MID" for _n, op in core):
+        raise ValueError(f"CIGAR {rec.cigar!r}: M, I and D only"
+                         f"{', and S at either end' if sc.local else ''}")
+    qlen = lead + trail + sum(n for n, op in core if op in "MI")
     if qlen != r.size:
         raise ValueError(f"CIGAR {rec.cigar!r} spans {qlen} of "
                          f"{r.size} read bases")
@@ -82,14 +149,23 @@ def recompute(rec, codes, quals, genome, sc):
     if first < lo or end > hi:
         raise ValueError(f"alignment {rec.pos}..{end - lo} leaves "
                          f"{rec.rname}")
-    genome = genome.codes
+    end_r = r.size - trail
+    return fields(core, r[lead:end_r], q[lead:end_r],
+                  genome.codes[first:end].astype(np.int64), sc)
+
+
+def fields(ops, r, q, ref, sc):
+    """AS, NM, XM, XO, XG and MD of an alignment: its M, I and D ops, the
+    aligned read bases and their quals (r, q: codes as they lie on the
+    genome's forward strand, soft clips left out) and the reference codes
+    under its M and D ops (ref)."""
     pen = sc.mm_pen(q)
     score = nm = xm = xo = xg = 0
     md, run = [], 0
-    i, g = 0, first
+    i, g = 0, 0
     for n, op in ops:
         if op == "M":
-            rr, gg = r[i:i + n], genome[g:g + n].astype(np.int64)
+            rr, gg = r[i:i + n], ref[g:g + n]
             is_n = (rr == 4) | (gg == 4)
             mis = (rr != gg) | is_n
             score += int(np.where(is_n, -sc.np,
@@ -110,7 +186,7 @@ def recompute(rec, codes, quals, genome, sc):
             score -= sc.rdg_open + sc.rdg_ext * n
             nm, xo, xg = nm + n, xo + 1, xg + n
             md.append(f"{run}")
-            md.append("^" + LETTERS[genome[g:g + n]].tobytes().decode())
+            md.append("^" + LETTERS[ref[g:g + n]].tobytes().decode())
             run = 0
             g += n
     md.append(f"{run}")
@@ -150,8 +226,8 @@ def read_errors(rec, name, codes, quals, genome, sc):
 
 def se_mapq_ok(rec, length, sc):
     """An unpaired record's MAPQ from its AS and XS."""
-    return rec.mapq == mapq_v2(rec.tags["AS"], rec.tags.get("XS"), 0,
-                               sc.min_score(length))
+    return rec.mapq == sc.mapq(rec.tags["AS"], rec.tags.get("XS"),
+                               sc.perfect(length), sc.min_score(length))
 
 
 def pair_mapq_ok(rec, mate, lengths, sc):
@@ -163,14 +239,18 @@ def pair_mapq_ok(rec, mate, lengths, sc):
         return False
     best = rec.tags["AS"] + mate.tags["AS"]
     minsc = sc.min_score(lengths[0]) + sc.min_score(lengths[1])
-    can = {mapq_v2(best, s, 0, minsc) for s in range(minsc, best + 1)}
-    can.add(mapq_v2(best, None, 0, minsc))
+    perfect = sc.perfect(lengths[0]) + sc.perfect(lengths[1])
+    can = {sc.mapq(best, s, perfect, minsc)
+           for s in [None, *range(minsc, best + 1)]}
     return rec.mapq in can
 
 
 def pair_errors(r1, r2, lengths, sc, pe):
     """What is wrong with the pair's own fields of the two primary
-    records of a pair (each mate's alignment is read_errors')."""
+    records of a pair (each mate's alignment is read_errors'). The
+    fragment runs over both mates' spans (in local mode their extents,
+    soft clips included), and TLEN is positive on the mate whose span
+    starts first."""
     err = []
     for r, m in ((r1, 0x40), (r2, 0x80)):
         if r.flag & (0x1 | m) != 0x1 | m:
@@ -202,7 +282,11 @@ def pair_errors(r1, r2, lengths, sc, pe):
             err.append("TLEN, FLAG 0x2 or YT:Z:CP on mates aligned "
                        "unpaired or to two references")
         return err
-    (s1, e1), (s2, e2) = r1.span(), r2.span()
+    try:
+        (s1, e1), (s2, e2) = (r.extent() if sc.local else r.span()
+                              for r in (r1, r2))
+    except ValueError as e:
+        return err + [str(e)]
     frag = max(e1, e2) - min(s1, s2)
     if s1 != s2:
         first = r1 if s1 < s2 else r2

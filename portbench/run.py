@@ -330,7 +330,8 @@ def run_cell(cell, seed, seconds, trace, device="cuda", fault=None,
     ru1 = resource.getrusage(resource.RUSAGE_SELF)
     log(f"this process's CPU time in the window: "
         f"{ru1.ru_utime - ru0.ru_utime + ru1.ru_stime - ru0.ru_stime:.3f} s "
-        f"of {t1 - t0:.3f} s")
+        f"of {t1 - t0:.3f} s, {ru1.ru_stime - ru0.ru_stime:.3f} s of it "
+        f"in the system")
     gaps = np.diff([t0] + marks)
     log(f"seconds between collects: first {gaps[0]:.4f}, then median "
         f"{np.median(gaps[1:]) if len(gaps) > 1 else 0:.4f}, quartiles "
