@@ -737,7 +737,8 @@ def cmd_align(argv):
 def _host_path_report(counters, nbatches):
     """The run's batches that left the fused device path, on stderr: those
     over the fused DP budget, and those whose pairing was re-run on the
-    host."""
+    host; then the fused paths' backtrace walks and the soft-clipped
+    records."""
     k = counters.get("overflow_batches", 0)
     if k:
         print(f"fused DP budget exceeded in {k} of {nbatches} batches "
@@ -749,6 +750,14 @@ def _host_path_report(counters, nbatches):
               f"({counters.get('repair_pairs', 0)} pairs, of which the "
               f"device pairing flagged "
               f"{counters.get('hostneed_pairs', 0)})", file=sys.stderr)
+    k = counters.get("bt_walks", 0)
+    if k:
+        print(f"backtrace walks of the fused paths: {k}", file=sys.stderr)
+    k = counters.get("clipped_records", 0)
+    if k:
+        print(f"soft-clipped records: {k} "
+              f"({counters.get('clipped_bases', 0)} bases clipped)",
+              file=sys.stderr)
 
 
 def cmd_inspect(argv):

@@ -462,6 +462,13 @@ def _core(half: FMHalf, ref_words, refn_words, seg: SegTables,
         dplane=dplane, n_dpdrop=n_dpdrop)
 
 
+def se_walks(Bc: int, local: bool) -> int:
+    """The walks fused_se sends to the backtrace for Bc chosen slots: all
+    of them in local mode (soft-clipped starts need the walk), the NBT
+    lanes of the gapped remainder end to end."""
+    return Bc if local else max(Bc // 4, 64)
+
+
 def fused_se(half: FMHalf, ref_words, refn_words, seg: SegTables,
              jboth, jquals, lens, offs_all, valid_all, minsc, live_read,
              live_or=None, *, params: SWParams, band: int, seed_len: int,
@@ -544,7 +551,7 @@ def fused_se(half: FMHalf, ref_words, refn_words, seg: SegTables,
             rows_sel + 1, params)
         gapless = ch_okf & gok & (dscore == _take(res.score, ch_ci))
         need_bt = ch_okf & ~gapless
-        NBT = max(Bc // 4, 64)
+        NBT = se_walks(Bc, False)
         bkeys = torch.where(need_bt, _ar(Bc, dev), BIGKEY)
         gperm = torch.argsort(bkeys, stable=True)[:NBT].to(i32)
         glive = _take(bkeys, gperm) < BIGKEY

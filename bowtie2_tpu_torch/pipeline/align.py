@@ -39,7 +39,7 @@ from bowtie2_tpu_torch.io.sam import (FLAG_REVERSE, FLAG_UNMAPPED,
                                       qual_string)
 from bowtie2_tpu_torch.ops import fm
 from bowtie2_tpu_torch.ops.fused import (CHOSEN_FIELDS, SegTables, fused_pe,
-                                         fused_se)
+                                         fused_se, se_walks)
 from bowtie2_tpu_torch.ops.ref import gather_windows
 from bowtie2_tpu_torch.ops.sw import (OP_NONE, backtrace, backtrace_diag,
                                       bt_steps, sw_banded, sw_banded_diag)
@@ -716,6 +716,9 @@ class BatchAligner:
         if sc["score_check"] != int(pool.scores[k]):
             return None
         read_end = int(pool.rows_end[k]) + 1
+        clip = sc["read_start"] + L - read_end
+        if clip:
+            self.metrics.add(clipped_records=1, clipped_bases=clip)
         walk = None
         if "cigar_ops" in sc:      # host gapless fast path (_gapless_tb)
             cigar, md = cigar_string(sc["cigar_ops"]), sc["md"]
@@ -1461,7 +1464,8 @@ class UnpairedAligner(BatchAligner):
             unpaired=B, unf_reads=int((~filtered[:B]).sum()),
             unf_bases=int(lens[:B][~filtered[:B]].sum()),
             ex_attempts=int(live.sum()), seed_searches=int(live.sum()),
-            dp_problems=NC, dp_cells=NC * Lmax * W, backtraces=Bp * kk_bt)
+            dp_problems=NC, dp_cells=NC * Lmax * W, backtraces=Bp * kk_bt,
+            bt_walks=se_walks(Bp * kk_bt, pol.local))
         return FusedBatch(records=records, B=B, Bp=Bp, Lmax=Lmax,
                           S=bt_steps(Lmax, W, pol.local), kk=kk, kk_bt=kk_bt,
                           lens=lens, fw=fw, qu=qu, rc=rc, qu_r=qu_r,

@@ -924,7 +924,7 @@ class PairedAligner(BatchAligner):
                 cs.end_pos[sel])
             sel = np.asarray(sel, np.int32)
         if sel.size:
-            tb_of.update(self._backtrace_sel(pool, sel))
+            tb_of.update(self._walk_fused(pool, sel))
 
         # ---- per-pair emission ----
         st = AlignStats()
@@ -1298,6 +1298,13 @@ class PairedAligner(BatchAligner):
                     need.add(int(ns.r_fc[ri]))
         return need
 
+    def _walk_fused(self, pool, sel):
+        """_backtrace_sel for a fused path's chosen candidates, counted in
+        `bt_walks` (every chosen slot in local mode, the gapped rest end
+        to end)."""
+        self.metrics.add(bt_walks=int(sel.size))
+        return self._backtrace_sel(pool, sel)
+
     def _fast_tb(self, ns, need):
         """tb dict for the `need` candidates (gapless host synthesis +
         device backtrace for the rest)."""
@@ -1316,7 +1323,7 @@ class PairedAligner(BatchAligner):
                 cs.end_pos[sel])
             sel = np.asarray(sel, np.int32)
         if sel.size:
-            tb_of.update(self._backtrace_sel(pool, sel))
+            tb_of.update(self._walk_fused(pool, sel))
         return tb_of
 
     def _collect_fused_fast(self, fpb: FusedPEBatch, rf, pf, cif
@@ -1394,7 +1401,7 @@ class PairedAligner(BatchAligner):
             walk_sel = sel[~okg]
             tbw = {}
             if walk_sel.size:
-                tbw = self._backtrace_sel(pool, walk_sel)
+                tbw = self._walk_fused(pool, walk_sel)
             # assemble a single (S, nsel) op matrix: gapless columns from
             # the host synthesis, walked columns from the device output
             S_walk = max((v[0].shape[0] for v in tbw.values()), default=1)
@@ -1531,6 +1538,11 @@ class PairedAligner(BatchAligner):
             rdlen = ilv(L1, L2)
             rdstart = c_rdstart[tsel]
             rdend = ilv(rdend1, rdend2)
+            clip = rdstart + (rdlen - rdend)
+            n_clip = int(np.count_nonzero(clip))
+            if n_clip:
+                self.metrics.add(clipped_records=n_clip,
+                                 clipped_bases=int(clip.sum()))
             bound = (rdend - rdstart) + xg + 1
             if self._names_tab is None:
                 self._names_tab = RefNameTable(self.data.ref_names)
@@ -1753,6 +1765,11 @@ class PairedAligner(BatchAligner):
         if r1 is None or r2 is None:
             if pending is not None:    # neither record is emitted
                 del pending[n_pending:]
+            # nor counted: take back the clip _emit_aligned counted
+            for r, t, p, k, L in ((r1, t1, p1, k1, L1), (r2, t2, p2, k2, L2)):
+                clip = t[1]["read_start"] + L - int(p.rows_end[k]) - 1
+                if r is not None and clip:
+                    self.metrics.add(clipped_records=-1, clipped_bases=-clip)
             return False
         out.append(r1)
         out.append(r2)
@@ -1809,11 +1826,16 @@ class PairedAligner(BatchAligner):
                     own_echo = True
                 else:
                     # both mates aligned but not as a pair: the reference
-                    # still cross-references them (RNEXT '=', PNEXT =
-                    # other's POS, TLEN 0; sam.cpp mixed-mode convention)
+                    # still cross-references them (RNEXT the other's
+                    # reference, '=' where it is this one's; PNEXT the
+                    # other's POS; TLEN 0; sam.cpp mixed-mode convention)
                     ok2 = other_lst[0]
-                    rnext = "="
-                    pnext = int(cs.pool.win_start[ok2])                         + tb_of[ok2][1]["ref_start_win"]                         - int(self.data.ref_cum[int(cs.pool.rid[ok2])]) + 1
+                    o_rid = int(cs.pool.rid[ok2])
+                    rnext = "=" if o_rid == int(cs.pool.rid[best_k]) \
+                        else self.data.ref_names[o_rid]
+                    pnext = int(cs.pool.win_start[ok2]) \
+                        + tb_of[ok2][1]["ref_start_win"] \
+                        - int(self.data.ref_cum[o_rid]) + 1
                     fl |= FLAG_MATE_REVERSE if cs.cand_or[ok2] else 0
                 r = self._emit_aligned(rec, int(cs.lens[ri]), orient, codes,
                                        quals, cs.pool, best_k, tb_of[best_k],
